@@ -1,0 +1,142 @@
+"""Builds the port's CUDA kernels at first use and counts their launches.
+
+The kernels are CUDA C++ for Hopper (`sm_90a`) in the package's `csrc/`
+directory. They expose a plain C interface: raw pointers, ints and the
+stream, each function returning `cudaGetLastError()`. So no source
+includes PyTorch's headers and a build takes seconds. `library()` compiles
+every `csrc/*.cu` with `nvcc` into one shared library under `_build/`
+(named by a hash of the sources and flags, so an edited source rebuilds)
+and loads it with ctypes.
+
+`LAUNCHES` counts kernel launches by the TPU kernel each launch stands in
+for. A wrapper adds one where it launches its kernel, and nowhere else, so
+a run can show that its main path went through the kernels.
+"""
+from __future__ import annotations
+
+import ctypes
+import hashlib
+import os
+import shutil
+import subprocess
+import time
+from pathlib import Path
+from typing import Dict
+
+import torch
+
+_PACKAGE_DIR = Path(__file__).resolve().parent.parent
+CSRC_DIR = _PACKAGE_DIR / 'csrc'
+BUILD_DIR = _PACKAGE_DIR / '_build'
+NVCC_FLAGS = ('-gencode', 'arch=compute_90a,code=sm_90a', '-std=c++17', '-O3',
+              '-shared', '-Xcompiler', '-fPIC', '-Xptxas', '-v')
+
+# warp: ops/warp_window.py's window warp (B1); conv3x3_c64: the C=64 stack
+# of ops/conv_stack.py (B2); conv3x3_wide: the C>=128 flat stack of
+# ops/conv_stack_wide.py (B3). All three names in the JAX package.
+LAUNCHES: Dict[str, int] = {'warp': 0, 'conv3x3_c64': 0, 'conv3x3_wide': 0}
+
+# Filled by the first library() call: 'path', 'seconds' (0.0 when the
+# library was already built) and 'log' (nvcc's -Xptxas -v report).
+BUILD_INFO: Dict[str, object] = {}
+
+_lib = None
+
+
+def reset_launch_counts() -> None:
+  for name in LAUNCHES:
+    LAUNCHES[name] = 0
+
+
+def launch_counts() -> Dict[str, int]:
+  return dict(LAUNCHES)
+
+
+def _nvcc() -> str:
+  for home in (os.environ.get('CUDA_HOME'), os.environ.get('CUDA_PATH'),
+               '/usr/local/cuda'):
+    if home and (Path(home) / 'bin' / 'nvcc').is_file():
+      return str(Path(home) / 'bin' / 'nvcc')
+  found = shutil.which('nvcc')
+  if found is None:
+    raise RuntimeError('nvcc not found: the CUDA kernels need the CUDA '
+                       'toolkit (set CUDA_HOME).')
+  return found
+
+
+def _build() -> Path:
+  sources = sorted(CSRC_DIR.glob('*.cu'))
+  digest = hashlib.sha256(' '.join(NVCC_FLAGS).encode())
+  for path in sorted(CSRC_DIR.glob('*.cu*')):
+    digest.update(path.name.encode())
+    digest.update(path.read_bytes())
+  target = BUILD_DIR / f'libfi_kernels_{digest.hexdigest()[:16]}.so'
+  BUILD_INFO['path'] = str(target)
+  if target.is_file():
+    BUILD_INFO.update(seconds=0.0, log='')
+    return target
+  BUILD_DIR.mkdir(parents=True, exist_ok=True)
+  partial = target.with_name(f'{target.name}.{os.getpid()}.tmp')
+  cmd = [_nvcc(), *NVCC_FLAGS, '-o', str(partial), *map(str, sources)]
+  start = time.perf_counter()
+  proc = subprocess.run(cmd, capture_output=True, text=True, check=False)
+  if proc.returncode != 0:
+    raise RuntimeError(f'nvcc failed with code {proc.returncode}:\n'
+                       f'{" ".join(cmd)}\n{proc.stdout}\n{proc.stderr}')
+  os.replace(partial, target)
+  BUILD_INFO.update(seconds=time.perf_counter() - start,
+                    log=proc.stdout + proc.stderr)
+  return target
+
+
+def _declare(lib: ctypes.CDLL) -> None:
+  ptr, i32 = ctypes.c_void_p, ctypes.c_int
+  for name in ('fi_warp_bf16', 'fi_warp_f32'):
+    fn = getattr(lib, name)
+    # image, flow, out, B, H, W, C, stream
+    fn.argtypes = [ptr, ptr, ptr, i32, i32, i32, i32, ptr]
+    fn.restype = i32
+  for name in ('fi_conv3x3_bf16', 'fi_conv3x3_f32'):
+    fn = getattr(lib, name)
+    # x, w, bias, out, pool (or NULL), N, H, W, Cin, Cout, slope, stream
+    fn.argtypes = [ptr, ptr, ptr, ptr, ptr, i32, i32, i32, i32, i32,
+                   ctypes.c_float, ptr]
+    fn.restype = i32
+  lib.fi_error_string.argtypes = [i32]
+  lib.fi_error_string.restype = ctypes.c_char_p
+
+
+def library() -> ctypes.CDLL:
+  """The kernels' shared library, built and loaded on first call."""
+  global _lib
+  if _lib is None:
+    lib = ctypes.CDLL(str(_build()))
+    _declare(lib)
+    _lib = lib
+  return _lib
+
+
+def require_cuda(name: str, *tensors: torch.Tensor,
+                 alignment: int = 1) -> None:
+  """Raises unless every tensor is a contiguous CUDA tensor whose data
+  starts on an `alignment`-byte boundary."""
+  for t in tensors:
+    if t.device.type != 'cuda':
+      raise ValueError(f'{name}: the kernel takes CUDA tensors; got one on '
+                       f'{t.device}')
+    if not t.is_contiguous():
+      raise ValueError(f'{name}: the kernel takes contiguous tensors')
+    if t.data_ptr() % alignment:
+      raise ValueError(f'{name}: the kernel takes tensors aligned to '
+                       f'{alignment} bytes')
+
+
+def stream_of(t: torch.Tensor) -> int:
+  return torch.cuda.current_stream(t.device).cuda_stream
+
+
+def check(name: str, code: int) -> None:
+  """Raises if a kernel's C entry point reported a CUDA error."""
+  if code != 0:
+    message = library().fi_error_string(code).decode()
+    raise RuntimeError(f'{name}: CUDA error {code} ({message})')

@@ -1,0 +1,141 @@
+"""conv3x3 + bias + leaky-relu, with an optional fused 2x2 average pool.
+
+One function covers both TPU conv kernels of the feature extractor:
+ops/conv_stack.py (the C=64 second conv of sub-level 0, with its pool) and
+ops/conv_stack_wide.py (the C in {128, 256, 512} second convs, and the
+rectangular first convs 128->256 and 256->512). Both compute
+
+  y = leaky_relu(conv3x3_same(x, w) + b, 0.2)      accumulated in f32
+  pooled = avg_pool_2x2(y)                          from the f32 values
+
+and round y and pooled once to the input dtype. `conv3x3_leaky` routes a
+CPU tensor to `conv3x3_leaky_plain` and a CUDA tensor to the kernel in
+csrc/conv3x3.cu; there is no other route.
+
+Tensors are NHWC, as in the JAX package; weights are PyTorch's OIHW
+parameters in f32, cast to the input dtype as flax's promote_dtype does.
+"""
+from __future__ import annotations
+
+from typing import Optional, Tuple
+
+import torch
+import torch.nn.functional as F
+from torch.utils.weak import WeakTensorKeyDictionary
+
+from . import _kernels
+
+_KERNEL_DTYPES = {torch.bfloat16: 'fi_conv3x3_bf16',
+                  torch.float32: 'fi_conv3x3_f32'}
+# The kernel's tile width along both channel axes.
+_CHANNEL_MULTIPLE = 64
+
+# weight -> (key, packed): the (3, 3, Cin, Cout) copy the kernel reads,
+# rebuilt when the weight is written to in place, moved, or another dtype
+# is asked for.
+_PACKED = WeakTensorKeyDictionary()
+
+
+def _pack(weight: torch.Tensor, dtype: torch.dtype) -> torch.Tensor:
+  return weight.detach().to(dtype).permute(2, 3, 1, 0).contiguous()
+
+
+def _packed_weight(weight: torch.Tensor, dtype: torch.dtype) -> torch.Tensor:
+  if weight.is_inference():
+    # Inference tensors keep no version counter: nothing to key a cache on.
+    return _pack(weight, dtype)
+  key = (weight._version, weight.data_ptr(), weight.device, dtype)
+  cached = _PACKED.get(weight)
+  if cached is None or cached[0] != key:
+    cached = (key, _pack(weight, dtype))
+    _PACKED[weight] = cached
+  return cached[1]
+
+
+def _check(x: torch.Tensor, weight: torch.Tensor, bias: torch.Tensor) -> None:
+  if x.dim() != 4:
+    raise ValueError(f'expected x (N, H, W, Cin); got {tuple(x.shape)}')
+  cin = x.shape[-1]
+  if weight.dim() != 4 or tuple(weight.shape[1:]) != (cin, 3, 3):
+    raise ValueError(f'expected weight (Cout, {cin}, 3, 3); got '
+                     f'{tuple(weight.shape)}')
+  if tuple(bias.shape) != (weight.shape[0],):
+    raise ValueError(f'expected bias ({weight.shape[0]},); got '
+                     f'{tuple(bias.shape)}')
+
+
+def conv3x3_leaky_plain(x: torch.Tensor, weight: torch.Tensor,
+                        bias: torch.Tensor, pool: bool = False,
+                        negative_slope: float = 0.2
+                        ) -> Tuple[torch.Tensor, Optional[torch.Tensor]]:
+  """The conv as plain tensor ops (any device).
+
+  The conv runs in x's dtype (f32 accumulation in both PyTorch backends);
+  bias, activation and pool run in f32 and each output rounds once.
+  """
+  _check(x, weight, bias)
+  y = F.conv2d(x.permute(0, 3, 1, 2), weight.to(x.dtype), padding=1)
+  y = y.float() + bias.float()[:, None, None]
+  y = F.leaky_relu(y, negative_slope)
+  pooled = F.avg_pool2d(y, 2).to(x.dtype) if pool else None
+  features = y.to(x.dtype)
+
+  def nhwc(t):
+    return t.permute(0, 2, 3, 1).contiguous()
+
+  return nhwc(features), (nhwc(pooled) if pool else None)
+
+
+def conv3x3_leaky_kernel(x: torch.Tensor, weight: torch.Tensor,
+                         bias: torch.Tensor, pool: bool = False,
+                         negative_slope: float = 0.2
+                         ) -> Tuple[torch.Tensor, Optional[torch.Tensor]]:
+  """The conv through csrc/conv3x3.cu. CUDA tensors only; raises otherwise.
+
+  Cin and Cout must be multiples of 64. The OIHW weights are repacked to
+  (3, 3, Cin, Cout) in x's dtype for the kernel's K x N tiles, once per
+  weight (the copy is cached until the weight changes); an f32 bias is
+  passed as it is.
+  """
+  _check(x, weight, bias)
+  # The kernel loads 16-byte vectors of channels.
+  _kernels.require_cuda('conv3x3_leaky', x, alignment=16)
+  if x.dtype not in _KERNEL_DTYPES:
+    raise ValueError(f'conv3x3_leaky: the kernel takes bf16 or f32; got '
+                     f'{x.dtype}')
+  if weight.device != x.device or bias.device != x.device:
+    raise ValueError('conv3x3_leaky: x, weight and bias on different devices')
+  n, h, w, cin = x.shape
+  cout = weight.shape[0]
+  if cin % _CHANNEL_MULTIPLE or cout % _CHANNEL_MULTIPLE:
+    raise ValueError(f'conv3x3_leaky: the kernel takes channel counts that '
+                     f'are multiples of {_CHANNEL_MULTIPLE}; got {cin}->{cout}')
+  packed = _packed_weight(weight, x.dtype)
+  bias32 = bias.detach().float().contiguous()
+  features = torch.empty((n, h, w, cout), dtype=x.dtype, device=x.device)
+  pooled = (torch.empty((n, h // 2, w // 2, cout), dtype=x.dtype,
+                        device=x.device) if pool else None)
+  if features.numel() == 0:
+    return features, pooled
+  fn = getattr(_kernels.library(), _KERNEL_DTYPES[x.dtype])
+  code = fn(x.data_ptr(), packed.data_ptr(), bias32.data_ptr(),
+            features.data_ptr(), pooled.data_ptr() if pool else None,
+            n, h, w, cin, cout, negative_slope, _kernels.stream_of(x))
+  _kernels.check('conv3x3_leaky', code)
+  wide = not (cin == _CHANNEL_MULTIPLE and cout == _CHANNEL_MULTIPLE)
+  _kernels.LAUNCHES['conv3x3_wide' if wide else 'conv3x3_c64'] += 1
+  return features, pooled
+
+
+def conv3x3_leaky(x: torch.Tensor, weight: torch.Tensor, bias: torch.Tensor,
+                  pool: bool = False, negative_slope: float = 0.2
+                  ) -> Tuple[torch.Tensor, Optional[torch.Tensor]]:
+  """leaky(conv3x3(x) + b) and, if `pool`, its 2x2 average pool.
+
+  x: (N, H, W, Cin); weight: (Cout, Cin, 3, 3); bias: (Cout,). Returns
+  (features (N, H, W, Cout), pooled (N, H//2, W//2, Cout) or None). CPU
+  tensors take the plain version, CUDA tensors the kernel.
+  """
+  if x.device.type == 'cpu':
+    return conv3x3_leaky_plain(x, weight, bias, pool, negative_slope)
+  return conv3x3_leaky_kernel(x, weight, bias, pool, negative_slope)

@@ -1,8 +1,11 @@
-// Backward bilinear warp for Hopper (sm_90a), NHWC.
+// Backward bilinear warp for Hopper (sm_90a), NHWC, and its derivative
+// planes.
 //
 // Replaces the TPU window warp of the JAX package: _warp_window_kernel in
-// frame_interpolation_tpu/ops/warp_window.py, primal mode (emit_planes off),
-// reached through _forward / backward_warp_window.
+// frame_interpolation_tpu/ops/warp_window.py, in both of its modes. The
+// primal mode (emit_planes off, reached through _forward /
+// backward_warp_window) is fi_warp_*; the planes mode (emit_planes on,
+// reached through the window VJP's _bwd) is fi_warp_planes_*.
 //
 //   out[b, y, x, c] = bilerp(image[b], y + flow[b,y,x,1], x + flow[b,y,x,0])
 //
@@ -26,6 +29,19 @@
 // free under the byte bound). Channel counts that are not a multiple of
 // the vector (C = 67, 195, ... on the fusion's image+feature warps) take
 // the same mapping with scalar loads.
+//
+// Planes mode: the flow-derivative planes of the warp, for the training
+// backward (ops/warp.py flow_cotangent_from_planes reduces them against
+// the cotangent):
+//
+//   du = ((1-ay)*(t01-t00) + ay*(t11-t10)) * cg(tx)      d out / d flow_x
+//   dv = (bot - top) * cg(ty)                            d out / d flow_y
+//
+// with top/bot the forward's row blends and cg JAX's clip gradient of the
+// RAW (pre-clip) offsets tx = qx - floor_clamped(qx), ty likewise: 1 inside
+// (0, 1), 0.5 at exactly 0 or 1 (lax min/max tie rule), 0 outside. The
+// same taps and mapping as the primal, two outputs; f32 math, one rounding
+// to the image dtype per plane. It moves 1.5x the primal's bytes.
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
@@ -54,13 +70,30 @@ __device__ __forceinline__ float blend(float ax, float ay, float t00,
          ay * ((1.f - ax) * t10 + ax * t11);
 }
 
+// d clip(t, 0, 1) / dt with JAX's tie rule.
+__device__ __forceinline__ float clip_grad(float t) {
+  if (t > 0.f && t < 1.f) return 1.f;
+  return (t == 0.f || t == 1.f) ? 0.5f : 0.f;
+}
+
+__device__ __forceinline__ float plane_du(float ay, float t00, float t01,
+                                          float t10, float t11) {
+  return (1.f - ay) * (t01 - t00) + ay * (t11 - t10);
+}
+
+__device__ __forceinline__ float plane_dv(float ax, float t00, float t01,
+                                          float t10, float t11) {
+  return ((1.f - ax) * t10 + ax * t11) - ((1.f - ax) * t00 + ax * t01);
+}
+
 // kVector: C is a multiple of the 16-byte vector and the pointers are
 // 16-byte aligned, so every piece is one uint4 load per tap.
-template <typename T, bool kVector>
+// kPlanes: write du to `out` and dv to `dv_out` instead of the warp.
+template <typename T, bool kVector, bool kPlanes>
 __global__ void __launch_bounds__(256)
     warp_kernel(const T* __restrict__ image, const float2* __restrict__ flow,
-                T* __restrict__ out, int H, int W, int C, int pieces,
-                int64_t total) {
+                T* __restrict__ out, T* __restrict__ dv_out, int H, int W,
+                int C, int pieces, int64_t total) {
   constexpr int kVec = 16 / sizeof(T);
   const int64_t idx = (int64_t)blockIdx.x * blockDim.x + threadIdx.x;
   if (idx >= total) return;
@@ -78,6 +111,8 @@ __global__ void __launch_bounds__(256)
   const float fy = fminf(fmaxf(floorf(qy), 0.f), (float)(H - 2));
   const float ax = fminf(fmaxf(qx - fx, 0.f), 1.f);
   const float ay = fminf(fmaxf(qy - fy, 0.f), 1.f);
+  const float cgx = kPlanes ? clip_grad(qx - fx) : 0.f;
+  const float cgy = kPlanes ? clip_grad(qy - fy) : 0.f;
 
   const int c0 = piece * kVec;
   const T* t00 = image + ((b * H + (int)fy) * W + (int)fx) * C + c0;
@@ -85,6 +120,7 @@ __global__ void __launch_bounds__(256)
   const T* t10 = t00 + (int64_t)W * C;
   const T* t11 = t10 + C;
   T* o = out + p * C + c0;
+  T* v = kPlanes ? dv_out + p * C + c0 : nullptr;
 
   if (kVector) {
     const uint4 v00 = *reinterpret_cast<const uint4*>(t00);
@@ -95,26 +131,42 @@ __global__ void __launch_bounds__(256)
     const T* e01 = reinterpret_cast<const T*>(&v01);
     const T* e10 = reinterpret_cast<const T*>(&v10);
     const T* e11 = reinterpret_cast<const T*>(&v11);
-    uint4 r;
+    uint4 r, rv;
     T* er = reinterpret_cast<T*>(&r);
+    T* ev = reinterpret_cast<T*>(&rv);
 #pragma unroll
     for (int j = 0; j < kVec; ++j) {
-      er[j] = from_float<T>(blend(ax, ay, to_float(e00[j]), to_float(e01[j]),
-                                  to_float(e10[j]), to_float(e11[j])));
+      const float s00 = to_float(e00[j]), s01 = to_float(e01[j]);
+      const float s10 = to_float(e10[j]), s11 = to_float(e11[j]);
+      if (kPlanes) {
+        er[j] = from_float<T>(plane_du(ay, s00, s01, s10, s11) * cgx);
+        ev[j] = from_float<T>(plane_dv(ax, s00, s01, s10, s11) * cgy);
+      } else {
+        er[j] = from_float<T>(blend(ax, ay, s00, s01, s10, s11));
+      }
     }
     *reinterpret_cast<uint4*>(o) = r;
+    if (kPlanes) *reinterpret_cast<uint4*>(v) = rv;
   } else {
     const int n = min(kVec, C - c0);
     for (int j = 0; j < n; ++j) {
-      o[j] = from_float<T>(blend(ax, ay, to_float(t00[j]), to_float(t01[j]),
-                                 to_float(t10[j]), to_float(t11[j])));
+      const float s00 = to_float(t00[j]), s01 = to_float(t01[j]);
+      const float s10 = to_float(t10[j]), s11 = to_float(t11[j]);
+      if (kPlanes) {
+        o[j] = from_float<T>(plane_du(ay, s00, s01, s10, s11) * cgx);
+        v[j] = from_float<T>(plane_dv(ax, s00, s01, s10, s11) * cgy);
+      } else {
+        o[j] = from_float<T>(blend(ax, ay, s00, s01, s10, s11));
+      }
     }
   }
 }
 
+// dv_out is NULL for the warp and the dv plane for the planes mode (where
+// `out` takes du).
 template <typename T>
-int launch_warp(const void* image, const void* flow, void* out, int B, int H,
-                int W, int C, void* stream) {
+int launch_warp(const void* image, const void* flow, void* out, void* dv_out,
+                int B, int H, int W, int C, void* stream) {
   if (H < 2 || W < 2 || C < 1 || B < 1) return (int)cudaErrorInvalidValue;
   constexpr int kVec = 16 / sizeof(T);
   constexpr int kThreads = 256;
@@ -124,17 +176,28 @@ int launch_warp(const void* image, const void* flow, void* out, int B, int H,
   if (blocks > 0x7fffffffLL) return (int)cudaErrorInvalidConfiguration;
   const bool vector = C % kVec == 0 &&
                       reinterpret_cast<uintptr_t>(image) % 16 == 0 &&
-                      reinterpret_cast<uintptr_t>(out) % 16 == 0;
+                      reinterpret_cast<uintptr_t>(out) % 16 == 0 &&
+                      reinterpret_cast<uintptr_t>(dv_out) % 16 == 0;
   const T* in = static_cast<const T*>(image);
   const float2* fl = static_cast<const float2*>(flow);
   T* o = static_cast<T*>(out);
+  T* v = static_cast<T*>(dv_out);
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  if (vector) {
-    warp_kernel<T, true><<<(unsigned)blocks, kThreads, 0, s>>>(
-        in, fl, o, H, W, C, pieces, total);
+  const unsigned grid = (unsigned)blocks;
+  if (v == nullptr) {
+    if (vector) {
+      warp_kernel<T, true, false><<<grid, kThreads, 0, s>>>(
+          in, fl, o, v, H, W, C, pieces, total);
+    } else {
+      warp_kernel<T, false, false><<<grid, kThreads, 0, s>>>(
+          in, fl, o, v, H, W, C, pieces, total);
+    }
+  } else if (vector) {
+    warp_kernel<T, true, true><<<grid, kThreads, 0, s>>>(
+        in, fl, o, v, H, W, C, pieces, total);
   } else {
-    warp_kernel<T, false><<<(unsigned)blocks, kThreads, 0, s>>>(
-        in, fl, o, H, W, C, pieces, total);
+    warp_kernel<T, false, true><<<grid, kThreads, 0, s>>>(
+        in, fl, o, v, H, W, C, pieces, total);
   }
   return (int)cudaGetLastError();
 }
@@ -143,12 +206,27 @@ int launch_warp(const void* image, const void* flow, void* out, int B, int H,
 
 extern "C" int fi_warp_bf16(const void* image, const void* flow, void* out,
                             int B, int H, int W, int C, void* stream) {
-  return launch_warp<__nv_bfloat16>(image, flow, out, B, H, W, C, stream);
+  return launch_warp<__nv_bfloat16>(image, flow, out, nullptr, B, H, W, C,
+                                    stream);
 }
 
 extern "C" int fi_warp_f32(const void* image, const void* flow, void* out,
                            int B, int H, int W, int C, void* stream) {
-  return launch_warp<float>(image, flow, out, B, H, W, C, stream);
+  return launch_warp<float>(image, flow, out, nullptr, B, H, W, C, stream);
+}
+
+extern "C" int fi_warp_planes_bf16(const void* image, const void* flow,
+                                   void* du, void* dv, int B, int H, int W,
+                                   int C, void* stream) {
+  if (dv == nullptr) return (int)cudaErrorInvalidValue;
+  return launch_warp<__nv_bfloat16>(image, flow, du, dv, B, H, W, C, stream);
+}
+
+extern "C" int fi_warp_planes_f32(const void* image, const void* flow,
+                                  void* du, void* dv, int B, int H, int W,
+                                  int C, void* stream) {
+  if (dv == nullptr) return (int)cudaErrorInvalidValue;
+  return launch_warp<float>(image, flow, du, dv, B, H, W, C, stream);
 }
 
 extern "C" const char* fi_error_string(int code) {

@@ -6,13 +6,26 @@ same parameters under the same module names as `weight` (OIHW) and `bias`.
 `from_flax_params` turns a tree (nested dicts of numpy arrays, or anything
 numpy can read) into a state_dict for `FilmNet.load_state_dict`;
 `to_flax_params` is its inverse. Neither imports JAX.
+
+`save_state_bundle` / `load_state_bundle` write and read the port's own
+bundle, which the trainer exports: a directory with `options.json` (the
+Options fields, as the JAX package's bundle has them) and `state_dict.pt`
+(`torch.save` of the FilmNet state_dict, f32 tensors on the CPU).
 """
 from __future__ import annotations
 
-from typing import Any, Dict, Mapping
+import dataclasses
+import json
+import os
+from typing import Any, Dict, Mapping, Tuple
 
 import numpy as np
 import torch
+
+from ..options import Options
+
+_OPTIONS_FILE = 'options.json'
+_STATE_FILE = 'state_dict.pt'
 
 
 def _leaves(tree: Mapping[str, Any], prefix=()):
@@ -56,3 +69,24 @@ def to_flax_params(
     else:
       raise ValueError(f'unexpected state_dict entry {name}')
   return tree
+
+
+def save_state_bundle(path: str, state_dict: Mapping[str, torch.Tensor],
+                      options: Options) -> None:
+  """Writes `options.json` and `state_dict.pt` into the directory `path`."""
+  os.makedirs(path, exist_ok=True)
+  with open(os.path.join(path, _OPTIONS_FILE), 'w') as f:
+    json.dump(dataclasses.asdict(options), f, indent=2)
+  cpu_state = {k: v.detach().cpu() for k, v in state_dict.items()}
+  torch.save(cpu_state, os.path.join(path, _STATE_FILE))
+
+
+def load_state_bundle(path: str) -> Tuple[Dict[str, torch.Tensor], Options]:
+  """Reads (state_dict, Options) from a directory `save_state_bundle` made."""
+  with open(os.path.join(path, _OPTIONS_FILE)) as f:
+    fields = json.load(f)
+  for key in ('flow_convs', 'flow_filters'):
+    fields[key] = tuple(fields[key])
+  state = torch.load(os.path.join(path, _STATE_FILE), map_location='cpu',
+                     weights_only=True)
+  return state, Options(**fields)

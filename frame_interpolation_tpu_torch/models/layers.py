@@ -15,8 +15,27 @@ import torch.nn.functional as F
 from torch import nn
 
 
+class _LeakyRelu(torch.autograd.Function):
+  """F.leaky_relu's values (one kernel) with jax.nn.leaky_relu's gradient,
+  which is 1 at exactly 0 where F.leaky_relu's is the slope. The mask comes
+  from the saved output: leaky relu keeps the sign, so y >= 0 where x >= 0
+  (but for a negative subnormal x whose product underflows to -0)."""
+
+  @staticmethod
+  def forward(ctx, x):
+    y = F.leaky_relu(x, 0.2)
+    ctx.save_for_backward(y)
+    return y
+
+  @staticmethod
+  def backward(ctx, grad):
+    y, = ctx.saved_tensors
+    return torch.where(y >= 0, grad, 0.2 * grad)
+
+
 def leaky_relu(x: torch.Tensor) -> torch.Tensor:
-  return F.leaky_relu(x, 0.2)
+  """leaky relu with slope 0.2 and JAX's tie rule (gradient 1 at 0)."""
+  return _LeakyRelu.apply(x)
 
 
 class Conv(nn.Module):

@@ -4,9 +4,9 @@ The kernels are CUDA C++ for Hopper (`sm_90a`) in the package's `csrc/`
 directory. They expose a plain C interface: raw pointers, ints and the
 stream, each function returning `cudaGetLastError()`. So no source
 includes PyTorch's headers and a build takes seconds. `library()` compiles
-every `csrc/*.cu` with `nvcc` into one shared library under `_build/`
-(named by a hash of the sources and flags, so an edited source rebuilds)
-and loads it with ctypes.
+every `csrc/*.cu` with its own `nvcc`, all started together, and links the
+objects into one shared library under `_build/` (named by a hash of the
+sources and flags, so an edited source rebuilds), loaded with ctypes.
 
 `LAUNCHES` counts kernel launches by the TPU kernel each launch stands in
 for. A wrapper adds one where it launches its kernel, and nowhere else, so
@@ -28,13 +28,17 @@ import torch
 _PACKAGE_DIR = Path(__file__).resolve().parent.parent
 CSRC_DIR = _PACKAGE_DIR / 'csrc'
 BUILD_DIR = _PACKAGE_DIR / '_build'
-NVCC_FLAGS = ('-gencode', 'arch=compute_90a,code=sm_90a', '-std=c++17', '-O3',
-              '-shared', '-Xcompiler', '-fPIC', '-Xptxas', '-v')
+ARCH_FLAGS = ('-gencode', 'arch=compute_90a,code=sm_90a')
+NVCC_FLAGS = (*ARCH_FLAGS, '-std=c++17', '-O3', '-Xcompiler', '-fPIC',
+              '-Xptxas', '-v')
 
-# warp: ops/warp_window.py's window warp (B1); conv3x3_c64: the C=64 stack
-# of ops/conv_stack.py (B2); conv3x3_wide: the C>=128 flat stack of
-# ops/conv_stack_wide.py (B3). All three names in the JAX package.
-LAUNCHES: Dict[str, int] = {'warp': 0, 'conv3x3_c64': 0, 'conv3x3_wide': 0}
+# warp: ops/warp_window.py's window warp (B1); warp_planes: the same kernel
+# in its emit_planes mode (B4); splat: ops/warp_splat.py's two splat
+# kernels (B5, B6); conv3x3_c64: the C=64 stack of ops/conv_stack.py (B2);
+# conv3x3_wide: the C>=128 flat stack of ops/conv_stack_wide.py (B3). All
+# names in the JAX package.
+LAUNCHES: Dict[str, int] = {'warp': 0, 'warp_planes': 0, 'splat': 0,
+                            'conv3x3_c64': 0, 'conv3x3_wide': 0}
 
 # Filled by the first library() call: 'path', 'seconds' (0.0 when the
 # library was already built) and 'log' (nvcc's -Xptxas -v report).
@@ -75,17 +79,39 @@ def _build() -> Path:
   if target.is_file():
     BUILD_INFO.update(seconds=0.0, log='')
     return target
+  nvcc = _nvcc()
   BUILD_DIR.mkdir(parents=True, exist_ok=True)
   partial = target.with_name(f'{target.name}.{os.getpid()}.tmp')
-  cmd = [_nvcc(), *NVCC_FLAGS, '-o', str(partial), *map(str, sources)]
   start = time.perf_counter()
-  proc = subprocess.run(cmd, capture_output=True, text=True, check=False)
-  if proc.returncode != 0:
-    raise RuntimeError(f'nvcc failed with code {proc.returncode}:\n'
-                       f'{" ".join(cmd)}\n{proc.stdout}\n{proc.stderr}')
+  # One nvcc per source, all running at once; then one link.
+  jobs = []
+  for source in sources:
+    obj = partial.with_name(f'{partial.name}.{source.stem}.o')
+    cmd = [nvcc, *NVCC_FLAGS, '-c', '-o', str(obj), str(source)]
+    jobs.append((cmd, obj, subprocess.Popen(
+        cmd, stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)))
+  log, failed = [], []
+  for cmd, _, proc in jobs:
+    out, _ = proc.communicate()
+    log.append(out)
+    if proc.returncode != 0:
+      failed.append(f'nvcc failed with code {proc.returncode}:\n'
+                    f'{" ".join(cmd)}\n{out}')
+  objects = [str(obj) for _, obj, _ in jobs]
+  if not failed:
+    cmd = [nvcc, *ARCH_FLAGS, '-shared', '-o', str(partial), *objects]
+    proc = subprocess.run(cmd, capture_output=True, text=True, check=False)
+    log.append(proc.stdout + proc.stderr)
+    if proc.returncode != 0:
+      failed.append(f'link failed with code {proc.returncode}:\n'
+                    f'{" ".join(cmd)}\n{proc.stdout}\n{proc.stderr}')
+  for obj in objects:
+    if os.path.exists(obj):
+      os.remove(obj)
+  if failed:
+    raise RuntimeError('\n'.join(failed))
   os.replace(partial, target)
-  BUILD_INFO.update(seconds=time.perf_counter() - start,
-                    log=proc.stdout + proc.stderr)
+  BUILD_INFO.update(seconds=time.perf_counter() - start, log=''.join(log))
   return target
 
 
@@ -94,6 +120,16 @@ def _declare(lib: ctypes.CDLL) -> None:
   for name in ('fi_warp_bf16', 'fi_warp_f32'):
     fn = getattr(lib, name)
     # image, flow, out, B, H, W, C, stream
+    fn.argtypes = [ptr, ptr, ptr, i32, i32, i32, i32, ptr]
+    fn.restype = i32
+  for name in ('fi_warp_planes_bf16', 'fi_warp_planes_f32'):
+    fn = getattr(lib, name)
+    # image, flow, du, dv, B, H, W, C, stream
+    fn.argtypes = [ptr, ptr, ptr, ptr, i32, i32, i32, i32, ptr]
+    fn.restype = i32
+  for name in ('fi_splat_bf16', 'fi_splat_f32'):
+    fn = getattr(lib, name)
+    # g, flow, acc (f32, zeroed), B, H, W, C, stream
     fn.argtypes = [ptr, ptr, ptr, i32, i32, i32, i32, ptr]
     fn.restype = i32
   for name in ('fi_conv3x3_bf16', 'fi_conv3x3_f32'):

@@ -8,9 +8,13 @@ rectangular first convs 128->256 and 256->512). Both compute
   y = leaky_relu(conv3x3_same(x, w) + b, 0.2)      accumulated in f32
   pooled = avg_pool_2x2(y)                          from the f32 values
 
-and round y and pooled once to the input dtype. `conv3x3_leaky` routes a
-CPU tensor to `conv3x3_leaky_plain` and a CUDA tensor to the kernel in
-csrc/conv3x3.cu; there is no other route.
+and round y and pooled once to the input dtype. The leaky relu is
+where(y >= 0, y, 0.2 y), JAX's form, whose gradient at exactly 0 is 1.
+`conv3x3_leaky` runs the forward through `Conv3x3Leaky`: a CPU tensor takes
+`conv3x3_leaky_plain` and a CUDA tensor the kernel in csrc/conv3x3.cu, and
+there is no other route. The backward is plain PyTorch on every device, as
+the JAX custom VJP differentiates the unfused composition with XLA
+(ops/conv_stack.py _stack_diff_bwd, ops/conv_stack_wide.py _wide_diff_bwd).
 
 Tensors are NHWC, as in the JAX package; weights are PyTorch's OIHW
 parameters in f32, cast to the input dtype as flax's promote_dtype does.
@@ -76,7 +80,7 @@ def conv3x3_leaky_plain(x: torch.Tensor, weight: torch.Tensor,
   _check(x, weight, bias)
   y = F.conv2d(x.permute(0, 3, 1, 2), weight.to(x.dtype), padding=1)
   y = y.float() + bias.float()[:, None, None]
-  y = F.leaky_relu(y, negative_slope)
+  y = torch.where(y >= 0, y, negative_slope * y)
   pooled = F.avg_pool2d(y, 2).to(x.dtype) if pool else None
   features = y.to(x.dtype)
 
@@ -127,15 +131,64 @@ def conv3x3_leaky_kernel(x: torch.Tensor, weight: torch.Tensor,
   return features, pooled
 
 
+class Conv3x3Leaky(torch.autograd.Function):
+  """The fused conv with the gradient of its unfused composition.
+
+  Forward: the kernel, or the plain version when `plain` (CPU tensors; the
+  kernel's checks against its plain version on the card set it
+  explicitly). Outputs: features, plus the pooled features when `pool`.
+  Backward, plain PyTorch on every device: the pool's cotangent spread 2x2
+  and divided by 4 joins the features' cotangent, the leaky mask comes
+  from the saved output (y >= 0, JAX's tie rule), then conv2d's input and
+  weight gradients in x's dtype and an f32 bias sum.
+  """
+
+  @staticmethod
+  def forward(ctx, x, weight, bias, pool, negative_slope, plain):
+    conv = conv3x3_leaky_plain if plain else conv3x3_leaky_kernel
+    features, pooled = conv(x, weight, bias, pool, negative_slope)
+    ctx.negative_slope = negative_slope
+    ctx.save_for_backward(x, weight, features)
+    ctx.bias_dtype = bias.dtype
+    return (features, pooled) if pool else features
+
+  @staticmethod
+  def backward(ctx, grad_features, grad_pooled=None):
+    x, weight, features = ctx.saved_tensors
+    g = grad_features.float()
+    if grad_pooled is not None:
+      n, hp, wp, c = grad_pooled.shape
+      spread = (grad_pooled.float() * 0.25).reshape(n, hp, 1, wp, 1, c)
+      spread = spread.expand(n, hp, 2, wp, 2, c).reshape(n, 2 * hp, 2 * wp, c)
+      g = g.clone()
+      g[:, :2 * hp, :2 * wp] += spread
+    g = torch.where(features >= 0, g, ctx.negative_slope * g)
+    dtype = x.dtype
+    g_nchw = g.to(dtype).permute(0, 3, 1, 2)
+    x_nchw = x.permute(0, 3, 1, 2)
+    grad_x = grad_weight = grad_bias = None
+    if ctx.needs_input_grad[0]:
+      grad_x = torch.nn.grad.conv2d_input(
+          x_nchw.shape, weight.to(dtype), g_nchw, padding=1)
+      grad_x = grad_x.permute(0, 2, 3, 1).contiguous()
+    if ctx.needs_input_grad[1]:
+      grad_weight = torch.nn.grad.conv2d_weight(
+          x_nchw, weight.shape, g_nchw, padding=1).to(weight.dtype)
+    if ctx.needs_input_grad[2]:
+      grad_bias = g.sum(dim=(0, 1, 2)).to(ctx.bias_dtype)
+    return grad_x, grad_weight, grad_bias, None, None, None
+
+
 def conv3x3_leaky(x: torch.Tensor, weight: torch.Tensor, bias: torch.Tensor,
                   pool: bool = False, negative_slope: float = 0.2
                   ) -> Tuple[torch.Tensor, Optional[torch.Tensor]]:
   """leaky(conv3x3(x) + b) and, if `pool`, its 2x2 average pool.
 
   x: (N, H, W, Cin); weight: (Cout, Cin, 3, 3); bias: (Cout,). Returns
-  (features (N, H, W, Cout), pooled (N, H//2, W//2, Cout) or None). CPU
-  tensors take the plain version, CUDA tensors the kernel.
+  (features (N, H, W, Cout), pooled (N, H//2, W//2, Cout) or None),
+  differentiable in x, weight and bias. CPU tensors take the plain
+  version, CUDA tensors the kernel.
   """
-  if x.device.type == 'cpu':
-    return conv3x3_leaky_plain(x, weight, bias, pool, negative_slope)
-  return conv3x3_leaky_kernel(x, weight, bias, pool, negative_slope)
+  out = Conv3x3Leaky.apply(x, weight, bias, pool, negative_slope,
+                           x.device.type == 'cpu')
+  return out if pool else (out, None)

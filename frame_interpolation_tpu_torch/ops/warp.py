@@ -15,8 +15,20 @@ f32 whatever the image dtype; the blend
 accumulates in f32 and rounds once to the image dtype, as the TPU window
 kernel does (ops/warp_window.py).
 
-`backward_warp` routes a CPU tensor to `backward_warp_plain` and a CUDA
-tensor to the kernel in csrc/warp.cu; there is no other route.
+The gradient is written out, as the JAX window VJP writes it
+(ops/warp_window.py _bwd), and is not autograd of the plain forward:
+  * the flow cotangent reduces the derivative planes (du, dv) against the
+    output cotangent, per pixel over C (`flow_cotangent_from_planes`); the
+    planes carry JAX's clip gradient of the raw alphas, 0.5 at exactly 0 or
+    1, where autograd of torch.clamp would pass 1;
+  * the image cotangent splats the output cotangent into the four clamped
+    corners with the forward's weights, accumulated in f32.
+
+Three functions have a plain version and a CUDA kernel each: the warp
+(csrc/warp.cu), the planes (csrc/warp.cu, planes mode) and the splat
+(csrc/splat.cu). `backward_warp` runs them through `BackwardWarp`; a CPU
+tensor takes the plain versions and a CUDA tensor the kernels, and there is
+no other route.
 """
 from __future__ import annotations
 
@@ -27,6 +39,9 @@ import torch
 from . import _kernels
 
 _KERNEL_DTYPES = {torch.bfloat16: 'fi_warp_bf16', torch.float32: 'fi_warp_f32'}
+_PLANES_DTYPES = {torch.bfloat16: 'fi_warp_planes_bf16',
+                  torch.float32: 'fi_warp_planes_f32'}
+_SPLAT_DTYPES = {torch.bfloat16: 'fi_splat_bf16', torch.float32: 'fi_splat_f32'}
 
 
 def _check_shapes(image: torch.Tensor, flow: torch.Tensor) -> None:
@@ -43,10 +58,11 @@ def _check_shapes(image: torch.Tensor, flow: torch.Tensor) -> None:
 
 def query_coords(h: int, w: int, flow: torch.Tensor
                  ) -> Tuple[torch.Tensor, ...]:
-  """Clamped integer corners (int64) and f32 weights for a (B, H, W, 2) flow.
+  """Clamped corners, weights and raw offsets for a (B, H, W, 2) flow.
 
   Exactly `_query_coords_full` of the JAX package: f32 query coordinates,
-  floor clamped to [0, size-2], alpha clamped to [0, 1].
+  floor clamped to [0, size-2], alpha clamped to [0, 1]. Returns (iy, ix)
+  int64, (ay, ax) f32 and the raw pre-clip offsets (ty, tx) f32.
   """
   flow = flow.float()
   gy = torch.arange(flow.shape[1], dtype=torch.float32, device=flow.device)
@@ -55,22 +71,29 @@ def query_coords(h: int, w: int, flow: torch.Tensor
   qx = gx[None, :] + flow[..., 0]
   fy = torch.clamp(torch.floor(qy), 0.0, float(h - 2))
   fx = torch.clamp(torch.floor(qx), 0.0, float(w - 2))
-  ay = torch.clamp(qy - fy, 0.0, 1.0)
-  ax = torch.clamp(qx - fx, 0.0, 1.0)
-  return fy.long(), fx.long(), ay, ax
+  ty = qy - fy
+  tx = qx - fx
+  ay = torch.clamp(ty, 0.0, 1.0)
+  ax = torch.clamp(tx, 0.0, 1.0)
+  return fy.long(), fx.long(), ay, ax, ty, tx
+
+
+def _taps(image: torch.Tensor, flow: torch.Tensor):
+  """Top-left tap rows (B*H*W,), coords reshaped to (B*H*W, 1) columns."""
+  _check_shapes(image, flow)
+  b, h, w, _ = image.shape
+  iy, ix, ay, ax, ty, tx = query_coords(h, w, flow)
+  batch = torch.arange(b, device=image.device)[:, None, None] * (h * w)
+  top = (batch + iy * w + ix).reshape(-1)
+  return top, *(t.reshape(-1, 1) for t in (ay, ax, ty, tx))
 
 
 def backward_warp_plain(image: torch.Tensor,
                         flow: torch.Tensor) -> torch.Tensor:
   """The warp as plain tensor ops (any device): gather four taps, blend."""
-  _check_shapes(image, flow)
+  top, ay, ax, _, _ = _taps(image, flow)
   b, h, w, c = image.shape
-  iy, ix, ay, ax = query_coords(h, w, flow)
-  batch = torch.arange(b, device=image.device)[:, None, None] * (h * w)
-  top = (batch + iy * w + ix).reshape(-1)
   pixels = image.reshape(b * h * w, c)
-  ax = ax.reshape(-1, 1)
-  ay = ay.reshape(-1, 1)
   t00 = pixels[top].float()
   t01 = pixels[top + 1].float()
   t10 = pixels[top + w].float()
@@ -80,21 +103,83 @@ def backward_warp_plain(image: torch.Tensor,
   return out.reshape(b, h, w, c).to(image.dtype)
 
 
+def _clip_grad(t: torch.Tensor) -> torch.Tensor:
+  """d clip(t, 0, 1) / dt with JAX's tie rule: 1 inside, 0.5 at 0 and 1."""
+  inner = ((t > 0.0) & (t < 1.0)).float()
+  edge = ((t == 0.0) | (t == 1.0)).float()
+  return inner + 0.5 * edge
+
+
+def warp_planes_plain(image: torch.Tensor, flow: torch.Tensor
+                      ) -> Tuple[torch.Tensor, torch.Tensor]:
+  """The flow-derivative planes (du, dv) as plain tensor ops (any device).
+
+  du = d out / d flow_x = ((1-ay)(t01-t00) + ay(t11-t10)) * cg(tx) and
+  dv = d out / d flow_y = (bot - top) * cg(ty), with cg the clip gradient
+  of the raw offsets (`_raw_and_planes` of the JAX package). f32 math, one
+  rounding to the image dtype per plane.
+  """
+  top, ay, ax, ty, tx = _taps(image, flow)
+  b, h, w, c = image.shape
+  pixels = image.reshape(b * h * w, c)
+  t00 = pixels[top].float()
+  t01 = pixels[top + 1].float()
+  t10 = pixels[top + w].float()
+  t11 = pixels[top + w + 1].float()
+  du = ((1.0 - ay) * (t01 - t00) + ay * (t11 - t10)) * _clip_grad(tx)
+  dv = (((1.0 - ax) * t10 + ax * t11) -
+        ((1.0 - ax) * t00 + ax * t01)) * _clip_grad(ty)
+  return (du.reshape(b, h, w, c).to(image.dtype),
+          dv.reshape(b, h, w, c).to(image.dtype))
+
+
+def splat_plain(g: torch.Tensor, flow: torch.Tensor) -> torch.Tensor:
+  """The warp's image cotangent as plain tensor ops (any device).
+
+  Adds each output pixel's cotangent, times the forward's four bilinear
+  weights, into its four clamped source corners (`index_add_` into an f32
+  (B*H*W, C) buffer). Returns (B, H, W, C) f32.
+  """
+  top, ay, ax, _, _ = _taps(g, flow)
+  b, h, w, c = g.shape
+  gf = g.reshape(b * h * w, c).float()
+  acc = torch.zeros((b * h * w, c), dtype=torch.float32, device=g.device)
+  acc.index_add_(0, top, (1.0 - ay) * (1.0 - ax) * gf)
+  acc.index_add_(0, top + 1, (1.0 - ay) * ax * gf)
+  acc.index_add_(0, top + w, ay * (1.0 - ax) * gf)
+  acc.index_add_(0, top + w + 1, ay * ax * gf)
+  return acc.reshape(b, h, w, c)
+
+
+def flow_cotangent_from_planes(g: torch.Tensor, du: torch.Tensor,
+                               dv: torch.Tensor,
+                               flow_dtype: torch.dtype) -> torch.Tensor:
+  """Per-pixel f32 sums over C of g*du and g*dv, as (B, H, W, 2)."""
+  gf = g.float()
+  return torch.stack([(gf * du.float()).sum(-1), (gf * dv.float()).sum(-1)],
+                     dim=-1).to(flow_dtype)
+
+
+def _check_kernel_args(name: str, image: torch.Tensor,
+                       flow: torch.Tensor) -> None:
+  _check_shapes(image, flow)
+  _kernels.require_cuda(name, image)
+  # The kernels read each pixel's (dx, dy) as one float2.
+  _kernels.require_cuda(name, flow, alignment=8)
+  if image.dtype not in _KERNEL_DTYPES:
+    raise ValueError(f'{name}: the kernel takes bf16 or f32 images; got '
+                     f'{image.dtype}')
+  if flow.dtype != torch.float32:
+    raise ValueError(f'{name}: the kernel takes an f32 flow; got '
+                     f'{flow.dtype}')
+  if flow.device != image.device:
+    raise ValueError(f'{name}: image and flow on different devices')
+
+
 def backward_warp_kernel(image: torch.Tensor,
                          flow: torch.Tensor) -> torch.Tensor:
   """The warp through csrc/warp.cu. CUDA tensors only; raises otherwise."""
-  _check_shapes(image, flow)
-  _kernels.require_cuda('backward_warp', image)
-  # The kernel reads each pixel's (dx, dy) as one float2.
-  _kernels.require_cuda('backward_warp', flow, alignment=8)
-  if image.dtype not in _KERNEL_DTYPES:
-    raise ValueError(f'backward_warp: the kernel takes bf16 or f32 images; '
-                     f'got {image.dtype}')
-  if flow.dtype != torch.float32:
-    raise ValueError(f'backward_warp: the kernel takes an f32 flow; got '
-                     f'{flow.dtype}')
-  if flow.device != image.device:
-    raise ValueError('backward_warp: image and flow on different devices')
+  _check_kernel_args('backward_warp', image, flow)
   b, h, w, c = image.shape
   out = torch.empty_like(image)
   if out.numel() == 0:
@@ -107,12 +192,78 @@ def backward_warp_kernel(image: torch.Tensor,
   return out
 
 
+def warp_planes_kernel(image: torch.Tensor, flow: torch.Tensor
+                       ) -> Tuple[torch.Tensor, torch.Tensor]:
+  """The planes through csrc/warp.cu. CUDA tensors only; raises otherwise."""
+  _check_kernel_args('warp_planes', image, flow)
+  b, h, w, c = image.shape
+  du = torch.empty_like(image)
+  dv = torch.empty_like(image)
+  if du.numel() == 0:
+    return du, dv
+  fn = getattr(_kernels.library(), _PLANES_DTYPES[image.dtype])
+  code = fn(image.data_ptr(), flow.data_ptr(), du.data_ptr(), dv.data_ptr(),
+            b, h, w, c, _kernels.stream_of(image))
+  _kernels.check('warp_planes', code)
+  _kernels.LAUNCHES['warp_planes'] += 1
+  return du, dv
+
+
+def splat_kernel(g: torch.Tensor, flow: torch.Tensor) -> torch.Tensor:
+  """The splat through csrc/splat.cu. CUDA tensors only; raises otherwise.
+
+  Returns the (B, H, W, C) f32 accumulator.
+  """
+  _check_kernel_args('splat', g, flow)
+  b, h, w, c = g.shape
+  acc = torch.zeros(g.shape, dtype=torch.float32, device=g.device)
+  if acc.numel() == 0:
+    return acc
+  fn = getattr(_kernels.library(), _SPLAT_DTYPES[g.dtype])
+  code = fn(g.data_ptr(), flow.data_ptr(), acc.data_ptr(), b, h, w, c,
+            _kernels.stream_of(g))
+  _kernels.check('splat', code)
+  _kernels.LAUNCHES['splat'] += 1
+  return acc
+
+
+class BackwardWarp(torch.autograd.Function):
+  """The warp with the JAX window VJP's gradient (ops/warp_window.py _bwd).
+
+  `plain` picks the plain versions of the warp, the planes and the splat,
+  and is False only for CUDA tensors (see `backward_warp`); the kernels'
+  checks against their plain versions on the card set it explicitly.
+  """
+
+  @staticmethod
+  def forward(ctx, image: torch.Tensor, flow: torch.Tensor,
+              plain: bool) -> torch.Tensor:
+    ctx.plain = plain
+    ctx.save_for_backward(image, flow)
+    warp = backward_warp_plain if plain else backward_warp_kernel
+    return warp(image, flow)
+
+  @staticmethod
+  def backward(ctx, grad: torch.Tensor):
+    image, flow = ctx.saved_tensors
+    # Autograd may hand over any layout; the kernels take contiguous NHWC.
+    grad = grad.contiguous()
+    grad_image = grad_flow = None
+    if ctx.needs_input_grad[1]:
+      planes = warp_planes_plain if ctx.plain else warp_planes_kernel
+      du, dv = planes(image, flow)
+      grad_flow = flow_cotangent_from_planes(grad, du, dv, flow.dtype)
+    if ctx.needs_input_grad[0]:
+      splat = splat_plain if ctx.plain else splat_kernel
+      grad_image = splat(grad, flow).to(image.dtype)
+    return grad_image, grad_flow, None
+
+
 def backward_warp(image: torch.Tensor, flow: torch.Tensor) -> torch.Tensor:
   """Backward-warps `image` (B, H, W, C) with `flow` (B, H, W, 2; dx, dy).
 
-  Returns the warped image in the image's shape and dtype. CPU tensors take
-  the plain version, CUDA tensors the kernel.
+  Returns the warped image in the image's shape and dtype, differentiable
+  in both arguments. CPU tensors take the plain versions, CUDA tensors the
+  kernels (forward and backward).
   """
-  if image.device.type == 'cpu':
-    return backward_warp_plain(image, flow)
-  return backward_warp_kernel(image, flow)
+  return BackwardWarp.apply(image, flow, image.device.type == 'cpu')

@@ -367,10 +367,16 @@ def test_port_imports_without_jax_flax_absl_pil():
         names.append(info.name)
       assert 'jax' not in sys.modules
       assert not any(m.split('.')[0] in blocked for m in sys.modules)
+      for name in ('cli.train', 'data.augmentations', 'data.dataset',
+                   'data.example_proto', 'data.records', 'data.tfrecord',
+                   'losses.losses', 'ops.image_metrics', 'training.configs',
+                   'training.sources', 'training.train_lib',
+                   'utils.tensorboard'):
+        assert pkg.__name__ + '.' + name in names, name
       print(len(names))
       """)
   proc = subprocess.run([sys.executable, '-c', script], capture_output=True,
                         text=True, check=False, timeout=120,
                         cwd=pathlib.Path(__file__).resolve().parent.parent)
   assert proc.returncode == 0, proc.stderr
-  assert int(proc.stdout.strip()) >= 20
+  assert int(proc.stdout.strip()) >= 37

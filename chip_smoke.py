@@ -6,8 +6,15 @@
 Builds the port's CUDA kernels from frame_interpolation_tpu_torch/csrc with
 nvcc (one nvcc per source, in parallel) and holds each kernel against its
 plain PyTorch version: the forward warp and the conv stacks at the shapes of
-the 1080p serving path, the warp's derivative planes and splat at the
-training and 1080p shapes. Then it drives the port's two paths:
+the 1080p serving path (the conv also at the train step's shapes, in TF32
+and in exact f32), the warp's derivative planes and splat at the training
+and 1080p shapes. Each timed check gives the kernel's time, the plain
+version's, one PyTorch library call's where one computes the same function
+(`library_ms`: F.grid_sample for the warp, F.conv2d with bias through cuDNN
+for the conv, which leaves out the activation and the pool), and the
+least time the card could take (`bound_ms`: the larger of the FLOPs over
+the dtype's peak and the compulsory bytes over 3.35 TB/s). Then it drives
+the port's two paths:
 
   * serving: three 1080p pair requests through the Interpolator (released
     config, bf16 policy, seeded random weights), checked for shape,
@@ -54,6 +61,11 @@ WARP_BF16_BOUND = 2 * 2.0**-8  # max-abs, images in [0, 1)
 WARP_F32_BOUND = 1e-5          # max-abs
 CONV_BF16_BOUND = 1e-2         # max|k - p| / max|p|
 CONV_F32_BOUND = 1e-4          # same, TF32 off on the plain side
+# Same, the kernel in TF32 against the plain version in exact f32: TF32
+# keeps 10 of f32's 23 mantissa bits, so each product is off by up to
+# about 2^-10 relative; over the sums of 576-4608 terms that leaves about
+# 1e-3 of max|p|. Half the bf16 bound.
+CONV_TF32_BOUND = 5e-3
 PLANES_BF16_BOUND = 2 * 2.0**-8  # max-abs, images in [0, 1)
 PLANES_F32_BOUND = 1e-5          # max-abs
 SPLAT_BF16_BOUND = 1e-2        # max|k - p| / max|p|, bf16 cotangent
@@ -62,6 +74,10 @@ PSNR_BOUND_DB = 30.0           # kernels vs plain versions, whole forward
 REPEAT_BOUND = 1e-6            # max-abs between repeated requests
 LOSS_REL_BOUND = 1e-5          # train step, kernels vs plain (TF32 off)
 GRAD_REL_BOUND = 1e-3          # per tensor max|g_k - g_p| / max|g_p|
+# H100 SXM peaks (NVIDIA's data sheet, dense): tensor cores by input type,
+# CUDA-core f32, and HBM3.
+PEAK_FLOPS = {'bfloat16': 989e12, 'tf32': 495e12, 'float32': 67e12}
+HBM_BYTES_PER_S = 3.35e12
 REQUESTS = 3
 # Launches per 1080p pair (released config): 12 flow-estimator warps + 10
 # fusion warps; per frame 7 C=64 second convs and 15 wider second convs +
@@ -120,6 +136,36 @@ def time_ms(fn, iters: int = 10) -> float:
   return start.elapsed_time(end) / iters
 
 
+def roofline(flops: float, nbytes: float, peak: float) -> dict:
+  """bound_ms: the larger of the FLOPs over `peak` and the compulsory bytes
+  (each input read once, each output written once) over HBM's rate."""
+  ops_ms, bytes_ms = 1e3 * flops / peak, 1e3 * nbytes / HBM_BYTES_PER_S
+  return {'bound_ms': max(ops_ms, bytes_ms), 'bound_ops_ms': ops_ms,
+          'bound_bytes_ms': bytes_ms,
+          'bound_by': 'operations' if ops_ms >= bytes_ms else 'bytes'}
+
+
+def add_timing(result, kernel_fn, plain_fn, library_fn, flops, nbytes, peak):
+  """The four numbers of a timed check, all from this run and this card."""
+  result['ms'] = time_ms(kernel_fn)
+  result['plain_ms'] = time_ms(plain_fn)
+  result['library_ms'] = None if library_fn is None else time_ms(library_fn)
+  result.update(roofline(flops, nbytes, peak))
+  result['share'] = result['bound_ms'] / result['ms']
+
+
+@contextlib.contextmanager
+def tf32_allowed(allowed: bool):
+  """Sets torch.backends.cudnn.allow_tf32, the flag the conv kernel's f32
+  route follows (TF32 wgmma or exact FMAs), and restores it."""
+  saved = torch.backends.cudnn.allow_tf32
+  torch.backends.cudnn.allow_tf32 = allowed
+  try:
+    yield
+  finally:
+    torch.backends.cudnn.allow_tf32 = saved
+
+
 def smooth_seam_flow(h: int, w: int) -> torch.Tensor:
   """Smooth +-30 px flow plus a 40 px motion seam (the warp's hard case)."""
   yy, xx = np.meshgrid(np.arange(h), np.arange(w), indexing='ij')
@@ -142,14 +188,29 @@ def check_warp(rng, h, w, c, dtype, bound, batch=1, timed=True):
       'max_abs_err': err, 'bound': bound, 'ok': err <= bound,
   }
   if timed:
-    result['ms'] = time_ms(lambda: warp.backward_warp_kernel(image, flow))
-    result['plain_ms'] = time_ms(
-        lambda: warp.backward_warp_plain(image, flow))
+    # F.grid_sample (bilinear, border, align_corners=True) on the same
+    # channels-last image, its grid made from the flow beforehand.
+    ys, xs = torch.meshgrid(torch.arange(h, device='cuda'),
+                            torch.arange(w, device='cuda'), indexing='ij')
+    grid = torch.stack([(xs + flow[..., 0]) * (2.0 / (w - 1)) - 1,
+                        (ys + flow[..., 1]) * (2.0 / (h - 1)) - 1], dim=-1)
+    grid = grid.to(dtype)
+    nchw = image.permute(0, 3, 1, 2)
+    nbytes = 2 * image.numel() * image.element_size() + flow.numel() * 4
+    add_timing(result, lambda: warp.backward_warp_kernel(image, flow),
+               lambda: warp.backward_warp_plain(image, flow),
+               lambda: torch.nn.functional.grid_sample(
+                   nchw, grid, mode='bilinear', padding_mode='border',
+                   align_corners=True),
+               # Three lerps a channel, 3 FLOPs each.
+               9.0 * image.numel(), nbytes, PEAK_FLOPS['float32'])
   return result
 
 
 def check_conv(rng, h, w, cin, cout, pool, dtype, bound, batch=1,
-               timed=True):
+               timed=True, tf32=False):
+  """The conv kernel against its plain version in exact f32 (TF32 off); the
+  kernel and the library call run with TF32 allowed when `tf32`."""
   x = torch.from_numpy(
       (rng.rand(batch, h, w, cin) * 2 - 1).astype(np.float32))
   x = x.to('cuda', dtype)
@@ -157,8 +218,15 @@ def check_conv(rng, h, w, cin, cout, pool, dtype, bound, batch=1,
   weight = torch.from_numpy(
       (rng.randn(cout, cin, 3, 3) * std).astype(np.float32)).cuda()
   bias = torch.from_numpy((rng.randn(cout) * 0.1).astype(np.float32)).cuda()
-  got = conv_stack.conv3x3_leaky_kernel(x, weight, bias, pool)
-  want = conv_stack.conv3x3_leaky_plain(x, weight, bias, pool)
+
+  def kernel():
+    with tf32_allowed(tf32):
+      return conv_stack.conv3x3_leaky_kernel(x, weight, bias, pool)
+
+  def plain():
+    return conv_stack.conv3x3_leaky_plain(x, weight, bias, pool)
+
+  got, want = kernel(), plain()
   torch.cuda.synchronize()
   rel, err = 0.0, 0.0
   for g, p in zip(got, want):
@@ -167,16 +235,30 @@ def check_conv(rng, h, w, cin, cout, pool, dtype, bound, batch=1,
     diff = (g.float() - p.float()).abs().max().item()
     err = max(err, diff)
     rel = max(rel, diff / p.float().abs().max().item())
+  kind = 'tf32' if tf32 and dtype == torch.float32 else str(dtype).split(
+      '.')[-1]
   result = {
       'shape': f'{batch}x{h}x{w} {cin}->{cout}{"+pool" if pool else ""}',
-      'dtype': str(dtype).split('.')[-1], 'max_abs_err': err,
-      'rel_err': rel, 'bound': bound, 'ok': rel <= bound,
+      'dtype': kind, 'route': conv_stack.kernel_symbol(dtype, tf32),
+      'max_abs_err': err, 'rel_err': rel, 'bound': bound, 'ok': rel <= bound,
   }
   if timed:
-    result['ms'] = time_ms(lambda: conv_stack.conv3x3_leaky_kernel(
-        x, weight, bias, pool))
-    result['plain_ms'] = time_ms(lambda: conv_stack.conv3x3_leaky_plain(
-        x, weight, bias, pool))
+    # F.conv2d with bias on channels-last tensors, through cuDNN: the conv
+    # and bias only, without the activation and the pool.
+    nchw = x.permute(0, 3, 1, 2)
+    w_cl = weight.to(dtype).contiguous(memory_format=torch.channels_last)
+    b_cl = bias.to(dtype)
+
+    def library():
+      with tf32_allowed(tf32):
+        return torch.nn.functional.conv2d(nchw, w_cl, b_cl, padding=1)
+
+    size = x.element_size()
+    pixels = batch * h * w
+    nbytes = (pixels * (cin + cout) * size + 9 * cin * cout * size +
+              cout * 4 + (pixels // 4 * cout * size if pool else 0))
+    add_timing(result, kernel, plain, library,
+               2.0 * pixels * 9 * cin * cout, nbytes, PEAK_FLOPS[kind])
   return result
 
 
@@ -213,8 +295,12 @@ def check_planes(rng, b, h, w, c, dtype, bound, flow_kind, timed):
             'dtype': str(dtype).split('.')[-1], 'max_abs_err': err,
             'bound': bound, 'ok': err <= bound}
   if timed:
-    result['ms'] = time_ms(lambda: warp.warp_planes_kernel(image, flow))
-    result['plain_ms'] = time_ms(lambda: warp.warp_planes_plain(image, flow))
+    # No single PyTorch call computes the planes.
+    add_timing(result, lambda: warp.warp_planes_kernel(image, flow),
+               lambda: warp.warp_planes_plain(image, flow), None,
+               14.0 * image.numel(),
+               3 * image.numel() * image.element_size() + flow.numel() * 4,
+               PEAK_FLOPS['float32'])
   return result
 
 
@@ -231,8 +317,12 @@ def check_splat(rng, b, h, w, c, dtype, bound, flow_kind, timed):
             'dtype': str(dtype).split('.')[-1], 'max_abs_err': err,
             'rel_err': rel, 'bound': bound, 'ok': rel <= bound}
   if timed:
-    result['ms'] = time_ms(lambda: warp.splat_kernel(g, flow))
-    result['plain_ms'] = time_ms(lambda: warp.splat_plain(g, flow))
+    # No single PyTorch call computes the splat; the f32 accumulator is
+    # written once.
+    add_timing(result, lambda: warp.splat_kernel(g, flow),
+               lambda: warp.splat_plain(g, flow), None, 8.0 * g.numel(),
+               g.numel() * (g.element_size() + 4) + flow.numel() * 4,
+               PEAK_FLOPS['float32'])
   return result
 
 
@@ -325,7 +415,9 @@ def check_training(card, failures):
   # where a conv's true output is exactly 0 (the squares' black
   # background), which flips leaky relu's tie at 0 between two runs whose
   # inputs differ by rounding; PyTorch's own convs keep exact zeros.
-  with torch.backends.cudnn.flags(enabled=False):
+  # flags() allows TF32 unless told otherwise, and the conv kernel's f32
+  # route follows that flag: the gate holds exact f32 against exact f32.
+  with torch.backends.cudnn.flags(enabled=False, allow_tf32=False):
     _kernels.reset_launch_counts()
     loss_k, grads_k = loss_and_grads(model, batch)
     step_launches = _kernels.launch_counts()
@@ -370,7 +462,8 @@ def check_training(card, failures):
 
   # Steps/s with the kernels and plain: the trainer's lean step (Adam,
   # staircase schedule), batches made in memory, no augmentation;
-  # PyTorch's default precision (cuDNN convs may use TF32).
+  # PyTorch's default precision (cuDNN convs may use TF32, and so does the
+  # conv kernel: its TF32 wgmma route).
   torch.backends.cudnn.allow_tf32 = True
   opts = train_lib.TrainingOptions()
   step_fn = train_lib.make_train_step(
@@ -387,7 +480,7 @@ def check_training(card, failures):
   peak_p = torch.cuda.max_memory_allocated()
   print(f'train speed: {rate_k:.3f} steps/s with the kernels, {rate_p:.3f} '
         f'plain (mean of {TIMED_STEPS} steps after {WARMUP_STEPS}, batch '
-        f'{TRAIN_BATCH}x{TRAIN_CROP}x{TRAIN_CROP}, f32, cuDNN TF32 allowed); '
+        f'{TRAIN_BATCH}x{TRAIN_CROP}x{TRAIN_CROP}, f32, TF32 allowed); '
         f'peak memory {peak_k / 2**30:.2f} GiB kernels, '
         f'{peak_p / 2**30:.2f} GiB plain; on {card}')
   report.update(steps_per_s=rate_k, plain_steps_per_s=rate_p,
@@ -494,17 +587,32 @@ def main() -> int:
                           WARP_F32_BOUND)],
       'conv3x3_c64': [], 'conv3x3_wide': [],
   }
+  # The conv at every distinct serving site shape in bf16 (timed), and at
+  # the four shapes PR 1 checked in exact f32 (TF32 off).
   for h, w, cin, cout, pool in ((1088, 1920, 64, 64, True),
                                 (544, 960, 128, 128, True),
                                 (272, 480, 128, 256, False),
+                                (272, 480, 256, 256, True),
+                                (136, 240, 256, 512, False),
                                 (136, 240, 512, 512, False)):
     name = 'conv3x3_c64' if cin == cout == 64 else 'conv3x3_wide'
-    for dtype, bound in ((torch.bfloat16, CONV_BF16_BOUND),
-                         (torch.float32, CONV_F32_BOUND)):
-      checks[name].append(check_conv(rng, h, w, cin, cout, pool, dtype,
-                                     bound))
+    checks[name].append(check_conv(rng, h, w, cin, cout, pool,
+                                   torch.bfloat16, CONV_BF16_BOUND))
+    if (h, cin, cout) in ((1088, 64, 64), (544, 128, 128), (272, 128, 256),
+                          (136, 512, 512)):
+      checks[name].append(check_conv(rng, h, w, cin, cout, pool,
+                                     torch.float32, CONV_F32_BOUND))
+  # The train step's conv shapes (f32, batch 8 of 256x256): TF32 allowed,
+  # as PyTorch's default has it, and TF32 off.
+  for h, cin, cout, pool in ((256, 64, 64, True), (32, 256, 512, False),
+                             (16, 512, 512, False)):
+    name = 'conv3x3_c64' if cin == cout == 64 else 'conv3x3_wide'
+    for tf32, bound in ((True, CONV_TF32_BOUND), (False, CONV_F32_BOUND)):
+      checks[name].append(check_conv(rng, h, h, cin, cout, pool,
+                                     torch.float32, bound, batch=TRAIN_BATCH,
+                                     tf32=tf32))
   # Edges the main path also reaches: odd extents (the 17x30 coarsest
-  # level), batches (patch tiling), both warp paths in f32.
+  # level, 34x60 next to it), batches (patch tiling), both warp paths in f32.
   checks['warp'].append(check_warp(rng, 17, 30, 195, torch.float32,
                                    WARP_F32_BOUND, batch=2, timed=False))
   checks['warp'].append(check_warp(rng, 17, 30, 192, torch.float32,
@@ -515,6 +623,12 @@ def main() -> int:
   checks['conv3x3_wide'].append(check_conv(
       rng, 34, 60, 128, 128, True, torch.float32, CONV_F32_BOUND, batch=2,
       timed=False))
+  for h, w, c in ((17, 30, 64), (34, 60, 128)):
+    name = 'conv3x3_c64' if c == 64 else 'conv3x3_wide'
+    for dtype, bound, tf32 in ((torch.bfloat16, CONV_BF16_BOUND, False),
+                               (torch.float32, CONV_TF32_BOUND, True)):
+      checks[name].append(check_conv(rng, h, w, c, c, True, dtype, bound,
+                                     batch=2, timed=False, tf32=tf32))
   # The training backward's kernels: the warp's derivative planes (B4) and
   # the splat (B5/B6), at shapes of the film_net-L1 train step (f32, batch
   # 8 of 256x256 crops: the finest fusion warp, a middle and a coarse
@@ -538,11 +652,15 @@ def main() -> int:
   for name, results in checks.items():
     for r in results:
       flow_kind = f' {r["flow"]} flow' if 'flow' in r else ''
+      library = ('none' if r.get('library_ms') is None else
+                 f'{r["library_ms"]:.3f} ms')
       print(f'kernel {name} {r["shape"]} {r["dtype"]}{flow_kind}: max_abs_err '
             f'{r["max_abs_err"]:.3e}' +
             (f' rel_err {r["rel_err"]:.3e}' if 'rel_err' in r else '') +
             f' (bound {r["bound"]:.1e}) {"ok" if r["ok"] else "FAILED"}' +
-            (f'; kernel {r["ms"]:.3f} ms, plain {r["plain_ms"]:.3f} ms'
+            (f'; kernel {r["ms"]:.3f} ms, plain {r["plain_ms"]:.3f} ms, '
+             f'library {library}, bound {r["bound_ms"]:.3f} ms '
+             f'({r["bound_by"]}), share {r["share"]:.3f}'
              if 'ms' in r else ''))
       if not r['ok']:
         failures.append(f'{name} {r["shape"]} {r["dtype"]}{flow_kind}')
@@ -610,6 +728,9 @@ def main() -> int:
     backward = name in ('warp_planes', 'splat')
     timed = [r for r in checks[name]
              if 'ms' in r and (backward or r['dtype'] == 'bfloat16')]
+    libraries = [r['library_ms'] for r in timed]
+    ops_ms = sum(r['bound_ops_ms'] for r in timed)
+    bytes_ms = sum(r['bound_bytes_ms'] for r in timed)
     record['kernels'].append({
         'name': name, 'route': 'cuda', 'source': SOURCES[name],
         'replaces': REPLACES[name],
@@ -617,6 +738,9 @@ def main() -> int:
         'max_abs_err': max(r['max_abs_err'] for r in timed),
         'ms': sum(r['ms'] for r in timed),
         'plain_ms': sum(r['plain_ms'] for r in timed),
+        'bound_ms': sum(r['bound_ms'] for r in timed),
+        'bound_by': 'operations' if ops_ms >= bytes_ms else 'bytes',
+        'library_ms': (None if None in libraries else sum(libraries)),
     })
 
   if args.out:

@@ -132,7 +132,7 @@ def _declare(lib: ctypes.CDLL) -> None:
     # g, flow, acc (f32, zeroed), B, H, W, C, stream
     fn.argtypes = [ptr, ptr, ptr, i32, i32, i32, i32, ptr]
     fn.restype = i32
-  for name in ('fi_conv3x3_bf16', 'fi_conv3x3_f32'):
+  for name in ('fi_conv3x3_bf16', 'fi_conv3x3_tf32', 'fi_conv3x3_f32'):
     fn = getattr(lib, name)
     # x, w, bias, out, pool (or NULL), N, H, W, Cin, Cout, slope, stream
     fn.argtypes = [ptr, ptr, ptr, ptr, ptr, i32, i32, i32, i32, i32,

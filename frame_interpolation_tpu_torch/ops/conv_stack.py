@@ -12,9 +12,13 @@ and round y and pooled once to the input dtype. The leaky relu is
 where(y >= 0, y, 0.2 y), JAX's form, whose gradient at exactly 0 is 1.
 `conv3x3_leaky` runs the forward through `Conv3x3Leaky`: a CPU tensor takes
 `conv3x3_leaky_plain` and a CUDA tensor the kernel in csrc/conv3x3.cu, and
-there is no other route. The backward is plain PyTorch on every device, as
-the JAX custom VJP differentiates the unfused composition with XLA
-(ops/conv_stack.py _stack_diff_bwd, ops/conv_stack_wide.py _wide_diff_bwd).
+there is no other route. On the card, bf16 runs on the tensor cores
+(wgmma); f32 runs on them in TF32 when `torch.backends.cudnn.allow_tf32` is
+True, the flag under which cuDNN runs PyTorch's own f32 convs in TF32, and
+in exact f32 FMAs otherwise (`kernel_symbol`). The backward is plain
+PyTorch on every device, as the JAX custom VJP differentiates the unfused
+composition with XLA (ops/conv_stack.py _stack_diff_bwd,
+ops/conv_stack_wide.py _wide_diff_bwd).
 
 Tensors are NHWC, as in the JAX package; weights are PyTorch's OIHW
 parameters in f32, cast to the input dtype as flax's promote_dtype does.
@@ -29,19 +33,32 @@ from torch.utils.weak import WeakTensorKeyDictionary
 
 from . import _kernels
 
-_KERNEL_DTYPES = {torch.bfloat16: 'fi_conv3x3_bf16',
-                  torch.float32: 'fi_conv3x3_f32'}
 # The kernel's tile width along both channel axes.
 _CHANNEL_MULTIPLE = 64
 
-# weight -> (key, packed): the (3, 3, Cin, Cout) copy the kernel reads,
+# weight -> (key, packed): the (Cout, 3, 3, Cin) copy the kernel reads,
 # rebuilt when the weight is written to in place, moved, or another dtype
 # is asked for.
 _PACKED = WeakTensorKeyDictionary()
 
 
+def kernel_symbol(dtype: torch.dtype, allow_tf32: bool) -> str:
+  """The C entry point of csrc/conv3x3.cu that takes x of `dtype`.
+
+  bf16: wgmma on bf16. f32: wgmma in TF32 when `allow_tf32` (the caller
+  passes `torch.backends.cudnn.allow_tf32`), else exact f32 FMAs.
+  """
+  if dtype == torch.bfloat16:
+    return 'fi_conv3x3_bf16'
+  if dtype == torch.float32:
+    return 'fi_conv3x3_tf32' if allow_tf32 else 'fi_conv3x3_f32'
+  raise ValueError(f'conv3x3_leaky: the kernel takes bf16 or f32; got {dtype}')
+
+
 def _pack(weight: torch.Tensor, dtype: torch.dtype) -> torch.Tensor:
-  return weight.detach().to(dtype).permute(2, 3, 1, 0).contiguous()
+  # K-major: row n holds the 9 * Cin weights of output channel n in the
+  # kernel's K order, tap (ky, kx) major and input channel minor.
+  return weight.detach().to(dtype).permute(0, 2, 3, 1).contiguous()
 
 
 def _packed_weight(weight: torch.Tensor, dtype: torch.dtype) -> torch.Tensor:
@@ -96,17 +113,16 @@ def conv3x3_leaky_kernel(x: torch.Tensor, weight: torch.Tensor,
                          ) -> Tuple[torch.Tensor, Optional[torch.Tensor]]:
   """The conv through csrc/conv3x3.cu. CUDA tensors only; raises otherwise.
 
-  Cin and Cout must be multiples of 64. The OIHW weights are repacked to
-  (3, 3, Cin, Cout) in x's dtype for the kernel's K x N tiles, once per
-  weight (the copy is cached until the weight changes); an f32 bias is
-  passed as it is.
+  Cin and Cout must be multiples of 64. The OIHW weights are repacked
+  K-major to (Cout, 3, 3, Cin) in x's dtype, once per weight (the copy is
+  cached until the weight changes); an f32 bias is passed as it is. The
+  route follows `kernel_symbol`.
   """
   _check(x, weight, bias)
-  # The kernel loads 16-byte vectors of channels.
+  symbol = kernel_symbol(x.dtype, torch.backends.cudnn.allow_tf32)
+  # TMA reads x and the weights in 16-byte aligned rows; the epilogue reads
+  # the bias 16 bytes at a time.
   _kernels.require_cuda('conv3x3_leaky', x, alignment=16)
-  if x.dtype not in _KERNEL_DTYPES:
-    raise ValueError(f'conv3x3_leaky: the kernel takes bf16 or f32; got '
-                     f'{x.dtype}')
   if weight.device != x.device or bias.device != x.device:
     raise ValueError('conv3x3_leaky: x, weight and bias on different devices')
   n, h, w, cin = x.shape
@@ -116,12 +132,13 @@ def conv3x3_leaky_kernel(x: torch.Tensor, weight: torch.Tensor,
                      f'are multiples of {_CHANNEL_MULTIPLE}; got {cin}->{cout}')
   packed = _packed_weight(weight, x.dtype)
   bias32 = bias.detach().float().contiguous()
+  _kernels.require_cuda('conv3x3_leaky', packed, bias32, alignment=16)
   features = torch.empty((n, h, w, cout), dtype=x.dtype, device=x.device)
   pooled = (torch.empty((n, h // 2, w // 2, cout), dtype=x.dtype,
                         device=x.device) if pool else None)
   if features.numel() == 0:
     return features, pooled
-  fn = getattr(_kernels.library(), _KERNEL_DTYPES[x.dtype])
+  fn = getattr(_kernels.library(), symbol)
   code = fn(x.data_ptr(), packed.data_ptr(), bias32.data_ptr(),
             features.data_ptr(), pooled.data_ptr() if pool else None,
             n, h, w, cin, cout, negative_slope, _kernels.stream_of(x))

@@ -242,25 +242,83 @@ def test_conv3x3_leaky_without_pool_and_odd_extent():
 
 
 def test_conv_weight_pack_is_cached_until_the_weight_changes():
-  # The kernel reads (3, 3, Cin, Cout) weights in the input's dtype; the
-  # wrapper packs each weight once and repacks only after it changes.
+  # The kernel reads K-major (Cout, 3, 3, Cin) weights in the input's dtype
+  # (one packing for every route); the wrapper packs each weight once and
+  # repacks only after it changes.
   weight = torch.nn.Parameter(torch.randn(64, 32, 3, 3))
   packed = conv_stack._packed_weight(weight, torch.bfloat16)
   assert packed.dtype == torch.bfloat16 and packed.is_contiguous()
+  assert tuple(packed.shape) == (64, 3, 3, 32)
   assert torch.equal(packed,
-                     weight.detach().permute(2, 3, 1, 0).to(torch.bfloat16))
+                     weight.detach().permute(0, 2, 3, 1).to(torch.bfloat16))
   assert conv_stack._packed_weight(weight, torch.bfloat16) is packed
   packed32 = conv_stack._packed_weight(weight, torch.float32)
-  assert torch.equal(packed32, weight.detach().permute(2, 3, 1, 0))
+  assert torch.equal(packed32, weight.detach().permute(0, 2, 3, 1))
   with torch.no_grad():
     weight.add_(1.0)
   repacked = conv_stack._packed_weight(weight, torch.float32)
   assert repacked is not packed32
-  assert torch.equal(repacked, weight.detach().permute(2, 3, 1, 0))
+  assert torch.equal(repacked, weight.detach().permute(0, 2, 3, 1))
   with torch.inference_mode():
     frozen = torch.randn(64, 64, 3, 3)
   assert torch.equal(conv_stack._packed_weight(frozen, torch.float32),
-                     frozen.permute(2, 3, 1, 0))
+                     frozen.permute(0, 2, 3, 1))
+
+
+@pytest.mark.parametrize('cin,cout,h,w', [(64, 64, 6, 10), (64, 128, 5, 7)])
+def test_packed_weights_in_kernel_k_order_give_the_plain_conv(cin, cout, h,
+                                                              w):
+  # The kernel's GEMM: row m of A is output pixel m's 3x3 neighbourhood in
+  # K order (tap (ky, kx) major, input channel minor, zeros off the image);
+  # row n of B is the packed weights of output channel n. A @ B^T + bias,
+  # then leaky, is the plain conv.
+  rng = np.random.RandomState(cin + cout + h)
+  x = _t((rng.rand(2, h, w, cin) - 0.5))
+  k, b = _conv_params(rng, cin, cout)
+  weight = torch.from_numpy(k.transpose(3, 2, 0, 1).copy())
+  bias = torch.from_numpy(b)
+  packed = conv_stack._packed_weight(weight, torch.float32)
+  cols = torch.nn.functional.unfold(x.permute(0, 3, 1, 2), 3, padding=1)
+  # unfold orders K channel-major, (Cin, 9); the kernel walks (9, Cin).
+  cols = cols.reshape(2, cin, 9, h * w).permute(0, 3, 2, 1)
+  y = cols.reshape(2, h * w, 9 * cin) @ packed.reshape(cout, 9 * cin).T
+  y = (y + bias).reshape(2, h, w, cout)
+  y = torch.where(y >= 0, y, 0.2 * y)
+  want, _ = conv_stack.conv3x3_leaky_plain(x, weight, bias)
+  scale = float(want.abs().max())
+  assert float((y - want).abs().max()) <= 1e-5 * scale
+
+
+def test_conv_route_follows_the_cudnn_tf32_flag(monkeypatch):
+  # bf16 takes the wgmma entry point; f32 takes TF32 wgmma exactly when
+  # torch.backends.cudnn.allow_tf32 is True, else the exact FMA kernel.
+  assert conv_stack.kernel_symbol(torch.bfloat16, False) == 'fi_conv3x3_bf16'
+  assert conv_stack.kernel_symbol(torch.bfloat16, True) == 'fi_conv3x3_bf16'
+  assert conv_stack.kernel_symbol(torch.float32, True) == 'fi_conv3x3_tf32'
+  assert conv_stack.kernel_symbol(torch.float32, False) == 'fi_conv3x3_f32'
+  with pytest.raises(ValueError, match='bf16 or f32'):
+    conv_stack.kernel_symbol(torch.float16, True)
+  # The wrapper reads the flag at each call. Stand-ins for the library and
+  # the device check record which entry point it would launch.
+  called = []
+
+  class _Library:
+
+    def __getattr__(self, name):
+      return lambda *args: called.append(name) or 0
+
+  monkeypatch.setattr(_kernels, 'library', _Library)
+  monkeypatch.setattr(_kernels, 'require_cuda', lambda *a, **k: None)
+  monkeypatch.setattr(_kernels, 'stream_of', lambda t: 0)
+  monkeypatch.setattr(_kernels, 'LAUNCHES', dict(_kernels.LAUNCHES))
+  x = torch.zeros(1, 4, 4, 64)
+  weight, bias = torch.zeros(64, 64, 3, 3), torch.zeros(64)
+  for allowed in (True, False):
+    monkeypatch.setattr(torch.backends.cudnn, 'allow_tf32', allowed)
+    conv_stack.conv3x3_leaky_kernel(x, weight, bias)
+    conv_stack.conv3x3_leaky_kernel(x.to(torch.bfloat16), weight, bias)
+  assert called == ['fi_conv3x3_tf32', 'fi_conv3x3_bf16', 'fi_conv3x3_f32',
+                    'fi_conv3x3_bf16']
 
 
 # ---- resize, pyramid, tiling ----------------------------------------------

@@ -1,7 +1,8 @@
 #!/usr/bin/env python3
 """Where the time goes in the port's 1080p pair forward, on one CUDA GPU.
 
-  python3 tools/profile_pair.py [--pairs 5] [--profiled 3] [--out DIR]
+  python3 tools/profile_pair.py [--pairs 5] [--profiled 3]
+                                [--train_steps 0] [--out DIR]
 
 Drives `Interpolator.call_device` of frame_interpolation_tpu_torch at the
 released config under the bf16 policy (seeded random weights, one
@@ -16,8 +17,13 @@ warm-up pairs, and prints:
     the pairs;
   * the device's idle share over the profiled pairs: one minus the union
     of the kernels' intervals over the host's wall time of the loop.
-With `--out`, the Chrome trace and the per-kernel table go there too. Each
-output line names the card and its power limit. Needs a GPU.
+With `--train_steps N`, it then profiles N film_net-L1 train steps the same
+way (released config, f32, batch 8 of 256x256 random triplets, the lean
+step of train_lib without augmentation, PyTorch's default TF32 for convs,
+after two warm-up steps): device time by kernel group per step and the
+idle share. With `--out`, the Chrome traces and the per-kernel tables go
+there too. Each output line names the card and its power limit. Needs a
+GPU.
 """
 from __future__ import annotations
 
@@ -26,6 +32,7 @@ import collections
 import json
 import os
 import re
+import shutil
 import subprocess
 import sys
 import tempfile
@@ -37,23 +44,30 @@ import torch
 
 sys.path.insert(0, str(Path(__file__).resolve().parent.parent))
 
+from frame_interpolation_tpu_torch import losses  # noqa: E402
 from frame_interpolation_tpu_torch.inference import Interpolator  # noqa: E402
 from frame_interpolation_tpu_torch.models import create_model, init_params  # noqa: E402
 from frame_interpolation_tpu_torch.ops import tiling  # noqa: E402
 from frame_interpolation_tpu_torch.options import Options  # noqa: E402
+from frame_interpolation_tpu_torch.training import configs, train_lib  # noqa: E402
 
-# Kernel groups, first match wins; matched against the demangled name.
+# Kernel groups, first match wins; matched against the demangled name. The
+# warp kernel is warp_kernel<T, vector, planes>.
 GROUPS = (
-    ('conv3x3_kernel (ours, B2+B3)', r'conv3x3_kernel'),
-    ('warp_kernel vector path (ours, B1)', r'warp_kernel<.*true>'),
-    ('warp_kernel scalar path (ours, B1)', r'warp_kernel<.*false>'),
+    ('conv3x3_wgmma_kernel (ours, B2+B3)', r'conv3x3_wgmma_kernel'),
+    ('conv3x3_fma_kernel (ours, B2+B3, exact f32)', r'conv3x3_fma_kernel'),
+    ('warp_kernel planes mode (ours, B4)', r'warp_kernel<[^,<>]+, \w+, true>'),
+    ('warp_kernel vector path (ours, B1)', r'warp_kernel<[^,<>]+, true, false>'),
+    ('warp_kernel scalar path (ours, B1)',
+     r'warp_kernel<[^,<>]+, false, false>'),
+    ('splat_kernel (ours, B5+B6)', r'splat_kernel'),
     ('torch.cat copies', r'CatArray'),
     ('cuDNN layout and channel padding', r'nhwcAddPadding|tensorTransform|'
      r'nchwToNhwc|nhwcToNchw'),
     ('cuDNN/cuBLAS conv and GEMM kernels', r'xmma|cutlass|cudnn|'
      r'implicit_convolve|gemm|nvjet'),
     ('adds (conv bias after cuDNN, flow sums)', r'Functor_add|AddFunctor'),
-    ('leaky relu', r'leaky'),
+    ('leaky relu and its where', r'leaky|where'),
     ('copies and dtype casts', r'copy|Copy'),
     ('multiplies (flow scaling)', r'MulFunctor'),
 )
@@ -99,14 +113,77 @@ def busy_us(intervals) -> float:
   return total
 
 
+def profile(fn, count: int, unit: str, card: str, out_dir: Path,
+            label: str) -> None:
+  """Runs fn() `count` times under torch.profiler and prints device time
+  by kernel group per call, and the device's idle share."""
+  activities = [torch.profiler.ProfilerActivity.CPU,
+                torch.profiler.ProfilerActivity.CUDA]
+  with torch.profiler.profile(activities=activities) as prof:
+    torch.cuda.synchronize()
+    start = time.perf_counter()
+    for _ in range(count):
+      fn()
+    torch.cuda.synchronize()
+    wall_ms = 1e3 * (time.perf_counter() - start) / count
+  trace_path = out_dir / f'trace_{label}.json'
+  prof.export_chrome_trace(str(trace_path))
+  with open(trace_path) as f:
+    events = json.load(f)['traceEvents']
+  kernels = [e for e in events
+             if e.get('cat') == 'kernel' and 'dur' in e]
+  if not kernels:
+    raise SystemExit('profile_pair: the trace holds no device kernels')
+
+  by_group = collections.defaultdict(lambda: [0.0, 0])
+  by_name = collections.defaultdict(lambda: [0.0, 0])
+  for e in kernels:
+    for table, key in ((by_group, group_of(e['name'])),
+                       (by_name, e['name'])):
+      table[key][0] += e['dur'] / 1e3 / count
+      table[key][1] += 1
+  kernel_ms = sum(ms for ms, _ in by_group.values())
+  busy_ms = busy_us((e['ts'], e['ts'] + e['dur'])
+                    for e in kernels) / 1e3 / count
+  for group, (ms, n) in sorted(by_group.items(), key=lambda g: -g[1][0]):
+    print(f'kernels ({label}) {group}: {ms:.3f} ms/{unit}, '
+          f'{n / count:.1f} launches/{unit}')
+  print(f'device ({label}): {kernel_ms:.3f} ms/{unit} of kernels, '
+        f'{busy_ms:.3f} ms/{unit} busy, host wall {wall_ms:.3f} ms/{unit}, '
+        f'idle share {1.0 - busy_ms / wall_ms:.3f} (torch.profiler over '
+        f'{count} {unit}s; {card})')
+  with open(out_dir / f'kernels_{label}.txt', 'w') as f:
+    for name, (ms, n) in sorted(by_name.items(), key=lambda k: -k[1][0]):
+      f.write(f'{ms:9.3f} ms/{unit} {n / count:6.1f}/{unit}  {name}\n')
+
+
+def train_step_fn():
+  """The film_net-L1 lean train step on random batch-8 256x256 triplets."""
+  config = configs.get_experiment('film_net-L1')
+  model = init_params(create_model(config.model),
+                      torch.Generator().manual_seed(0)).cuda()
+  opts = train_lib.TrainingOptions()
+  step_fn = train_lib.make_train_step(losses.training_losses(['l1']), opts,
+                                      with_summaries=False)
+  state = train_lib.create_train_state(model, opts)
+  rng = np.random.RandomState(1)
+  batch = train_lib.batch_to_device(
+      {k: rng.rand(8, 256, 256, 3).astype(np.float32)
+       for k in ('x0', 'x1', 'y')} | {'time': np.full((8, 1), 0.5)},
+      torch.device('cuda'))
+  return lambda: step_fn(state, batch, torch.Generator())
+
+
 def main() -> int:
   parser = argparse.ArgumentParser(description=__doc__.split('\n')[0])
   parser.add_argument('--pairs', type=int, default=5,
                       help='Pairs per layer timing (CUDA events).')
   parser.add_argument('--profiled', type=int, default=3,
                       help='Pairs under torch.profiler.')
+  parser.add_argument('--train_steps', type=int, default=0,
+                      help='Train steps under torch.profiler (0: none).')
   parser.add_argument('--out', default=None,
-                      help='Directory for the trace and the kernel table.')
+                      help='Directory for the traces and the kernel tables.')
   args = parser.parse_args()
 
   card = card_line()
@@ -150,52 +227,18 @@ def main() -> int:
     print(f'layer {name}: {ms:.3f} ms/pair (CUDA events, mean of '
           f'{args.pairs}; {card})')
 
-  activities = [torch.profiler.ProfilerActivity.CPU,
-                torch.profiler.ProfilerActivity.CUDA]
-  with torch.profiler.profile(activities=activities) as prof:
-    torch.cuda.synchronize()
-    start = time.perf_counter()
-    for _ in range(args.profiled):
-      interpolator.call_device(x0, x1, dt)
-    torch.cuda.synchronize()
-    wall_ms = 1e3 * (time.perf_counter() - start) / args.profiled
   out_dir = Path(args.out) if args.out else Path(tempfile.mkdtemp())
   out_dir.mkdir(parents=True, exist_ok=True)
-  trace_path = out_dir / 'trace.json'
-  prof.export_chrome_trace(str(trace_path))
-  with open(trace_path) as f:
-    events = json.load(f)['traceEvents']
-  kernels = [e for e in events
-             if e.get('cat') == 'kernel' and 'dur' in e]
-  if not kernels:
-    raise SystemExit('profile_pair: the trace holds no device kernels')
-
-  by_group = collections.defaultdict(lambda: [0.0, 0])
-  by_name = collections.defaultdict(lambda: [0.0, 0])
-  for e in kernels:
-    for table, key in ((by_group, group_of(e['name'])),
-                       (by_name, e['name'])):
-      table[key][0] += e['dur'] / 1e3 / args.profiled
-      table[key][1] += 1
-  kernel_ms = sum(ms for ms, _ in by_group.values())
-  busy_ms = busy_us((e['ts'], e['ts'] + e['dur'])
-                    for e in kernels) / 1e3 / args.profiled
-  for group, (ms, count) in sorted(by_group.items(), key=lambda g: -g[1][0]):
-    print(f'kernels {group}: {ms:.3f} ms/pair, '
-          f'{count / args.profiled:.1f} launches/pair')
-  print(f'device: {kernel_ms:.3f} ms/pair of kernels, {busy_ms:.3f} ms/pair '
-        f'busy, host wall {wall_ms:.3f} ms/pair, idle share '
-        f'{1.0 - busy_ms / wall_ms:.3f} (torch.profiler over '
-        f'{args.profiled} pairs; {card})')
-  if args.out:
-    with open(out_dir / 'kernels.txt', 'w') as f:
-      for name, (ms, count) in sorted(by_name.items(),
-                                      key=lambda k: -k[1][0]):
-        f.write(f'{ms:9.3f} ms/pair {count / args.profiled:6.1f}/pair  '
-                f'{name}\n')
-  else:
-    os.remove(trace_path)
-    os.rmdir(out_dir)
+  profile(lambda: interpolator.call_device(x0, x1, dt), args.profiled,
+          'pair', card, out_dir, 'pair')
+  del interpolator, model, f0, f1
+  if args.train_steps > 0:
+    step = train_step_fn()
+    for _ in range(2):
+      step()
+    profile(step, args.train_steps, 'step', card, out_dir, 'train')
+  if not args.out:
+    shutil.rmtree(out_dir)
   return 0
 
 

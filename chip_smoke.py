@@ -122,10 +122,17 @@ def device_line() -> str:
   return query.stdout.strip().splitlines()[0]
 
 
+# Device cycles (about 2.5 ms at 1.98 GHz) the card spins before a timed
+# loop, so that the host queues the loop's launches while it waits and the
+# events time the device's work, not the host's launch cost.
+QUEUE_CYCLES = 5_000_000
+
+
 def time_ms(fn, iters: int = 10) -> float:
   """Mean device time of fn() over `iters` launches, after one warm-up."""
   fn()
   torch.cuda.synchronize()
+  torch.cuda._sleep(QUEUE_CYCLES)
   start = torch.cuda.Event(enable_timing=True)
   end = torch.cuda.Event(enable_timing=True)
   start.record()
@@ -588,7 +595,7 @@ def main() -> int:
       'conv3x3_c64': [], 'conv3x3_wide': [],
   }
   # The conv at every distinct serving site shape in bf16 (timed), and at
-  # the four shapes PR 1 checked in exact f32 (TF32 off).
+  # four of them in exact f32 (TF32 off).
   for h, w, cin, cout, pool in ((1088, 1920, 64, 64, True),
                                 (544, 960, 128, 128, True),
                                 (272, 480, 128, 256, False),

@@ -28,7 +28,9 @@
 //     coordinates, so the 2x2 pool stays inside the block) and BN output
 //     channels: all of Cout up to 256, 256 beyond (BN = 64, 128 or 256), so
 //     each A tile feeds as many output channels as the accumulator
-//     registers hold.
+//     registers hold. Where that grid would fill under 3/4 of the card's
+//     block slots (the coarse levels), BN narrows so more SMs share the K
+//     loop.
 //   * TMA brings every operand. A: a 4-D tiled tensor map over x, (C, W, H,
 //     N) innermost first; step (tap, chunk) loads the box (BK, 16, 8, 1) at
 //     (c0, x0 + dx, y0 + dy, n). TMA fills the elements outside the image
@@ -50,9 +52,10 @@
 // the library links nothing beyond the CUDA runtime. They reach the kernel
 // as __grid_constant__ parameters.
 //
-// Exact f32 (fi_conv3x3_f32, taken when TF32 is not allowed) keeps the
-// first kernel: synchronous shared-memory tiles of 128 pixels x 64 output
-// channels x 32 input channels and f32 FMAs on the CUDA cores.
+// Exact f32 (fi_conv3x3_f32, taken when TF32 is not allowed) runs on the
+// CUDA cores: synchronous shared-memory tiles of 128 pixels x 64 output
+// channels x 32 input channels, K innermost in both, and f32 FMAs, exact to
+// f32 rounding.
 //
 // Weights come repacked by the caller as (Cout, 3, 3, Cin) in the input
 // dtype (K-major, one packing for every route); bias is f32. Cin and Cout
@@ -538,17 +541,29 @@ int launch_tensor_cores(const void* x, const void* w, const void* bias,
     return (int)cudaErrorInvalidValue;
   }
   if (encode_tiled() == nullptr) return (int)cudaErrorSymbolNotFound;
-  const int64_t tiles = (int64_t)((W + kTileCols - 1) / kTileCols) *
-                        ((H + kTileRows - 1) / kTileRows) * (Cout / 64);
-  if (tiles > 0x7FFFFFFF) return (int)cudaErrorInvalidValue;
+  const int64_t pixel_tiles = (int64_t)((W + kTileCols - 1) / kTileCols) *
+                              ((H + kTileRows - 1) / kTileRows);
+  if (pixel_tiles * (Cout / 64) > 0x7FFFFFFF) return (int)cudaErrorInvalidValue;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  // All of Cout up to 256 in one N tile; 256 (or the largest tile that
-  // divides Cout) beyond.
-  if (Cout % 256 == 0) {
+  int device = 0, sms = 0;
+  cudaError_t err = cudaGetDevice(&device);
+  if (err == cudaSuccess) {
+    err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, device);
+  }
+  if (err != cudaSuccess) return (int)err;
+  // The widest N tile that divides Cout (256, 128, 64): each A tile then
+  // feeds the most output channels. A grid that would fill under 3/4 of
+  // the card's block slots (the coarse pyramid levels: a few pixel tiles
+  // and K loops of up to 144 steps) narrows the tile instead, down to 64,
+  // so that more SMs share the work.
+  auto fills = [&](int bn, int per_sm) {
+    return 4 * pixel_tiles * N * (Cout / bn) >= 3 * (int64_t)sms * per_sm;
+  };
+  if (Cout % 256 == 0 && fills(256, Ring<256>::kMinBlocks)) {
     return launch_wgmma<T, 256>(x, w, bias, out, pool, N, H, W, Cin, Cout,
                                 slope, s);
   }
-  if (Cout % 128 == 0) {
+  if (Cout % 128 == 0 && fills(128, Ring<128>::kMinBlocks)) {
     return launch_wgmma<T, 128>(x, w, bias, out, pool, N, H, W, Cin, Cout,
                                 slope, s);
   }
@@ -563,17 +578,21 @@ int launch_tensor_cores(const void* x, const void* w, const void* bias,
 constexpr int kFmaBN = 64;   // output channels per block
 constexpr int kFmaBK = 32;   // input channels per K step
 constexpr int kFmaThreads = 256;
-constexpr int kFmaAStride = kFmaBK + 4;   // floats; +16 bytes a row
-constexpr int kFmaBStride = kFmaBN + 4;
+// Both tiles keep K innermost, as the packed weights do: rows of kFmaBK
+// floats + 16 bytes, so a quarter-warp's 16-byte row loads and stores fall
+// on distinct banks.
+constexpr int kFmaStride = kFmaBK + 4;
 constexpr int kFmaCStride = kFmaBN + 4;
-constexpr int kFmaABytes = kBM * kFmaAStride * 4;
-constexpr int kFmaBBytes = kFmaBK * kFmaBStride * 4;
+constexpr int kFmaABytes = kBM * kFmaStride * 4;
+constexpr int kFmaBBytes = kFmaBN * kFmaStride * 4;
 constexpr int kFmaCBytes = kBM * kFmaCStride * 4;
 constexpr int kFmaSmem = kFmaABytes + kFmaBBytes > kFmaCBytes
                              ? kFmaABytes + kFmaBBytes
                              : kFmaCBytes;
 
-// Each thread owns 8 pixels x 4 channels, in full f32 FMAs.
+// Each thread owns 8 pixels (tm * 8 ...) x 4 channels (tn + 16 j), in full
+// f32 FMAs, summed over K in order. The channel stride of 16 puts the B
+// rows that a quarter-warp reads on distinct banks.
 __global__ void __launch_bounds__(kFmaThreads)
     conv3x3_fma_kernel(const float* __restrict__ x, const float* __restrict__ w,
                        const float* __restrict__ bias, float* __restrict__ out,
@@ -591,6 +610,7 @@ __global__ void __launch_bounds__(kFmaThreads)
   const int64_t img = blockIdx.z;
   const float* xb = x + img * H * (int64_t)W * Cin;
   const int tn = tid % 16, tm = tid / 16;
+  constexpr int kParts = kFmaBK / 4;  // 16-byte parts of a K row
 
   float acc[8][4];
 #pragma unroll
@@ -602,9 +622,8 @@ __global__ void __launch_bounds__(kFmaThreads)
     const int dy = tap / 3 - 1, dx = tap % 3 - 1;
     for (int c0 = 0; c0 < Cin; c0 += kFmaBK) {
       // A: kBM shifted input pixels x kFmaBK channels; zeros off the image.
-      constexpr int kAParts = kFmaBK / 4;
-      for (int i = tid; i < kBM * kAParts; i += kFmaThreads) {
-        const int m = i / kAParts, part = i % kAParts;
+      for (int i = tid; i < kBM * kParts; i += kFmaThreads) {
+        const int m = i / kParts, part = i % kParts;
         const int yy = y0 + m / kTileCols + dy;
         const int xx = x0 + m % kTileCols + dx;
         float4 v = make_float4(0.f, 0.f, 0.f, 0.f);
@@ -612,33 +631,36 @@ __global__ void __launch_bounds__(kFmaThreads)
           v = *reinterpret_cast<const float4*>(
               xb + ((int64_t)yy * W + xx) * Cin + c0 + part * 4);
         }
-        *reinterpret_cast<float4*>(As + m * kFmaAStride + part * 4) = v;
+        *reinterpret_cast<float4*>(As + m * kFmaStride + part * 4) = v;
       }
-      // B: kFmaBK input channels x kFmaBN output channels of this tap, read
-      // 4 channels at a time from the K-major (Cout, 3, 3, Cin) weights.
-      constexpr int kBParts = kFmaBK / 4;
-      for (int i = tid; i < kFmaBN * kBParts; i += kFmaThreads) {
-        const int n = i % kFmaBN, part = i / kFmaBN;
-        const float4 v = *reinterpret_cast<const float4*>(
-            w + ((int64_t)(n0 + n) * 9 + tap) * Cin + c0 + part * 4);
-        float* b = Bs + part * 4 * kFmaBStride + n;
-        b[0] = v.x;
-        b[kFmaBStride] = v.y;
-        b[2 * kFmaBStride] = v.z;
-        b[3 * kFmaBStride] = v.w;
+      // B: kFmaBN output channels x kFmaBK input channels of this tap, each
+      // row 128 contiguous bytes of the K-major (Cout, 3, 3, Cin) weights.
+      for (int i = tid; i < kFmaBN * kParts; i += kFmaThreads) {
+        const int n = i / kParts, part = i % kParts;
+        *reinterpret_cast<float4*>(Bs + n * kFmaStride + part * 4) =
+            *reinterpret_cast<const float4*>(
+                w + ((int64_t)(n0 + n) * 9 + tap) * Cin + c0 + part * 4);
       }
       __syncthreads();
-#pragma unroll 4
-      for (int k = 0; k < kFmaBK; ++k) {
-        const float4 b =
-            *reinterpret_cast<const float4*>(Bs + k * kFmaBStride + tn * 4);
+#pragma unroll 2
+      for (int k = 0; k < kFmaBK; k += 4) {
+        float4 b[4];
+#pragma unroll
+        for (int j = 0; j < 4; ++j) {
+          b[j] = *reinterpret_cast<const float4*>(
+              Bs + (tn + 16 * j) * kFmaStride + k);
+        }
 #pragma unroll
         for (int i = 0; i < 8; ++i) {
-          const float a = As[(tm * 8 + i) * kFmaAStride + k];
-          acc[i][0] += a * b.x;
-          acc[i][1] += a * b.y;
-          acc[i][2] += a * b.z;
-          acc[i][3] += a * b.w;
+          const float4 a = *reinterpret_cast<const float4*>(
+              As + (tm * 8 + i) * kFmaStride + k);
+#pragma unroll
+          for (int j = 0; j < 4; ++j) {
+            acc[i][j] += a.x * b[j].x;
+            acc[i][j] += a.y * b[j].y;
+            acc[i][j] += a.z * b[j].z;
+            acc[i][j] += a.w * b[j].w;
+          }
         }
       }
       __syncthreads();
@@ -648,7 +670,9 @@ __global__ void __launch_bounds__(kFmaThreads)
 #pragma unroll
   for (int i = 0; i < 8; ++i)
 #pragma unroll
-    for (int j = 0; j < 4; ++j) Cs[(tm * 8 + i) * kFmaCStride + tn * 4 + j] = acc[i][j];
+    for (int j = 0; j < 4; ++j) {
+      Cs[(tm * 8 + i) * kFmaCStride + tn + 16 * j] = acc[i][j];
+    }
   __syncthreads();
   epilogue<float, kFmaBN, kFmaCStride>(Cs, bias, out, pool, H, W, Cout, y0,
                                        x0, n0, img, slope, tid, kFmaThreads,

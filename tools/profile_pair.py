@@ -1,8 +1,7 @@
 #!/usr/bin/env python3
 """Where the time goes in the port's 1080p pair forward, on one CUDA GPU.
 
-  python3 tools/profile_pair.py [--pairs 5] [--profiled 3]
-                                [--train_steps 0] [--out DIR]
+  python3 tools/profile_pair.py [--pairs 5] [--profiled 3] [--out DIR]
 
 Drives `Interpolator.call_device` of frame_interpolation_tpu_torch at the
 released config under the bf16 policy (seeded random weights, one
@@ -17,11 +16,11 @@ warm-up pairs, and prints:
     the pairs;
   * the device's idle share over the profiled pairs: one minus the union
     of the kernels' intervals over the host's wall time of the loop.
-With `--train_steps N`, it then profiles N film_net-L1 train steps the same
-way (released config, f32, batch 8 of 256x256 random triplets, the lean
-step of train_lib without augmentation, PyTorch's default TF32 for convs,
-after two warm-up steps): device time by kernel group per step and the
-idle share. With `--out`, the Chrome traces and the per-kernel tables go
+Then it profiles three film_net-L1 train steps the same way (released
+config, f32, batch 8 of 256x256 random triplets, the lean step of
+train_lib without augmentation, PyTorch's default TF32 for convs, after
+two warm-up steps): device time by kernel group per step and the idle
+share. With `--out`, the Chrome traces and the per-kernel tables go
 there too. Each output line names the card and its power limit. Needs a
 GPU.
 """
@@ -30,7 +29,6 @@ from __future__ import annotations
 import argparse
 import collections
 import json
-import os
 import re
 import shutil
 import subprocess
@@ -51,6 +49,8 @@ from frame_interpolation_tpu_torch.ops import tiling  # noqa: E402
 from frame_interpolation_tpu_torch.options import Options  # noqa: E402
 from frame_interpolation_tpu_torch.training import configs, train_lib  # noqa: E402
 
+TRAIN_STEPS = 3  # train steps under torch.profiler
+
 # Kernel groups, first match wins; matched against the demangled name. The
 # warp kernel is warp_kernel<T, vector, planes>.
 GROUPS = (
@@ -66,6 +66,7 @@ GROUPS = (
      r'nchwToNhwc|nhwcToNchw'),
     ('cuDNN/cuBLAS conv and GEMM kernels', r'xmma|cutlass|cudnn|'
      r'implicit_convolve|gemm|nvjet'),
+    ('reductions (bias gradients, flow cotangent, loss)', r'reduce_kernel'),
     ('adds (conv bias after cuDNN, flow sums)', r'Functor_add|AddFunctor'),
     ('leaky relu and its where', r'leaky|where'),
     ('copies and dtype casts', r'copy|Copy'),
@@ -180,8 +181,6 @@ def main() -> int:
                       help='Pairs per layer timing (CUDA events).')
   parser.add_argument('--profiled', type=int, default=3,
                       help='Pairs under torch.profiler.')
-  parser.add_argument('--train_steps', type=int, default=0,
-                      help='Train steps under torch.profiler (0: none).')
   parser.add_argument('--out', default=None,
                       help='Directory for the traces and the kernel tables.')
   args = parser.parse_args()
@@ -232,11 +231,10 @@ def main() -> int:
   profile(lambda: interpolator.call_device(x0, x1, dt), args.profiled,
           'pair', card, out_dir, 'pair')
   del interpolator, model, f0, f1
-  if args.train_steps > 0:
-    step = train_step_fn()
-    for _ in range(2):
-      step()
-    profile(step, args.train_steps, 'step', card, out_dir, 'train')
+  step = train_step_fn()
+  for _ in range(2):
+    step()
+  profile(step, TRAIN_STEPS, 'step', card, out_dir, 'train')
   if not args.out:
     shutil.rmtree(out_dir)
   return 0

@@ -10,8 +10,9 @@ the 1080p serving path (the conv also at the train step's shapes, in TF32
 and in exact f32), the warp's derivative planes and splat at the training
 and 1080p shapes. Each timed check gives the kernel's time, the plain
 version's, one PyTorch library call's where one computes the same function
-(`library_ms`: F.grid_sample for the warp, F.conv2d with bias through cuDNN
-for the conv, which leaves out the activation and the pool), and the
+(`library_ms`: F.grid_sample for the warp, the image gradient of its
+backward for the splat, F.conv2d with bias through cuDNN for the conv,
+which leaves out the activation and the pool), and the
 least time the card could take (`bound_ms`: the larger of the FLOPs over
 the dtype's peak and the compulsory bytes over 3.35 TB/s). Then it drives
 the port's two paths:
@@ -41,7 +42,6 @@ import contextlib
 import json
 import os
 import re
-import subprocess
 import sys
 import tempfile
 import time
@@ -56,6 +56,7 @@ from frame_interpolation_tpu_torch.models import create_model, init_params
 from frame_interpolation_tpu_torch.ops import _kernels, conv_stack, warp
 from frame_interpolation_tpu_torch.options import Options
 from frame_interpolation_tpu_torch.training import configs, train_lib
+from frame_interpolation_tpu_torch.utils import measure
 
 WARP_BF16_BOUND = 2 * 2.0**-8  # max-abs, images in [0, 1)
 WARP_F32_BOUND = 1e-5          # max-abs
@@ -74,10 +75,6 @@ PSNR_BOUND_DB = 30.0           # kernels vs plain versions, whole forward
 REPEAT_BOUND = 1e-6            # max-abs between repeated requests
 LOSS_REL_BOUND = 1e-5          # train step, kernels vs plain (TF32 off)
 GRAD_REL_BOUND = 1e-3          # per tensor max|g_k - g_p| / max|g_p|
-# H100 SXM peaks (NVIDIA's data sheet, dense): tensor cores by input type,
-# CUDA-core f32, and HBM3.
-PEAK_FLOPS = {'bfloat16': 989e12, 'tf32': 495e12, 'float32': 67e12}
-HBM_BYTES_PER_S = 3.35e12
 REQUESTS = 3
 # Launches per 1080p pair (released config): 12 flow-estimator warps + 10
 # fusion warps; per frame 7 C=64 second convs and 15 wider second convs +
@@ -116,48 +113,18 @@ def device_line() -> str:
   if not torch.cuda.is_available():
     raise CheckFailed('torch.cuda.is_available() is false: this smoke test '
                       'needs a CUDA GPU')
-  query = subprocess.run(
-      ['nvidia-smi', '--query-gpu=name,power.limit', '--format=csv,noheader'],
-      capture_output=True, text=True, check=True, timeout=60)
-  return query.stdout.strip().splitlines()[0]
-
-
-# Device cycles (about 2.5 ms at 1.98 GHz) the card spins before a timed
-# loop, so that the host queues the loop's launches while it waits and the
-# events time the device's work, not the host's launch cost.
-QUEUE_CYCLES = 5_000_000
-
-
-def time_ms(fn, iters: int = 10) -> float:
-  """Mean device time of fn() over `iters` launches, after one warm-up."""
-  fn()
-  torch.cuda.synchronize()
-  torch.cuda._sleep(QUEUE_CYCLES)
-  start = torch.cuda.Event(enable_timing=True)
-  end = torch.cuda.Event(enable_timing=True)
-  start.record()
-  for _ in range(iters):
-    fn()
-  end.record()
-  end.synchronize()
-  return start.elapsed_time(end) / iters
-
-
-def roofline(flops: float, nbytes: float, peak: float) -> dict:
-  """bound_ms: the larger of the FLOPs over `peak` and the compulsory bytes
-  (each input read once, each output written once) over HBM's rate."""
-  ops_ms, bytes_ms = 1e3 * flops / peak, 1e3 * nbytes / HBM_BYTES_PER_S
-  return {'bound_ms': max(ops_ms, bytes_ms), 'bound_ops_ms': ops_ms,
-          'bound_bytes_ms': bytes_ms,
-          'bound_by': 'operations' if ops_ms >= bytes_ms else 'bytes'}
+  return measure.card_line()
 
 
 def add_timing(result, kernel_fn, plain_fn, library_fn, flops, nbytes, peak):
-  """The four numbers of a timed check, all from this run and this card."""
-  result['ms'] = time_ms(kernel_fn)
-  result['plain_ms'] = time_ms(plain_fn)
-  result['library_ms'] = None if library_fn is None else time_ms(library_fn)
-  result.update(roofline(flops, nbytes, peak))
+  """The four numbers of a timed check, all from this run and this card;
+  the card queues each loop (measure.time_ms), so a kernel of a few
+  microseconds is timed and not its launch."""
+  result['ms'] = measure.time_ms(kernel_fn)
+  result['plain_ms'] = measure.time_ms(plain_fn)
+  result['library_ms'] = (None if library_fn is None else
+                          measure.time_ms(library_fn))
+  result.update(measure.roofline(flops, nbytes, peak))
   result['share'] = result['bound_ms'] / result['ms']
 
 
@@ -197,11 +164,7 @@ def check_warp(rng, h, w, c, dtype, bound, batch=1, timed=True):
   if timed:
     # F.grid_sample (bilinear, border, align_corners=True) on the same
     # channels-last image, its grid made from the flow beforehand.
-    ys, xs = torch.meshgrid(torch.arange(h, device='cuda'),
-                            torch.arange(w, device='cuda'), indexing='ij')
-    grid = torch.stack([(xs + flow[..., 0]) * (2.0 / (w - 1)) - 1,
-                        (ys + flow[..., 1]) * (2.0 / (h - 1)) - 1], dim=-1)
-    grid = grid.to(dtype)
+    grid = measure.bilinear_grid(flow).to(dtype)
     nchw = image.permute(0, 3, 1, 2)
     nbytes = 2 * image.numel() * image.element_size() + flow.numel() * 4
     add_timing(result, lambda: warp.backward_warp_kernel(image, flow),
@@ -210,7 +173,7 @@ def check_warp(rng, h, w, c, dtype, bound, batch=1, timed=True):
                    nchw, grid, mode='bilinear', padding_mode='border',
                    align_corners=True),
                # Three lerps a channel, 3 FLOPs each.
-               9.0 * image.numel(), nbytes, PEAK_FLOPS['float32'])
+               9.0 * image.numel(), nbytes, measure.PEAK_FLOPS['float32'])
   return result
 
 
@@ -260,12 +223,10 @@ def check_conv(rng, h, w, cin, cout, pool, dtype, bound, batch=1,
       with tf32_allowed(tf32):
         return torch.nn.functional.conv2d(nchw, w_cl, b_cl, padding=1)
 
-    size = x.element_size()
-    pixels = batch * h * w
-    nbytes = (pixels * (cin + cout) * size + 9 * cin * cout * size +
-              cout * 4 + (pixels // 4 * cout * size if pool else 0))
     add_timing(result, kernel, plain, library,
-               2.0 * pixels * 9 * cin * cout, nbytes, PEAK_FLOPS[kind])
+               *measure.conv_cost(batch, h, w, cin, cout, pool,
+                                  x.element_size()),
+               measure.PEAK_FLOPS[kind])
   return result
 
 
@@ -307,7 +268,7 @@ def check_planes(rng, b, h, w, c, dtype, bound, flow_kind, timed):
                lambda: warp.warp_planes_plain(image, flow), None,
                14.0 * image.numel(),
                3 * image.numel() * image.element_size() + flow.numel() * 4,
-               PEAK_FLOPS['float32'])
+               measure.PEAK_FLOPS['float32'])
   return result
 
 
@@ -324,12 +285,26 @@ def check_splat(rng, b, h, w, c, dtype, bound, flow_kind, timed):
             'dtype': str(dtype).split('.')[-1], 'max_abs_err': err,
             'rel_err': rel, 'bound': bound, 'ok': rel <= bound}
   if timed:
-    # No single PyTorch call computes the splat; the f32 accumulator is
-    # written once.
+    # The library call: the image gradient of grid_sample's backward
+    # (bilinear, border, align_corners=True) under the warp's grid, made
+    # beforehand. In f32, as the splat's accumulator is, so a bf16 g is
+    # widened beforehand; the call also computes the grid's gradient, which
+    # reads the image. The bound counts the splat's bytes: g read, the f32
+    # accumulator written once.
+    grid = measure.bilinear_grid(flow)
+    g_nchw = g.float().permute(0, 3, 1, 2)
+    image_nchw = torch.zeros_like(g_nchw)
+
+    def library():
+      return torch.ops.aten.grid_sampler_2d_backward(
+          g_nchw, image_nchw, grid, 0, 1, True, [True, False])[0]
+
+    result['library_rel_err'] = ((library().permute(0, 2, 3, 1) - want).abs(
+        ).max() / want.abs().max()).item()
     add_timing(result, lambda: warp.splat_kernel(g, flow),
-               lambda: warp.splat_plain(g, flow), None, 8.0 * g.numel(),
+               lambda: warp.splat_plain(g, flow), library, 8.0 * g.numel(),
                g.numel() * (g.element_size() + 4) + flow.numel() * 4,
-               PEAK_FLOPS['float32'])
+               measure.PEAK_FLOPS['float32'])
   return result
 
 
@@ -664,6 +639,8 @@ def main() -> int:
       print(f'kernel {name} {r["shape"]} {r["dtype"]}{flow_kind}: max_abs_err '
             f'{r["max_abs_err"]:.3e}' +
             (f' rel_err {r["rel_err"]:.3e}' if 'rel_err' in r else '') +
+            (f' (library rel_err {r["library_rel_err"]:.1e})'
+             if 'library_rel_err' in r else '') +
             f' (bound {r["bound"]:.1e}) {"ok" if r["ok"] else "FAILED"}' +
             (f'; kernel {r["ms"]:.3f} ms, plain {r["plain_ms"]:.3f} ms, '
              f'library {library}, bound {r["bound_ms"]:.3f} ms '
@@ -702,13 +679,16 @@ def main() -> int:
   x0 = torch.from_numpy(frames[0]).cuda()
   x1 = torch.from_numpy(frames[1]).cuda()
   dtd = torch.from_numpy(dt).cuda()
-  device_ms = time_ms(lambda: interpolator.call_device(x0, x1, dtd), iters=3)
+  # End to end: the host's lag between launches counts, so the card does
+  # not queue the loop first.
+  device_ms = measure.time_ms(lambda: interpolator.call_device(x0, x1, dtd),
+                              iters=3, queued=False)
   with plain_versions():
     _kernels.reset_launch_counts()
     plain_out = interpolator(frames[0], frames[1], dt)
     plain_launches = sum(_kernels.launch_counts().values())
-    plain_device_ms = time_ms(
-        lambda: interpolator.call_device(x0, x1, dtd), iters=3)
+    plain_device_ms = measure.time_ms(
+        lambda: interpolator.call_device(x0, x1, dtd), iters=3, queued=False)
   if plain_launches:
     failures.append(f'plain forward launched {plain_launches} kernels')
   mse = float(np.mean((out.astype(np.float64) - plain_out)**2))

@@ -50,7 +50,9 @@
 // Tensor maps are encoded on the host on every call (the pointers change),
 // through cuTensorMapEncodeTiled reached with cudaGetDriverEntryPoint, so
 // the library links nothing beyond the CUDA runtime. They reach the kernel
-// as __grid_constant__ parameters.
+// as __grid_constant__ parameters. The rest of a launch's host work is done
+// once per device: the SM count is read, and each kernel instance's dynamic
+// shared memory limit raised, on its first launch there.
 //
 // Exact f32 (fi_conv3x3_f32, taken when TF32 is not allowed) runs on the
 // CUDA cores: synchronous shared-memory tiles of 128 pixels x 64 output
@@ -64,6 +66,8 @@
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
+
+#include <atomic>
 
 namespace {
 
@@ -497,10 +501,28 @@ bool encode(CUtensorMap* map, const void* base, int rank,
                         CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) == CUDA_SUCCESS;
 }
 
+// Devices whose per-device facts are kept after their first launch; a
+// device beyond them asks the runtime on every launch.
+constexpr int kMaxDevices = 64;
+
+cudaError_t sm_count(int device, int* sms) {
+  static std::atomic<int> counts[kMaxDevices];
+  const bool kept = device >= 0 && device < kMaxDevices;
+  if (kept && (*sms = counts[device].load(std::memory_order_relaxed)) > 0) {
+    return cudaSuccess;
+  }
+  cudaError_t err =
+      cudaDeviceGetAttribute(sms, cudaDevAttrMultiProcessorCount, device);
+  if (err == cudaSuccess && kept) {
+    counts[device].store(*sms, std::memory_order_relaxed);
+  }
+  return err;
+}
+
 template <typename T, int BN>
 int launch_wgmma(const void* x, const void* w, const void* bias, void* out,
                  void* pool, int N, int H, int W, int Cin, int Cout,
-                 float slope, cudaStream_t stream) {
+                 float slope, int device, cudaStream_t stream) {
   using R = Ring<BN>;
   constexpr int kBK = Operand<T>::kBK;
   const cuuint64_t e = sizeof(T);
@@ -518,10 +540,16 @@ int launch_wgmma(const void* x, const void* w, const void* bias, void* out,
     return (int)cudaErrorInvalidValue;
   }
   auto kernel = conv3x3_wgmma_kernel<T, BN>;
-  cudaError_t err = cudaFuncSetAttribute(
-      reinterpret_cast<const void*>(kernel),
-      cudaFuncAttributeMaxDynamicSharedMemorySize, R::kSmem);
-  if (err != cudaSuccess) return (int)err;
+  // Raised once per device for this instance (each holds its own flags).
+  static std::atomic<bool> smem_raised[kMaxDevices];
+  const bool kept = device >= 0 && device < kMaxDevices;
+  if (!kept || !smem_raised[device].load(std::memory_order_relaxed)) {
+    cudaError_t err = cudaFuncSetAttribute(
+        reinterpret_cast<const void*>(kernel),
+        cudaFuncAttributeMaxDynamicSharedMemorySize, R::kSmem);
+    if (err != cudaSuccess) return (int)err;
+    if (kept) smem_raised[device].store(true, std::memory_order_relaxed);
+  }
   const int tiles_w = (W + kTileCols - 1) / kTileCols;
   const int tiles_h = (H + kTileRows - 1) / kTileRows;
   const int n_blocks = Cout / BN;
@@ -547,9 +575,7 @@ int launch_tensor_cores(const void* x, const void* w, const void* bias,
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   int device = 0, sms = 0;
   cudaError_t err = cudaGetDevice(&device);
-  if (err == cudaSuccess) {
-    err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, device);
-  }
+  if (err == cudaSuccess) err = sm_count(device, &sms);
   if (err != cudaSuccess) return (int)err;
   // The widest N tile that divides Cout (256, 128, 64): each A tile then
   // feeds the most output channels. A grid that would fill under 3/4 of
@@ -561,14 +587,14 @@ int launch_tensor_cores(const void* x, const void* w, const void* bias,
   };
   if (Cout % 256 == 0 && fills(256, Ring<256>::kMinBlocks)) {
     return launch_wgmma<T, 256>(x, w, bias, out, pool, N, H, W, Cin, Cout,
-                                slope, s);
+                                slope, device, s);
   }
   if (Cout % 128 == 0 && fills(128, Ring<128>::kMinBlocks)) {
     return launch_wgmma<T, 128>(x, w, bias, out, pool, N, H, W, Cin, Cout,
-                                slope, s);
+                                slope, device, s);
   }
   return launch_wgmma<T, 64>(x, w, bias, out, pool, N, H, W, Cin, Cout, slope,
-                             s);
+                             device, s);
 }
 
 // ---------------------------------------------------------------------------

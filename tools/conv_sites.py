@@ -11,21 +11,25 @@ shape, it times `conv3x3_leaky_kernel` with CUDA events beside `F.conv2d`
 with bias on channels-last tensors (cuDNN: the conv and bias only, without
 the activation and the pool) and the bound: the larger of the FLOPs over
 the dtype's peak and the bytes (each input read once, each output written
-once) over HBM's rate. The train step's sites are timed twice: with TF32
+once) over HBM's rate. The timer and the bounds are chip_smoke.py's
+(utils/measure.py). The train step's sites are timed twice: with TF32
 allowed (PyTorch's default; the kernel's TF32 route) and with it off (the
-exact f32 route). Prints one line per distinct site and the totals per pair
-and per step, each naming the card and its power limit. Needs a GPU.
+exact f32 route). Prints the host's time per kernel call, one line per
+distinct site and the totals per pair and per step, each naming the card
+and its power limit. Needs a GPU.
 
 It imports the port from the checkout it sits in, so a copy placed in
-another checkout's tools/ (an unpacked parent commit, say) times that
-checkout's kernel in the same call.
+another checkout's tools/ (an unpacked parent commit, say), with a copy of
+frame_interpolation_tpu_torch/utils/measure.py in that checkout's package,
+times that checkout's kernel in the same call, with the same timer and
+bounds.
 """
 from __future__ import annotations
 
 import collections
 import contextlib
-import subprocess
 import sys
+import time
 from pathlib import Path
 
 import numpy as np
@@ -39,15 +43,9 @@ from frame_interpolation_tpu_torch.models import create_model, init_params  # no
 from frame_interpolation_tpu_torch.ops import conv_stack  # noqa: E402
 from frame_interpolation_tpu_torch.options import Options  # noqa: E402
 from frame_interpolation_tpu_torch.training import configs  # noqa: E402
+from frame_interpolation_tpu_torch.utils import measure  # noqa: E402
 
-# H100 SXM peaks (NVIDIA's data sheet, dense), as in chip_smoke.py.
-PEAK_FLOPS = {'bfloat16': 989e12, 'tf32': 495e12, 'float32': 67e12}
-HBM_BYTES_PER_S = 3.35e12
 ITERS = 20
-# Device cycles (about 2.5 ms at 1.98 GHz) the card spins before each timed
-# loop, as in chip_smoke.py: the host queues the launches meanwhile, so the
-# coarse sites' few-microsecond kernels are timed, not their launch cost.
-QUEUE_CYCLES = 5_000_000
 TRAIN_BATCH, TRAIN_CROP = 8, 256
 
 
@@ -55,10 +53,7 @@ def card_line() -> str:
   if not torch.cuda.is_available():
     raise SystemExit('conv_sites: torch.cuda.is_available() is false; this '
                      'script needs a CUDA GPU')
-  query = subprocess.run(
-      ['nvidia-smi', '--query-gpu=name,power.limit', '--format=csv,noheader'],
-      capture_output=True, text=True, check=True, timeout=60)
-  return query.stdout.strip().splitlines()[0]
+  return measure.card_line()
 
 
 @contextlib.contextmanager
@@ -106,21 +101,6 @@ def train_sites() -> collections.Counter:
   return sites
 
 
-def event_ms(fn) -> float:
-  """Mean device time of fn() over ITERS launches, after one warm-up."""
-  fn()
-  torch.cuda.synchronize()
-  torch.cuda._sleep(QUEUE_CYCLES)
-  start = torch.cuda.Event(enable_timing=True)
-  end = torch.cuda.Event(enable_timing=True)
-  start.record()
-  for _ in range(ITERS):
-    fn()
-  end.record()
-  end.synchronize()
-  return start.elapsed_time(end) / ITERS
-
-
 def time_site(site: tuple, tf32: bool, rng) -> dict:
   n, h, w, cin, cout, pool, dtype = site
   x = torch.from_numpy((rng.rand(n, h, w, cin) * 2 - 1).astype(
@@ -134,21 +114,17 @@ def time_site(site: tuple, tf32: bool, rng) -> dict:
   saved = torch.backends.cudnn.allow_tf32
   torch.backends.cudnn.allow_tf32 = tf32
   try:
-    kernel_ms = event_ms(
-        lambda: conv_stack.conv3x3_leaky_kernel(x, weight, bias, pool))
-    library_ms = event_ms(lambda: F.conv2d(nchw, w_cl, b_lib, padding=1))
+    kernel_ms = measure.time_ms(
+        lambda: conv_stack.conv3x3_leaky_kernel(x, weight, bias, pool), ITERS)
+    library_ms = measure.time_ms(
+        lambda: F.conv2d(nchw, w_cl, b_lib, padding=1), ITERS)
   finally:
     torch.backends.cudnn.allow_tf32 = saved
   kind = 'tf32' if tf32 and dtype == torch.float32 else str(dtype)[6:]
-  size = x.element_size()
-  pixels = n * h * w
-  nbytes = (pixels * (cin + cout) * size + 9 * cin * cout * size + cout * 4 +
-            (pixels // 4 * cout * size if pool else 0))
-  ops_ms = 1e3 * 2.0 * pixels * 9 * cin * cout / PEAK_FLOPS[kind]
-  bytes_ms = 1e3 * nbytes / HBM_BYTES_PER_S
-  return {'kind': kind, 'ms': kernel_ms, 'library_ms': library_ms,
-          'bound_ms': max(ops_ms, bytes_ms),
-          'bound_by': 'operations' if ops_ms >= bytes_ms else 'bytes'}
+  bound = measure.roofline(
+      *measure.conv_cost(n, h, w, cin, cout, pool, x.element_size()),
+      measure.PEAK_FLOPS[kind])
+  return {'kind': kind, 'ms': kernel_ms, 'library_ms': library_ms, **bound}
 
 
 def report(label: str, unit: str, sites: collections.Counter, tf32: bool,
@@ -171,8 +147,43 @@ def report(label: str, unit: str, sites: collections.Counter, tf32: bool,
         f'{ITERS} per site; {card})')
 
 
+# Device cycles (about 50 ms at 1.98 GHz) the card spins while the host
+# issues the calls of the busy-device measurement.
+BUSY_CYCLES = 100_000_000
+
+
+def host_us_per_call(card: str, calls: int = 2000, busy_calls: int = 200
+                     ) -> None:
+  """Host time of one conv3x3_leaky_kernel call (wrapper checks, weight
+  cache, tensor maps, launch) at the coarsest pair site: first on an idle
+  device, which finishes each call long before the host issues the next;
+  then with the device busy for about 50 ms, so that a call which waits
+  for the device shows it."""
+  x = torch.zeros(1, 17, 30, 512, device='cuda', dtype=torch.bfloat16)
+  weight = torch.zeros(512, 512, 3, 3, device='cuda')
+  bias = torch.zeros(512, device='cuda')
+  for _ in range(3):
+    conv_stack.conv3x3_leaky_kernel(x, weight, bias, False)
+  torch.cuda.synchronize()
+  us = {}
+  for label, n, spin in (('idle', calls, 0), ('busy', busy_calls,
+                                              BUSY_CYCLES)):
+    if spin:
+      torch.cuda._sleep(spin)
+    start = time.perf_counter()
+    for _ in range(n):
+      conv_stack.conv3x3_leaky_kernel(x, weight, bias, False)
+    us[label] = 1e6 * (time.perf_counter() - start) / n
+    torch.cuda.synchronize()
+  print(f'host: {us["idle"]:.2f} us per conv3x3_leaky_kernel call on an '
+        f'idle device ({calls} calls), {us["busy"]:.2f} us with the device '
+        f'busy for about 50 ms ({busy_calls} calls) (host clock, 1x17x30 '
+        f'512->512 bf16; {card})')
+
+
 def main() -> int:
   card = card_line()
+  host_us_per_call(card)
   report('pair', 'pair', pair_sites(), False, card)
   sites = train_sites()
   report('train-tf32', 'step', sites, True, card)

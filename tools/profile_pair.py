@@ -31,7 +31,6 @@ import collections
 import json
 import re
 import shutil
-import subprocess
 import sys
 import tempfile
 import time
@@ -48,6 +47,7 @@ from frame_interpolation_tpu_torch.models import create_model, init_params  # no
 from frame_interpolation_tpu_torch.ops import tiling  # noqa: E402
 from frame_interpolation_tpu_torch.options import Options  # noqa: E402
 from frame_interpolation_tpu_torch.training import configs, train_lib  # noqa: E402
+from frame_interpolation_tpu_torch.utils import measure  # noqa: E402
 
 TRAIN_STEPS = 3  # train steps under torch.profiler
 
@@ -78,22 +78,7 @@ def card_line() -> str:
   if not torch.cuda.is_available():
     raise SystemExit('profile_pair: torch.cuda.is_available() is false; '
                      'this script needs a CUDA GPU')
-  query = subprocess.run(
-      ['nvidia-smi', '--query-gpu=name,power.limit', '--format=csv,noheader'],
-      capture_output=True, text=True, check=True, timeout=60)
-  return query.stdout.strip().splitlines()[0]
-
-
-def event_ms(fn, iters: int) -> float:
-  """Mean device time of fn() over `iters` calls (CUDA events)."""
-  start = torch.cuda.Event(enable_timing=True)
-  end = torch.cuda.Event(enable_timing=True)
-  start.record()
-  for _ in range(iters):
-    fn()
-  end.record()
-  end.synchronize()
-  return start.elapsed_time(end) / iters
+  return measure.card_line()
 
 
 def group_of(name: str) -> str:
@@ -207,18 +192,20 @@ def main() -> int:
     f0 = model.extract_features(p0)
     f1 = model.extract_features(p1)
     layers = {
-        'whole forward (call_device)': event_ms(
-            lambda: interpolator.call_device(x0, x1, dt), args.pairs),
-        'feature extraction, both frames': event_ms(
-            lambda: (model.extract_features(p0), model.extract_features(p1)),
-            args.pairs),
-        'flow estimation, both directions': event_ms(
-            lambda: (model.predict_flow(f0[1], f1[1]),
-                     model.predict_flow(f1[1], f0[1])), args.pairs),
-        'interpolate_from_features': event_ms(
-            lambda: model.interpolate_from_features(f0, f1, time_in),
-            args.pairs),
+        'whole forward (call_device)': lambda: interpolator.call_device(
+            x0, x1, dt),
+        'feature extraction, both frames': lambda: (
+            model.extract_features(p0), model.extract_features(p1)),
+        'flow estimation, both directions': lambda: (
+            model.predict_flow(f0[1], f1[1]),
+            model.predict_flow(f1[1], f0[1])),
+        'interpolate_from_features': lambda: model.interpolate_from_features(
+            f0, f1, time_in),
     }
+    # The host's lag between launches counts, as in chip_smoke.py's
+    # serving time.
+    layers = {name: measure.time_ms(fn, args.pairs, queued=False)
+              for name, fn in layers.items()}
   layers['warps + fusion (interpolate_from_features minus flow)'] = (
       layers.pop('interpolate_from_features') -
       layers['flow estimation, both directions'])

@@ -554,9 +554,11 @@ def main() -> int:
         f'{_kernels.BUILD_INFO["path"]})')
 
   # Phase 3: each kernel against its plain version at main-path shapes.
-  # The warp has two paths: 16-byte channel vectors where C allows them
-  # (the flow estimator's C = 64 ... 960) and scalar loads where it does
-  # not (the fusion's C = 67 ... 963); each is checked.
+  # The warp has two routes: 16-byte channel vectors where C allows them
+  # (the flow estimator's C = 64 ... 960) and runs of flat (pixel, channel)
+  # elements where it does not (the fusion's C = 67 ... 963); each is
+  # checked, the run route also at the train step's two finest fusion
+  # warps.
   rng = np.random.RandomState(0)
   checks = {
       'warp': [check_warp(rng, 1088, 1920, 67, torch.bfloat16,
@@ -566,7 +568,11 @@ def main() -> int:
                check_warp(rng, 136, 240, 960, torch.bfloat16,
                           WARP_BF16_BOUND),
                check_warp(rng, 544, 960, 195, torch.float32,
-                          WARP_F32_BOUND)],
+                          WARP_F32_BOUND),
+               check_warp(rng, 256, 256, 67, torch.float32,
+                          WARP_F32_BOUND, batch=TRAIN_BATCH),
+               check_warp(rng, 128, 128, 195, torch.float32,
+                          WARP_F32_BOUND, batch=TRAIN_BATCH)],
       'conv3x3_c64': [], 'conv3x3_wide': [],
   }
   # The conv at every distinct serving site shape in bf16 (timed), and at
@@ -613,11 +619,13 @@ def main() -> int:
                                      batch=2, timed=False, tf32=tf32))
   # The training backward's kernels: the warp's derivative planes (B4) and
   # the splat (B5/B6), at shapes of the film_net-L1 train step (f32, batch
-  # 8 of 256x256 crops: the finest fusion warp, a middle and a coarse
+  # 8 of 256x256 crops: the two finest fusion warps, a middle and a coarse
   # flow-estimator warp) and at 1080p in bf16, each with four flows; timed
-  # with the seam flow.
+  # with the seam flow, and the splat also with the oob flow at the finest
+  # fusion warp, where every tile takes its global-atomic route.
   checks['warp_planes'], checks['splat'] = [], []
   for b, h, w, c, dtype in ((8, 256, 256, 67, torch.float32),
+                            (8, 128, 128, 195, torch.float32),
                             (8, 128, 128, 192, torch.float32),
                             (8, 32, 32, 960, torch.float32),
                             (1, 1088, 1920, 64, torch.bfloat16),
@@ -630,7 +638,8 @@ def main() -> int:
           PLANES_F32_BOUND if f32 else PLANES_BF16_BOUND, flow_kind, timed))
       checks['splat'].append(check_splat(
           rng, b, h, w, c, dtype,
-          SPLAT_F32_BOUND if f32 else SPLAT_BF16_BOUND, flow_kind, timed))
+          SPLAT_F32_BOUND if f32 else SPLAT_BF16_BOUND, flow_kind,
+          timed or (flow_kind == 'oob' and (h, c) == (256, 67))))
   for name, results in checks.items():
     for r in results:
       flow_kind = f' {r["flow"]} flow' if 'flow' in r else ''

@@ -17,18 +17,31 @@
 // What bounds it on the H100: bytes. A warp reads four C-vectors and the
 // flow and writes one C-vector per pixel, with about one FLOP per byte; the
 // 22 warps of a 1080p pair move about 5.5 GB of compulsory traffic, some
-// 1.6 ms at 3.35 TB/s.
+// 1.6 ms at 3.35 TB/s. The four taps of nearby pixels overlap, so most tap
+// reads hit L1 or L2 for smooth flow; what the kernel must get right is
+// that every warp-wide load and store uses whole sectors.
 //
 // What the design does about it: the TPU kernel's windows and planar
 // layout exist to get taps into VMEM; here the image stays NHWC, so each
-// tap is one contiguous C-vector in device memory. One thread handles one
-// output pixel and 16 bytes of channels (8 bf16 or 4 f32): neighbouring
-// threads read neighbouring 16-byte pieces of the same tap, so the loads
-// coalesce, and the four taps of nearby pixels mostly hit L2 for smooth
-// flow. The coordinate math is repeated per 16-byte piece (a few FLOPs,
-// free under the byte bound). Channel counts that are not a multiple of
-// the vector (C = 67, 195, ... on the fusion's image+feature warps) take
-// the same mapping with scalar loads.
+// tap is one contiguous C-vector in device memory, and the kernel has two
+// routes over it.
+//  * Vector route, where C is a multiple of the 16-byte vector (8 bf16 or
+//    4 f32: the flow estimator's C = 64 ... 960) and the pointers are
+//    16-byte aligned: one thread per output pixel and 16-byte piece of
+//    channels, one uint4 load per tap; neighbouring threads read
+//    neighbouring pieces of one tap.
+//  * Run route, for every other C (the fusion's image+feature warps,
+//    C = 67, 195, 451, 963): a block of 128 threads takes a run of up to 32
+//    consecutive output pixels, computes each pixel's tap offset and alphas
+//    once into shared memory, and its threads then stride over the run's
+//    flat (pixel, channel) elements, two consecutive elements a thread. A
+//    warp's lanes read consecutive channels of a tap (one or two contiguous
+//    pieces where the warp straddles two pixels), and its stores are one
+//    contiguous piece of the output, since the run's output is contiguous
+//    in NHWC. Taps at odd C lie at any alignment, so the loads are one
+//    element wide; in bf16 the route runs eight times the vector route's
+//    load instructions for the same bytes, and that, not the bytes, is
+//    what it runs into first.
 //
 // Planes mode: the flow-derivative planes of the warp, for the training
 // backward (ops/warp.py flow_cotangent_from_planes reduces them against
@@ -40,28 +53,41 @@
 // with top/bot the forward's row blends and cg JAX's clip gradient of the
 // RAW (pre-clip) offsets tx = qx - floor_clamped(qx), ty likewise: 1 inside
 // (0, 1), 0.5 at exactly 0 or 1 (lax min/max tie rule), 0 outside. The
-// same taps and mapping as the primal, two outputs; f32 math, one rounding
+// same taps and routes as the primal, two outputs; f32 math, one rounding
 // to the image dtype per plane. It moves 1.5x the primal's bytes.
-#include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
 
+#include <algorithm>
+
+#include "bilinear.cuh"
+
 namespace {
 
-__device__ __forceinline__ float to_float(float v) { return v; }
-__device__ __forceinline__ float to_float(__nv_bfloat16 v) {
-  return __bfloat162float(v);
+// Vector route: threads a block.
+constexpr int kVectorThreads = 256;
+// Run route: threads a block, at most kMaxRun output pixels a block and
+// about kRunElements (pixel, channel) elements, so wide C still gives many
+// blocks. A thread takes pairs of consecutive elements and starts the loads
+// of kUnroll pairs before it computes either.
+constexpr int kRunThreads = 128;
+constexpr int kMaxRun = 32;
+constexpr int kRunElements = 4096;
+constexpr int kUnroll = 2;
+
+// One element as f32, through the read-only path.
+__device__ __forceinline__ float load1(const float* p) { return __ldg(p); }
+__device__ __forceinline__ float load1(const __nv_bfloat16* p) {
+  return __bfloat162float(__ldg(p));
 }
 
-template <typename T>
-__device__ __forceinline__ T from_float(float v);
-template <>
-__device__ __forceinline__ float from_float<float>(float v) {
-  return v;
+// Stores two consecutive elements at an address aligned to the pair,
+// rounding each once.
+__device__ __forceinline__ void store2(float* p, float2 v) {
+  *reinterpret_cast<float2*>(p) = v;
 }
-template <>
-__device__ __forceinline__ __nv_bfloat16 from_float<__nv_bfloat16>(float v) {
-  return __float2bfloat16_rn(v);
+__device__ __forceinline__ void store2(__nv_bfloat16* p, float2 v) {
+  *reinterpret_cast<__nv_bfloat162*>(p) = __floats2bfloat162_rn(v.x, v.y);
 }
 
 __device__ __forceinline__ float blend(float ax, float ay, float t00,
@@ -86,14 +112,15 @@ __device__ __forceinline__ float plane_dv(float ax, float t00, float t01,
   return ((1.f - ax) * t10 + ax * t11) - ((1.f - ax) * t00 + ax * t01);
 }
 
-// kVector: C is a multiple of the 16-byte vector and the pointers are
+// Vector route: C is a multiple of the 16-byte vector and the pointers are
 // 16-byte aligned, so every piece is one uint4 load per tap.
 // kPlanes: write du to `out` and dv to `dv_out` instead of the warp.
-template <typename T, bool kVector, bool kPlanes>
-__global__ void __launch_bounds__(256)
-    warp_kernel(const T* __restrict__ image, const float2* __restrict__ flow,
-                T* __restrict__ out, T* __restrict__ dv_out, int H, int W,
-                int C, int pieces, int64_t total) {
+template <typename T, bool kPlanes>
+__global__ void __launch_bounds__(kVectorThreads)
+    warp_vector_kernel(const T* __restrict__ image,
+                       const float2* __restrict__ flow, T* __restrict__ out,
+                       T* __restrict__ dv_out, int H, int W, int C,
+                       int pieces, int64_t total) {
   constexpr int kVec = 16 / sizeof(T);
   const int64_t idx = (int64_t)blockIdx.x * blockDim.x + threadIdx.x;
   if (idx >= total) return;
@@ -104,59 +131,124 @@ __global__ void __launch_bounds__(256)
   const int y = (int)(by % H);
   const int64_t b = by / H;
 
-  const float2 f = flow[p];
-  const float qx = (float)x + f.x;
-  const float qy = (float)y + f.y;
-  const float fx = fminf(fmaxf(floorf(qx), 0.f), (float)(W - 2));
-  const float fy = fminf(fmaxf(floorf(qy), 0.f), (float)(H - 2));
-  const float ax = fminf(fmaxf(qx - fx, 0.f), 1.f);
-  const float ay = fminf(fmaxf(qy - fy, 0.f), 1.f);
-  const float cgx = kPlanes ? clip_grad(qx - fx) : 0.f;
-  const float cgy = kPlanes ? clip_grad(qy - fy) : 0.f;
+  const Query q = query(y, x, flow[p], H, W);
+  const float cgx = kPlanes ? clip_grad(q.tx) : 0.f;
+  const float cgy = kPlanes ? clip_grad(q.ty) : 0.f;
 
   const int c0 = piece * kVec;
-  const T* t00 = image + ((b * H + (int)fy) * W + (int)fx) * C + c0;
-  const T* t01 = t00 + C;
-  const T* t10 = t00 + (int64_t)W * C;
-  const T* t11 = t10 + C;
-  T* o = out + p * C + c0;
-  T* v = kPlanes ? dv_out + p * C + c0 : nullptr;
-
-  if (kVector) {
-    const uint4 v00 = *reinterpret_cast<const uint4*>(t00);
-    const uint4 v01 = *reinterpret_cast<const uint4*>(t01);
-    const uint4 v10 = *reinterpret_cast<const uint4*>(t10);
-    const uint4 v11 = *reinterpret_cast<const uint4*>(t11);
-    const T* e00 = reinterpret_cast<const T*>(&v00);
-    const T* e01 = reinterpret_cast<const T*>(&v01);
-    const T* e10 = reinterpret_cast<const T*>(&v10);
-    const T* e11 = reinterpret_cast<const T*>(&v11);
-    uint4 r, rv;
-    T* er = reinterpret_cast<T*>(&r);
-    T* ev = reinterpret_cast<T*>(&rv);
+  const T* t00 = image + ((b * H + q.iy) * W + q.ix) * C + c0;
+  const uint4 v00 = *reinterpret_cast<const uint4*>(t00);
+  const uint4 v01 = *reinterpret_cast<const uint4*>(t00 + C);
+  const uint4 v10 = *reinterpret_cast<const uint4*>(t00 + (int64_t)W * C);
+  const uint4 v11 =
+      *reinterpret_cast<const uint4*>(t00 + (int64_t)W * C + C);
+  const T* e00 = reinterpret_cast<const T*>(&v00);
+  const T* e01 = reinterpret_cast<const T*>(&v01);
+  const T* e10 = reinterpret_cast<const T*>(&v10);
+  const T* e11 = reinterpret_cast<const T*>(&v11);
+  uint4 r, rv;
+  T* er = reinterpret_cast<T*>(&r);
+  T* ev = reinterpret_cast<T*>(&rv);
 #pragma unroll
-    for (int j = 0; j < kVec; ++j) {
-      const float s00 = to_float(e00[j]), s01 = to_float(e01[j]);
-      const float s10 = to_float(e10[j]), s11 = to_float(e11[j]);
-      if (kPlanes) {
-        er[j] = from_float<T>(plane_du(ay, s00, s01, s10, s11) * cgx);
-        ev[j] = from_float<T>(plane_dv(ax, s00, s01, s10, s11) * cgy);
-      } else {
-        er[j] = from_float<T>(blend(ax, ay, s00, s01, s10, s11));
+  for (int j = 0; j < kVec; ++j) {
+    const float s00 = to_float(e00[j]), s01 = to_float(e01[j]);
+    const float s10 = to_float(e10[j]), s11 = to_float(e11[j]);
+    if (kPlanes) {
+      er[j] = from_float<T>(plane_du(q.ay, s00, s01, s10, s11) * cgx);
+      ev[j] = from_float<T>(plane_dv(q.ax, s00, s01, s10, s11) * cgy);
+    } else {
+      er[j] = from_float<T>(blend(q.ax, q.ay, s00, s01, s10, s11));
+    }
+  }
+  *reinterpret_cast<uint4*>(out + p * C + c0) = r;
+  if (kPlanes) *reinterpret_cast<uint4*>(dv_out + p * C + c0) = rv;
+}
+
+// Run route: block `blockIdx.x` takes output pixels [p0, p0 + run) of the
+// flat (B*H*W) pixel range, `run` even; any C. A thread takes pairs of
+// consecutive elements (e, e+1), e even, which share their address
+// arithmetic and one aligned two-element store; the second element is the
+// next channel of the same pixel, or channel 0 of the next pixel where the
+// pair spans two (a select, not a branch, so the warp does not diverge).
+struct alignas(16) RunPixel {
+  int64_t tap;  // offset of the top-left tap
+  float ax, ay;
+};
+
+template <typename T, bool kPlanes>
+__global__ void __launch_bounds__(kRunThreads)
+    warp_run_kernel(const T* __restrict__ image,
+                    const float2* __restrict__ flow, T* __restrict__ out,
+                    T* __restrict__ dv_out, int H, int W, int C,
+                    int64_t pixels, int run) {
+  __shared__ RunPixel s_px[kMaxRun];
+  __shared__ float2 s_cg[kPlanes ? kMaxRun : 1];  // clip gradients (x, y)
+  const int tid = threadIdx.x;
+  const int64_t p0 = (int64_t)blockIdx.x * run;
+  const int n = (int)(pixels - p0 < run ? pixels - p0 : run);
+  if (tid < n) {
+    const int64_t p = p0 + tid;
+    const int x = (int)(p % W);
+    const int64_t by = p / W;
+    const int y = (int)(by % H);
+    const int64_t b = by / H;
+    const Query q = query(y, x, flow[p], H, W);
+    s_px[tid] = RunPixel{((b * H + q.iy) * W + q.ix) * C, q.ax, q.ay};
+    if (kPlanes) s_cg[tid] = make_float2(clip_grad(q.tx), clip_grad(q.ty));
+  }
+  __syncthreads();
+
+  const int total = n * C;
+  const int64_t row = (int64_t)W * C;
+  T* o = out + p0 * C;
+  T* v = kPlanes ? dv_out + p0 * C : nullptr;
+  FlatWalk walk(2 * tid, 2 * kRunThreads, C);
+  for (int e0 = 2 * tid; e0 < total; e0 += 2 * kUnroll * kRunThreads) {
+    int px[kUnroll], qx[kUnroll];  // the pixels of the pair's elements
+    float2 t[kUnroll][4];
+#pragma unroll
+    for (int u = 0; u < kUnroll; ++u) {
+      const bool live = e0 + 2 * u * kRunThreads < total;
+      const int c = walk.c;
+      px[u] = min(walk.i, n - 1);
+      qx[u] = c + 1 < C ? px[u] : min(px[u] + 1, n - 1);
+      walk.next();
+      const int64_t a = s_px[px[u]].tap + c;
+      const int64_t b = c + 1 < C ? a + 1 : s_px[qx[u]].tap;
+      const int64_t offs[4] = {0, C, row, row + C};
+#pragma unroll
+      for (int k = 0; k < 4; ++k) {
+        t[u][k] = live ? make_float2(load1(image + a + offs[k]),
+                                     load1(image + b + offs[k]))
+                       : make_float2(0.f, 0.f);
       }
     }
-    *reinterpret_cast<uint4*>(o) = r;
-    if (kPlanes) *reinterpret_cast<uint4*>(v) = rv;
-  } else {
-    const int n = min(kVec, C - c0);
-    for (int j = 0; j < n; ++j) {
-      const float s00 = to_float(t00[j]), s01 = to_float(t01[j]);
-      const float s10 = to_float(t10[j]), s11 = to_float(t11[j]);
+#pragma unroll
+    for (int u = 0; u < kUnroll; ++u) {
+      const int e = e0 + 2 * u * kRunThreads;
+      if (e >= total) continue;
+      const RunPixel P = s_px[px[u]], Q = s_px[qx[u]];
+      float2 r, rv;
       if (kPlanes) {
-        o[j] = from_float<T>(plane_du(ay, s00, s01, s10, s11) * cgx);
-        v[j] = from_float<T>(plane_dv(ax, s00, s01, s10, s11) * cgy);
+        const float2 g = s_cg[px[u]], h = s_cg[qx[u]];
+        r.x = plane_du(P.ay, t[u][0].x, t[u][1].x, t[u][2].x, t[u][3].x) *
+              g.x;
+        r.y = plane_du(Q.ay, t[u][0].y, t[u][1].y, t[u][2].y, t[u][3].y) *
+              h.x;
+        rv.x = plane_dv(P.ax, t[u][0].x, t[u][1].x, t[u][2].x, t[u][3].x) *
+               g.y;
+        rv.y = plane_dv(Q.ax, t[u][0].y, t[u][1].y, t[u][2].y, t[u][3].y) *
+               h.y;
       } else {
-        o[j] = from_float<T>(blend(ax, ay, s00, s01, s10, s11));
+        r.x = blend(P.ax, P.ay, t[u][0].x, t[u][1].x, t[u][2].x, t[u][3].x);
+        r.y = blend(Q.ax, Q.ay, t[u][0].y, t[u][1].y, t[u][2].y, t[u][3].y);
+      }
+      if (e + 1 < total) {
+        store2(o + e, r);
+        if (kPlanes) store2(v + e, rv);
+      } else {
+        o[e] = from_float<T>(r.x);
+        if (kPlanes) v[e] = from_float<T>(rv.x);
       }
     }
   }
@@ -164,40 +256,41 @@ __global__ void __launch_bounds__(256)
 
 // dv_out is NULL for the warp and the dv plane for the planes mode (where
 // `out` takes du).
-template <typename T>
+template <typename T, bool kPlanes>
 int launch_warp(const void* image, const void* flow, void* out, void* dv_out,
                 int B, int H, int W, int C, void* stream) {
   if (H < 2 || W < 2 || C < 1 || B < 1) return (int)cudaErrorInvalidValue;
   constexpr int kVec = 16 / sizeof(T);
-  constexpr int kThreads = 256;
-  const int pieces = (C + kVec - 1) / kVec;
-  const int64_t total = (int64_t)B * H * W * pieces;
-  const int64_t blocks = (total + kThreads - 1) / kThreads;
-  if (blocks > 0x7fffffffLL) return (int)cudaErrorInvalidConfiguration;
-  const bool vector = C % kVec == 0 &&
-                      reinterpret_cast<uintptr_t>(image) % 16 == 0 &&
-                      reinterpret_cast<uintptr_t>(out) % 16 == 0 &&
-                      reinterpret_cast<uintptr_t>(dv_out) % 16 == 0;
   const T* in = static_cast<const T*>(image);
   const float2* fl = static_cast<const float2*>(flow);
   T* o = static_cast<T*>(out);
   T* v = static_cast<T*>(dv_out);
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  const unsigned grid = (unsigned)blocks;
-  if (v == nullptr) {
-    if (vector) {
-      warp_kernel<T, true, false><<<grid, kThreads, 0, s>>>(
-          in, fl, o, v, H, W, C, pieces, total);
-    } else {
-      warp_kernel<T, false, false><<<grid, kThreads, 0, s>>>(
-          in, fl, o, v, H, W, C, pieces, total);
-    }
-  } else if (vector) {
-    warp_kernel<T, true, true><<<grid, kThreads, 0, s>>>(
+  const int64_t pixels = (int64_t)B * H * W;
+  const bool vector = C % kVec == 0 &&
+                      reinterpret_cast<uintptr_t>(image) % 16 == 0 &&
+                      reinterpret_cast<uintptr_t>(out) % 16 == 0 &&
+                      reinterpret_cast<uintptr_t>(dv_out) % 16 == 0;
+  if (vector) {
+    const int pieces = C / kVec;
+    const int64_t total = pixels * pieces;
+    const int64_t blocks = (total + kVectorThreads - 1) / kVectorThreads;
+    if (blocks > 0x7fffffffLL) return (int)cudaErrorInvalidConfiguration;
+    warp_vector_kernel<T, kPlanes><<<(unsigned)blocks, kVectorThreads, 0, s>>>(
         in, fl, o, v, H, W, C, pieces, total);
   } else {
-    warp_kernel<T, false, true><<<grid, kThreads, 0, s>>>(
-        in, fl, o, v, H, W, C, pieces, total);
+    // The run route stores aligned pairs: p0 * C is even and so must be
+    // the outputs' addresses in elements (the wrapper's fresh tensors are).
+    if (C > 0x7fffffff / kMaxRun ||
+        reinterpret_cast<uintptr_t>(out) % (2 * sizeof(T)) != 0 ||
+        reinterpret_cast<uintptr_t>(dv_out) % (2 * sizeof(T)) != 0) {
+      return (int)cudaErrorInvalidValue;
+    }
+    const int run = std::max(2, std::min(kMaxRun, kRunElements / C)) & ~1;
+    const int64_t blocks = (pixels + run - 1) / run;
+    if (blocks > 0x7fffffffLL) return (int)cudaErrorInvalidConfiguration;
+    warp_run_kernel<T, kPlanes><<<(unsigned)blocks, kRunThreads, 0, s>>>(
+        in, fl, o, v, H, W, C, pixels, run);
   }
   return (int)cudaGetLastError();
 }
@@ -206,27 +299,29 @@ int launch_warp(const void* image, const void* flow, void* out, void* dv_out,
 
 extern "C" int fi_warp_bf16(const void* image, const void* flow, void* out,
                             int B, int H, int W, int C, void* stream) {
-  return launch_warp<__nv_bfloat16>(image, flow, out, nullptr, B, H, W, C,
-                                    stream);
+  return launch_warp<__nv_bfloat16, false>(image, flow, out, nullptr, B, H,
+                                           W, C, stream);
 }
 
 extern "C" int fi_warp_f32(const void* image, const void* flow, void* out,
                            int B, int H, int W, int C, void* stream) {
-  return launch_warp<float>(image, flow, out, nullptr, B, H, W, C, stream);
+  return launch_warp<float, false>(image, flow, out, nullptr, B, H, W, C,
+                                   stream);
 }
 
 extern "C" int fi_warp_planes_bf16(const void* image, const void* flow,
                                    void* du, void* dv, int B, int H, int W,
                                    int C, void* stream) {
   if (dv == nullptr) return (int)cudaErrorInvalidValue;
-  return launch_warp<__nv_bfloat16>(image, flow, du, dv, B, H, W, C, stream);
+  return launch_warp<__nv_bfloat16, true>(image, flow, du, dv, B, H, W, C,
+                                          stream);
 }
 
 extern "C" int fi_warp_planes_f32(const void* image, const void* flow,
                                   void* du, void* dv, int B, int H, int W,
                                   int C, void* stream) {
   if (dv == nullptr) return (int)cudaErrorInvalidValue;
-  return launch_warp<float>(image, flow, du, dv, B, H, W, C, stream);
+  return launch_warp<float, true>(image, flow, du, dv, B, H, W, C, stream);
 }
 
 extern "C" const char* fi_error_string(int code) {

@@ -50,6 +50,11 @@ _CASES = {
     'coarse8': (1, 8, 8, 8, 'random'),
     'coarse16': (1, 16, 16, 8, 'integer'),
     'coarse32': (1, 32, 32, 8, 'random'),
+    # The widths and flows of the kernels' odd-C routes: the second fusion
+    # width with every offset on the clip's tie, the first with most taps
+    # clamped.
+    'c195_integer': (1, 6, 10, 195, 'integer'),
+    'c67_oob': (1, 10, 14, 67, 'oob'),
 }
 
 
@@ -118,7 +123,7 @@ def test_warp_vjp_matches_window_kernel_interpret():
 
 
 @pytest.mark.parametrize('name', ['integer', 'out_of_bounds', 'odd_c',
-                                  'batch2'])
+                                  'batch2', 'c195_integer', 'c67_oob'])
 def test_warp_planes_plain_matches_jax(name):
   image, flow, _ = _case(name)
   _, want_du, want_dv = jax_warp._raw_and_planes(jnp.asarray(image),
@@ -141,7 +146,7 @@ def test_warp_planes_plain_bf16_rounds_once():
 
 
 @pytest.mark.parametrize('name', ['random', 'out_of_bounds', 'batch2',
-                                  'odd_c'])
+                                  'odd_c', 'c195_integer', 'c67_oob'])
 def test_splat_plain_matches_window_splat_interpret(name):
   _, flow, g = _case(name)
   want = jax_warp_splat.backward_warp_splat(jnp.asarray(g), jnp.asarray(flow),

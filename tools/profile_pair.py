@@ -52,15 +52,17 @@ from frame_interpolation_tpu_torch.utils import measure  # noqa: E402
 TRAIN_STEPS = 3  # train steps under torch.profiler
 
 # Kernel groups, first match wins; matched against the demangled name. The
-# warp kernel is warp_kernel<T, vector, planes>.
+# warp has two routes, warp_vector_kernel<T, planes> (C a multiple of the
+# 16-byte vector) and warp_run_kernel<T, planes> (any other C); the planes
+# mode of either is B4. The splat is splat_tile_kernel<T>.
 GROUPS = (
     ('conv3x3_wgmma_kernel (ours, B2+B3)', r'conv3x3_wgmma_kernel'),
     ('conv3x3_fma_kernel (ours, B2+B3, exact f32)', r'conv3x3_fma_kernel'),
-    ('warp_kernel planes mode (ours, B4)', r'warp_kernel<[^,<>]+, \w+, true>'),
-    ('warp_kernel vector path (ours, B1)', r'warp_kernel<[^,<>]+, true, false>'),
-    ('warp_kernel scalar path (ours, B1)',
-     r'warp_kernel<[^,<>]+, false, false>'),
-    ('splat_kernel (ours, B5+B6)', r'splat_kernel'),
+    ('warp planes mode, both routes (ours, B4)',
+     r'warp_(vector|run)_kernel<[^,<>]+, true>'),
+    ('warp_vector_kernel (ours, B1)', r'warp_vector_kernel<[^,<>]+, false>'),
+    ('warp_run_kernel, odd C (ours, B1)', r'warp_run_kernel<[^,<>]+, false>'),
+    ('splat_tile_kernel (ours, B5+B6)', r'splat_tile_kernel'),
     ('torch.cat copies', r'CatArray'),
     ('cuDNN layout and channel padding', r'nhwcAddPadding|tensorTransform|'
      r'nchwToNhwc|nhwcToNchw'),

@@ -30,6 +30,25 @@ the port's two paths:
     losses, checkpoints written and restored, and an export that the
     Interpolator loads.
 
+Between serving and training it drives the video slice through the same
+kernels, and after training the eval loop:
+
+  * the exact uint8 rules on the card: u8 -> f32 of all 256 byte values
+    bit for bit against numpy's v / 255, and the device quantization of a
+    1080p frame against io.images.to_uint8;
+  * the frame tree of 3 1080p uint8 frames at T = 3 (17 frames, bf16
+    policy): the feature-cached DFS (f32 and uint8 out) and the chunked
+    tree (max_batch 3), each with its launch counts, held against each
+    other (PSNR), the uint8 output against the host's quantization, the
+    kernels against the plain versions, and the streaming driver against
+    the frontier; ms per output frame on the device and peak memory per
+    route;
+  * the tiled tree of a 1080p pair (2x2 patches, T = 1) against the tiled
+    pair forward;
+  * the eval loop (released config, f32, two 256x448 triplets; metrics
+    l1, l2, ssim, psnr and the L1 training loss), kernels against plain
+    with TF32 and cuDNN off, and its ms per example.
+
 Each phase prints its lines; the second-to-last line is the per-kernel JSON
 record and the last line is {"ok": true, "device": {...}}. Any failed check
 exits non-zero before that line. Needs a GPU: without one it exits non-zero
@@ -50,12 +69,17 @@ import numpy as np
 import torch
 
 from frame_interpolation_tpu_torch import losses as losses_lib
-from frame_interpolation_tpu_torch.inference import Interpolator
-from frame_interpolation_tpu_torch.io import params_io
+from frame_interpolation_tpu_torch.inference import (Interpolator,
+                                                     cached_tree,
+                                                     interpolator as
+                                                     interpolator_lib,
+                                                     recursion)
+from frame_interpolation_tpu_torch.io import images, params_io
 from frame_interpolation_tpu_torch.models import create_model, init_params
 from frame_interpolation_tpu_torch.ops import _kernels, conv_stack, warp
 from frame_interpolation_tpu_torch.options import Options
-from frame_interpolation_tpu_torch.training import configs, train_lib
+from frame_interpolation_tpu_torch.training import (configs, eval_lib,
+                                                    metrics_lib, train_lib)
 from frame_interpolation_tpu_torch.utils import measure
 
 WARP_BF16_BOUND = 2 * 2.0**-8  # max-abs, images in [0, 1)
@@ -89,6 +113,35 @@ STEP_LAUNCHES = {'warp': 22, 'warp_planes': 22, 'splat': 22,
 TRAIN_BATCH, TRAIN_CROP = 8, 256
 TRAIN_STEPS, RESUME_STEPS, SAVE_INTERVAL = 20, 25, 10
 WARMUP_STEPS, TIMED_STEPS = 3, 10
+# The video tree: 3 frames of 1080p, T = 3, so 17 frames and 14 midpoints.
+VIDEO_FRAMES, VIDEO_TIMES, VIDEO_MAX_BATCH = 3, 3, 3
+VIDEO_H, VIDEO_W = 1080, 1920
+VIDEO_OUTPUTS = (VIDEO_FRAMES - 1) * 2**VIDEO_TIMES + 1
+# The cached DFS: 22 warps a midpoint; 9 extractions (3 inputs + 6
+# midpoints that are not final-depth leaves) of 7 C=64 and 24 wide convs.
+CACHED_TREE_LAUNCHES = {'warp': 14 * 22, 'warp_planes': 0, 'splat': 0,
+                        'conv3x3_c64': 9 * 7, 'conv3x3_wide': 9 * 24}
+# The chunked tree at max_batch 3: 6 forwards (a batch of 2 at depth 1,
+# 3+3 and 3+3+3 with filler pairs at depths 2 and 3); a launch covers the
+# whole batch, so each forward launches a pair's 22/14/48.
+CHUNKED_TREE_LAUNCHES = {k: 6 * v for k, v in PAIR_LAUNCHES.items()}
+# The tiled tree of a pair at T = 1 in 2x2 patches: each patch's cached
+# tree extracts its 2 frames and makes one midpoint.
+TILED_TREE_LAUNCHES = {'warp': 4 * 22, 'warp_planes': 0, 'splat': 0,
+                       'conv3x3_c64': 4 * 2 * 7, 'conv3x3_wide': 4 * 2 * 24}
+TREE_PSNR_DB = 50.0            # per frame, the same model at other batches
+UINT8_LEVELS = 1               # device uint8 vs host quantization, levels
+# Eval means, kernels vs plain in exact f32 (TF32 and cuDNN off): the
+# forward's outputs agree to about 1e-5 of their range (the conv's f32
+# bound is 1e-4 of max|p| a site, and errors average out in the means),
+# so each mean moves by about 1e-5 of its size: 1e-4 relative for l1, l2
+# and the training loss; 1e-4 absolute for SSIM, whose value lies in
+# [-1, 1] and may sit near 0; 1e-3 dB for PSNR (10 log10 of an mse that
+# moves by 1e-4 relative is 4e-4 dB).
+EVAL_REL_BOUND = 1e-4
+EVAL_SSIM_BOUND = 1e-4
+EVAL_PSNR_BOUND_DB = 1e-3
+EVAL_BATCHES, EVAL_H, EVAL_W = 2, 256, 448
 REPLACES = {
     'warp': 'frame_interpolation_tpu/ops/warp_window.py:134',
     'warp_planes': 'frame_interpolation_tpu/ops/warp_window.py:134',
@@ -531,6 +584,228 @@ def check_training(card, failures):
   return report, first['launches']
 
 
+def psnr_db(a: np.ndarray, b: np.ndarray) -> float:
+  mse = float(np.mean((a.astype(np.float64) - b.astype(np.float64))**2))
+  return 10.0 * np.log10(1.0 / max(mse, 1e-20))
+
+
+def min_frame_psnr(a: np.ndarray, b: np.ndarray) -> float:
+  return min(psnr_db(x, y) for x, y in zip(a, b))
+
+
+def check_uint8_rules(failures):
+  """The exact uint8 rules on the card."""
+  values = torch.arange(256, dtype=torch.int32).to(torch.uint8).cuda()
+  got = interpolator_lib.u8_to_unit_f32(values).cpu().numpy()
+  want = np.arange(256, dtype=np.float32) / np.float32(255)
+  wrong = int((got.view(np.uint32) != want.view(np.uint32)).sum())
+  # What the rule avoids: true division by 255 on the card.
+  naive = (values.float() / 255).cpu().numpy()
+  naive_wrong = int((naive.view(np.uint32) != want.view(np.uint32)).sum())
+  rng = np.random.RandomState(7)
+  frame = (rng.rand(1080, 1920, 3) * 1.4 - 0.2).astype(np.float32)
+  frame[0, :256, 0] = (np.arange(256) + 0.5) / np.float32(255)
+  frame[1, :6, 0] = [0.0, 1.0, -1.0, 2.0, -0.0, 0.5]
+  quantized = cached_tree.quantize_u8(torch.from_numpy(frame).cuda())
+  q_wrong = int((quantized.cpu().numpy() != images.to_uint8(frame)).sum())
+  if wrong:
+    failures.append(f'u8 -> f32: {wrong} of 256 byte values differ')
+  if q_wrong:
+    failures.append(f'device quantization: {q_wrong} bytes differ')
+  print(f'uint8 rules: u8 -> f32 of all 256 byte values {256 - wrong}/256 '
+        f'bit-equal to numpy v / 255 (true division on the card: '
+        f'{naive_wrong} differ); device quantization of a 1080x1920x3 '
+        f'frame in [-0.2, 1.2) with .5 boundaries: {q_wrong} bytes differ '
+        f'from io.images.to_uint8')
+  return {'u8_wrong': wrong, 'naive_div_wrong': naive_wrong,
+          'quantize_wrong': q_wrong}
+
+
+def run_counted(fn):
+  """fn() with the launch counts set to 0 before it; its result, the
+  counts just after, and the peak device memory it took."""
+  torch.cuda.synchronize()
+  torch.cuda.reset_peak_memory_stats()
+  _kernels.reset_launch_counts()
+  out = fn()
+  torch.cuda.synchronize()
+  return out, _kernels.launch_counts(), torch.cuda.max_memory_allocated()
+
+
+def check_video(interpolator, card, failures):
+  """The frame tree of 3 1080p frames at T = 3, by both routes."""
+  frames = np.random.RandomState(0).randint(
+      0, 256, (VIDEO_FRAMES, VIDEO_H, VIDEO_W, 3)).astype(np.uint8)
+  frames_dev = torch.from_numpy(frames).cuda()
+  report, routes = {}, {
+      'cached': dict(cached=True),
+      'cached_uint8': dict(cached=True, as_uint8=True),
+      'chunked': dict(cached=False, max_batch=VIDEO_MAX_BATCH),
+  }
+  outputs = {}
+  for name, kwargs in routes.items():
+    out, launches, peak = run_counted(
+        lambda: interpolator.expand_tree_device(frames_dev, VIDEO_TIMES,
+                                                **kwargs))
+    outputs[name] = out.cpu().numpy()
+    want = CHUNKED_TREE_LAUNCHES if name == 'chunked' else (
+        CACHED_TREE_LAUNCHES)
+    if launches != want:
+      failures.append(f'{name} tree launches {launches} != {want}')
+    # End to end on the card: the host's lag between launches counts.
+    ms = measure.time_ms(lambda: interpolator.expand_tree_device(
+        frames_dev, VIDEO_TIMES, **kwargs), iters=2, queued=False)
+    report[name] = {'launches': launches, 'peak_bytes': peak,
+                    'ms': ms, 'ms_per_frame': ms / VIDEO_OUTPUTS}
+  cached, chunked = outputs['cached'], outputs['chunked']
+  if cached.shape != (VIDEO_OUTPUTS, VIDEO_H, VIDEO_W, 3) or not np.isfinite(
+      cached).all():
+    failures.append(f'cached tree output {cached.shape}, or not finite')
+  if not np.array_equal(cached[::2**VIDEO_TIMES],
+                        frames.astype(np.float32) / np.float32(255)):
+    failures.append('the cached tree does not carry the input frames')
+  chunked_psnr = min_frame_psnr(chunked, cached)
+  if not chunked_psnr >= TREE_PSNR_DB:
+    failures.append(f'chunked vs cached tree {chunked_psnr:.2f} dB')
+  levels = int(np.abs(outputs['cached_uint8'].astype(np.int32) -
+                      images.to_uint8(cached).astype(np.int32)).max())
+  if levels > UINT8_LEVELS:
+    failures.append(f'uint8 tree vs host quantization: {levels} levels')
+
+  with plain_versions():
+    plain, plain_launches, _ = run_counted(
+        lambda: interpolator.expand_tree_device(frames_dev, VIDEO_TIMES,
+                                                cached=True))
+  plain_psnr = min_frame_psnr(cached, plain.cpu().numpy())
+  if sum(plain_launches.values()):
+    failures.append(f'plain tree launched {plain_launches}')
+  if not plain_psnr >= PSNR_BOUND_DB:
+    failures.append(f'tree kernels vs plain {plain_psnr:.2f} dB')
+
+  # The streaming driver (one pair a chunk, two chunks in flight, fetched
+  # on a side stream) against the whole tree's one fetch; host frames.
+  inputs = list(frames)
+  start = time.perf_counter()
+  streamed = list(recursion.interpolate_frontier_streaming(
+      inputs, VIDEO_TIMES, interpolator, pairs_per_chunk=1,
+      pipeline_depth=2))
+  stream_ms = 1e3 * (time.perf_counter() - start)
+  whole = recursion.interpolate_frontier(inputs, VIDEO_TIMES, interpolator)
+  stream_err = max(float(np.abs(a - b).max())
+                   for a, b in zip(streamed, whole))
+  if (len(streamed), len(whole)) != (VIDEO_OUTPUTS, VIDEO_OUTPUTS) or (
+      stream_err > REPEAT_BOUND):
+    failures.append(f'streaming vs frontier: {len(streamed)} frames, '
+                    f'max-abs {stream_err:.3e}')
+  start = time.perf_counter()
+  written = list(recursion.interpolate_frontier_streaming(
+      inputs, VIDEO_TIMES, interpolator, pairs_per_chunk=1,
+      pipeline_depth=2, as_uint8=True))
+  stream_u8_ms = 1e3 * (time.perf_counter() - start)
+  if not np.array_equal(np.stack(written), outputs['cached_uint8']):
+    failures.append('streaming uint8 frames differ from the uint8 tree')
+  for name in routes:
+    r = report[name]
+    print(f'video tree {name} (3 1080p uint8 frames, T = {VIDEO_TIMES}, '
+          f'{VIDEO_OUTPUTS} frames, bf16 policy): '
+          f'{r["ms_per_frame"]:.3f} ms per output frame on the device '
+          f'({r["ms"]:.3f} ms a tree), peak memory '
+          f'{r["peak_bytes"] / 2**30:.2f} GiB, launches {r["launches"]}')
+  print(f'video tree checks: chunked vs cached min frame PSNR '
+        f'{chunked_psnr:.2f} dB (bound {TREE_PSNR_DB}); uint8 vs host '
+        f'quantization {levels} levels (bound {UINT8_LEVELS}); kernels vs '
+        f'plain over the cached tree {plain_psnr:.2f} dB (bound '
+        f'{PSNR_BOUND_DB}); streaming (1 pair a chunk, depth 2) vs frontier '
+        f'max-abs {stream_err:.1e} (bound {REPEAT_BOUND:.0e}), '
+        f'{stream_ms / VIDEO_OUTPUTS:.3f} ms per frame on the host clock, '
+        f'{stream_u8_ms / VIDEO_OUTPUTS:.3f} as uint8; on {card}')
+  report.update(chunked_psnr=chunked_psnr, uint8_levels=levels,
+                plain_psnr=plain_psnr, stream_err=stream_err,
+                stream_ms_per_frame=stream_ms / VIDEO_OUTPUTS,
+                stream_uint8_ms_per_frame=stream_u8_ms / VIDEO_OUTPUTS)
+  return report
+
+
+def check_tiled_tree(model, options, card, failures):
+  """The tiled tree of a 1080p pair (2x2 patches, T = 1) against the
+  tiled pair forward."""
+  tiled = Interpolator(model, options, align=64, block_shape=(2, 2),
+                       device='cuda')
+  frames = np.random.RandomState(1).rand(2, VIDEO_H, VIDEO_W, 3).astype(
+      np.float32)
+  frames_dev = torch.from_numpy(frames).cuda()
+  tree, launches, peak = run_counted(
+      lambda: tiled.expand_tree_device(frames_dev, 1))
+  tree = tree.cpu().numpy()
+  ms = measure.time_ms(lambda: tiled.expand_tree_device(frames_dev, 1),
+                       iters=2, queued=False)
+  pair = tiled(frames[:1], frames[1:], np.full((1,), 0.5, np.float32))[0]
+  psnr = psnr_db(tree[1], pair)
+  if launches != TILED_TREE_LAUNCHES:
+    failures.append(f'tiled tree launches {launches} != '
+                    f'{TILED_TREE_LAUNCHES}')
+  if tree.shape != (3, VIDEO_H, VIDEO_W, 3) or not psnr >= TREE_PSNR_DB:
+    failures.append(f'tiled tree {tree.shape}, {psnr:.2f} dB vs the pair')
+  print(f'tiled tree (a 1080p pair, 2x2 patches, T = 1): {psnr:.2f} dB vs '
+        f'the tiled pair forward (bound {TREE_PSNR_DB}); {ms:.3f} ms a '
+        f'tree, peak memory {peak / 2**30:.2f} GiB; launches {launches}; '
+        f'on {card}')
+  return {'psnr': psnr, 'launches': launches, 'ms': ms, 'peak_bytes': peak}
+
+
+def check_eval(card, failures):
+  """eval_lib.eval_loop, kernels vs plain in exact f32."""
+  config = configs.get_experiment('film_net-L1')
+  options = config.model
+  model = init_params(create_model(options),
+                      torch.Generator().manual_seed(0)).cuda()
+  metrics = metrics_lib.create_metrics_fns(
+      losses_lib.test_losses(['l1', 'l2', 'ssim', 'psnr']),
+      losses_lib.training_losses(['l1']))
+  rng = np.random.RandomState(5)
+  datasets = {'vimeo_like': []}
+  for _ in range(EVAL_BATCHES):
+    frames = rng.rand(3, 1, EVAL_H, EVAL_W, 3).astype(np.float32)
+    datasets['vimeo_like'].append({
+        'x0': frames[0], 'y': frames[1], 'x1': frames[2],
+        'time': np.full((1, 1), 0.5, np.float32)})
+
+  def run():
+    return eval_lib.eval_loop(model, datasets, metrics, 0,
+                              log_fn=lambda _: None)['vimeo_like']
+
+  with torch.backends.cudnn.flags(enabled=False, allow_tf32=False):
+    got, launches, _ = run_counted(run)
+    ms = measure.time_ms(run, iters=2, queued=False) / EVAL_BATCHES
+    with plain_versions():
+      want, plain_launches, _ = run_counted(run)
+  errors = {}
+  for name, value in want.items():
+    diff = abs(got[name] - value)
+    if name == 'psnr':
+      errors[name], ok = diff, diff <= EVAL_PSNR_BOUND_DB
+    elif name == 'ssim':
+      errors[name], ok = diff, diff <= EVAL_SSIM_BOUND
+    else:
+      errors[name] = diff / abs(value)
+      ok = errors[name] <= EVAL_REL_BOUND
+    if not ok:
+      failures.append(f'eval {name}: {got[name]} kernels, {value} plain')
+  want_launches = {k: EVAL_BATCHES * v for k, v in PAIR_LAUNCHES.items()}
+  if launches != want_launches:
+    failures.append(f'eval launches {launches} != {want_launches}')
+  if sum(plain_launches.values()):
+    failures.append(f'plain eval launched {plain_launches}')
+  print(f'eval loop (released config, f32, TF32 and cuDNN off, '
+        f'{EVAL_BATCHES} batches of one {EVAL_H}x{EVAL_W} triplet): '
+        f'kernels {got}, plain {want}; errors {errors} (bounds: '
+        f'{EVAL_REL_BOUND:.0e} relative, SSIM {EVAL_SSIM_BOUND:.0e}, PSNR '
+        f'{EVAL_PSNR_BOUND_DB:.0e} dB); {ms:.3f} ms per example; launches '
+        f'{launches}; on {card}')
+  return {'kernels': got, 'plain': want, 'errors': errors, 'launches':
+          launches, 'ms_per_example': ms}
+
+
 def main() -> int:
   parser = argparse.ArgumentParser(description='GPU smoke test of the port.')
   parser.add_argument('--out', default=None,
@@ -712,8 +987,18 @@ def main() -> int:
         f'{plain_device_ms:.3f} ms); launches {launches}; repeat max-abs '
         f'{repeat_err:.1e}; PSNR kernels vs plain {psnr:.2f} dB; on {card}')
 
-  # Phase 5: the training path.
+  # Phase 5: the video slice: the exact uint8 rules, the frame tree by both
+  # routes, the tiled tree.
+  uint8_report = check_uint8_rules(failures)
+  video_report = check_video(interpolator, card, failures)
+  tiled_report = check_tiled_tree(model, options, card, failures)
+  del interpolator, model
+
+  # Phase 6: the training path.
   train_report, train_launches = check_training(card, failures)
+
+  # Phase 7: the eval loop.
+  eval_report = check_eval(card, failures)
 
   # Launches: the serving run's for the forward kernels, the 20-step
   # training run's for the backward ones. Times: the serving kernels' bf16
@@ -747,7 +1032,9 @@ def main() -> int:
       json.dump({'card': card, 'checks': checks, 'request_ms': request_ms,
                  'device_ms': device_ms, 'plain_device_ms': plain_device_ms,
                  'launches': launches, 'psnr_db': psnr,
-                 'repeat_err': repeat_err, 'training': train_report,
+                 'repeat_err': repeat_err, 'uint8': uint8_report,
+                 'video': video_report, 'tiled_tree': tiled_report,
+                 'training': train_report, 'eval': eval_report,
                  'failures': failures}, f, indent=1)
 
   if failures:

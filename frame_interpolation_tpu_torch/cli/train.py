@@ -12,9 +12,11 @@ run-dir layout (README.md:186-195).
     --base_folder runs --label run0
 
 `--device` defaults to cuda and raises when no GPU is visible; `--device
-cpu` runs the plain versions of the kernels on the host. The gin loader,
-the VGG/Style losses, eval during training and multi-host training wait
-for later slices (ROADMAP A7, A8, A10); their flags are not accepted.
+cpu` runs the plain versions of the kernels on the host. `--eval_files`
+with as many `--eval_names` evaluates those datasets at each save interval
+(training/eval_lib.py; summaries under `<run>/eval`). The gin loader, the
+VGG/Style losses and multi-host training wait for later slices (ROADMAP
+A7's gin_compat, A8, A10); their flags are not accepted.
 """
 from __future__ import annotations
 
@@ -59,13 +61,24 @@ def _parser() -> argparse.ArgumentParser:
                       help='Override the number of training steps.')
   parser.add_argument('--save_interval', type=int, default=3000,
                       help='Checkpoint and summary interval.')
+  parser.add_argument('--eval_files', type=_list, default=[],
+                      help='Comma-separated eval TFRecord specs.')
+  parser.add_argument('--eval_names', type=_list, default=[],
+                      help='Names of the eval datasets, one per file.')
+  parser.add_argument('--eval_max_examples', type=int, default=-1,
+                      help='Max examples per eval dataset; -1 = all.')
   parser.add_argument('--device', default='cuda',
                       help="Torch device: 'cuda' (default) or 'cpu'.")
   return parser
 
 
 def main(argv: Optional[Sequence[str]] = None) -> None:
-  args = _parser().parse_args(argv)
+  parser = _parser()
+  args = parser.parse_args(argv)
+  if len(args.eval_files) != len(args.eval_names):
+    parser.error(f'--eval_files has {len(args.eval_files)} entries and '
+                 f'--eval_names {len(args.eval_names)}; give one name per '
+                 'file.')
   device = torch.device(args.device)
   if device.type == 'cuda' and not torch.cuda.is_available():
     raise RuntimeError('--device cuda requested but no GPU is visible to '
@@ -74,7 +87,8 @@ def main(argv: Optional[Sequence[str]] = None) -> None:
   from .. import losses as losses_lib
   from ..data import dataset as dataset_lib
   from ..models.film_net import FilmNet
-  from ..training import configs, sources, train_lib
+  from ..training import configs, eval_lib, metrics_lib, sources, train_lib
+  from ..utils import tensorboard
 
   config = configs.get_experiment(args.experiment)
   run_dir = os.path.join(args.base_folder, args.label)
@@ -101,11 +115,29 @@ def main(argv: Optional[Sequence[str]] = None) -> None:
       args.crop_sizes, crop_size, args.train_weights)
   train_iterator = dataset_lib.create_training_iterator(
       source_list, batch_size=batch_size, weights=weights)
+
+  eval_fn = None
+  if args.eval_files:
+    test_losses = losses_lib.test_losses(
+        list(config.test_losses.names),
+        loss_weight_schedules=list(config.test_losses.weight_schedules))
+    eval_datasets = dataset_lib.create_eval_datasets(
+        args.eval_files, args.eval_names, batch_size=1,
+        max_examples=args.eval_max_examples)
+    metrics_fns = metrics_lib.create_metrics_fns(test_losses, train_losses)
+    eval_writer = tensorboard.create_writer(os.path.join(run_dir, 'eval'))
+
+    def eval_fn(state, step):
+      eval_lib.eval_loop(state.model, eval_datasets, metrics_fns, step,
+                         writer=eval_writer)
+      eval_writer.flush()
+
   train_lib.train(FilmNet(config.model), config.model, train_losses,
                   train_iterator, opts, run_dir,
                   init_generator=torch.Generator().manual_seed(0),
                   device=device,
-                  augmentation_names=tuple(config.augmentations))
+                  augmentation_names=tuple(config.augmentations),
+                  eval_fn=eval_fn)
 
 
 if __name__ == '__main__':

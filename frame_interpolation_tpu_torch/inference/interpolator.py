@@ -1,26 +1,55 @@
-"""Pair inference: pad -> forward -> crop, with optional patch tiling.
+"""Pair and video inference: pad -> forward -> crop, tiling, the frame tree.
 
-Port of the pair path of frame_interpolation_tpu/inference/interpolator.py.
+Port of frame_interpolation_tpu/inference/interpolator.py.
 `interpolate` pads the frames to the alignment grid, runs FilmNet and crops
 back; `__call__` also folds the frame into a block_shape grid of patches
 and runs them as one batch. Both take and return numpy arrays;
 `call_device` takes and returns tensors on the interpolator's device.
+
+Video: `expand_tree_device` expands N frames to (N-1)*2^T+1 by recursive
+midpoints on the device, by one of two routes. The feature-cached DFS
+(inference/cached_tree.py, the default) extracts each frame's features
+once, at batch 1, and skips extraction at the final depth's leaves. The
+chunked tree runs every depth's pairs as whole forwards in batches of
+`max_batch`. `features_device` and `midpoint_from_features_device` are the
+cached route's two steps, which the host-side DFS of inference/recursion.py
+also drives.
+
+The exact uint8 rules: uint8 frames cross to the device as uint8 and become
+f32 there through a 256-entry table of the correctly rounded v / 255, equal
+bit for bit to io.images.read_image (on CUDA `x / 255` multiplies by the
+reciprocal, which differs in the last place for about half the byte
+values); outputs quantize with io.images.to_uint8's rule,
+(clip(x * 255, 0, 255) + 0.5) truncated.
 
 The model ignores the time value and predicts the midpoint; other
 timestamps come from recursive invocation.
 """
 from __future__ import annotations
 
-from typing import Any, Mapping, Optional, Sequence
+import dataclasses
+import os
+from typing import Any, Dict, Mapping, Optional, Sequence, Tuple
 
 import numpy as np
 import torch
 from torch import nn
 
 from ..io import params_io
-from ..models.film_net import FilmNet
+from ..models.film_net import FilmNet, Features
 from ..ops import tiling
 from ..options import Options
+from . import cached_tree
+
+# The correctly rounded v / 255 of every byte value: numpy's f32 division,
+# as io.images.read_image computes it.
+_U8_TO_UNIT = np.arange(256, dtype=np.float32) / np.float32(255)
+
+
+def u8_to_unit_f32(frames: torch.Tensor) -> torch.Tensor:
+  """uint8 -> [0, 1] f32 on the frames' device, equal to read_image."""
+  table = torch.from_numpy(_U8_TO_UNIT).to(frames.device)
+  return table[frames.long()]
 
 
 def _as_model(params_or_model: Any, options: Options) -> FilmNet:
@@ -43,6 +72,7 @@ class Interpolator:
   Usage:
     interp = Interpolator(model, options, align=64, device='cuda')
     mid = interp(x0_batch, x1_batch, dt_batch)   # numpy in, numpy out
+    video = interp.expand_tree_device(frames, times_to_interpolate=3)
 
   `params_or_model` is a FilmNet, its state_dict, or the JAX package's
   flax parameter tree. A 'cuda' device needs a visible GPU; there is no
@@ -70,9 +100,24 @@ class Interpolator:
   def model(self) -> FilmNet:
     return self._model
 
-  def _tiled(self) -> bool:
+  @property
+  def device(self) -> torch.device:
+    return self._device
+
+  def tiled(self) -> bool:
+    """Whether `block_shape` spans more than one patch."""
     return (self._block_shape is not None and
             int(np.prod(self._block_shape)) > 1)
+
+  def to_device(self, x: Any) -> torch.Tensor:
+    """numpy or tensor -> f32 tensor on the device; uint8 frames cross as
+    uint8 and convert there, exactly as read_image does."""
+    if not isinstance(x, torch.Tensor):
+      x = torch.from_numpy(np.ascontiguousarray(x))
+    x = x.to(self._device)
+    return u8_to_unit_f32(x) if x.dtype == torch.uint8 else x.float()
+
+  # ---- pairs -----------------------------------------------------------------
 
   def interpolate_device(self, x0: torch.Tensor, x1: torch.Tensor,
                          dt: torch.Tensor) -> torch.Tensor:
@@ -91,10 +136,26 @@ class Interpolator:
         image = tiling.crop_to_bounding_box(image, **bbox)
       return image.contiguous()
 
+  def interpolate_all_outputs(self, x0: Any, x1: Any,
+                              dt: Any) -> Dict[str, Any]:
+    """The padded forward with its aux outputs (flows, warps) as device
+    tensors; only the image is cropped back."""
+    x0, x1, dt = self.to_device(x0), self.to_device(x1), self.to_device(dt)
+    with torch.inference_mode():
+      bbox = None
+      if self._align is not None:
+        x0, bbox = tiling.pad_to_align(x0, self._align)
+        x1, _ = tiling.pad_to_align(x1, self._align)
+      outputs = dict(self._model(x0, x1, dt.reshape(-1, 1)))
+      if bbox is not None:
+        outputs['image'] = tiling.crop_to_bounding_box(outputs['image'],
+                                                       **bbox)
+      return outputs
+
   def call_device(self, x0: torch.Tensor, x1: torch.Tensor,
                   dt: torch.Tensor) -> torch.Tensor:
     """`interpolate_device` with patch tiling (all patches as one batch)."""
-    if not self._tiled():
+    if not self.tiled():
       return self.interpolate_device(x0, x1, dt)
     x0_patches = tiling.image_to_patches(x0, self._block_shape)
     x1_patches = tiling.image_to_patches(x1, self._block_shape)
@@ -102,19 +163,143 @@ class Interpolator:
     out = self.interpolate_device(x0_patches, x1_patches, dt_patches)
     return tiling.patches_to_image(out, self._block_shape)
 
-  def _to_device(self, x: np.ndarray) -> torch.Tensor:
-    return torch.from_numpy(np.ascontiguousarray(x, dtype=np.float32)).to(
-        self._device)
-
   def interpolate(self, x0: np.ndarray, x1: np.ndarray,
                   dt: np.ndarray) -> np.ndarray:
     """Pad -> forward -> crop, numpy in and out (no patch tiling)."""
-    out = self.interpolate_device(self._to_device(x0), self._to_device(x1),
-                                  self._to_device(dt))
+    out = self.interpolate_device(self.to_device(x0), self.to_device(x1),
+                                  self.to_device(dt))
     return out.cpu().numpy()
 
   def __call__(self, x0: np.ndarray, x1: np.ndarray,
                dt: np.ndarray) -> np.ndarray:
-    out = self.call_device(self._to_device(x0), self._to_device(x1),
-                           self._to_device(dt))
+    out = self.call_device(self.to_device(x0), self.to_device(x1),
+                           self.to_device(dt))
     return out.cpu().numpy()
+
+  # ---- the feature-cached steps ----------------------------------------------
+
+  def features_device(self, x: Any) -> Features:
+    """(image_pyramid, feature_pyramid) of frames (B, H, W, 3), padded to
+    the alignment grid first; reusable across every pair they are in."""
+    x = self.to_device(x)
+    with torch.inference_mode():
+      if self._align is not None:
+        x, _ = tiling.pad_to_align(x, self._align)
+      return self._model.extract_features(x)
+
+  def midpoint_from_features_device(
+      self, f0: Features, f1: Features, orig_hw: Sequence[int],
+      as_uint8: bool = False,
+      with_features: bool = True) -> Tuple[torch.Tensor, Optional[Features]]:
+    """The midpoint frame, cropped to `orig_hw`, and its own features.
+
+    The features are those of the cropped midpoint padded again with zeros,
+    equal to `features_device(midpoint)`, so the cached recursion computes
+    what the uncached one does. `as_uint8` quantizes the returned frame
+    with the writers' rule (the features come from the f32 frame);
+    `with_features=False` skips the extraction and returns None for them.
+    """
+    batch = f0[0][0].shape[0]
+    time = torch.full((batch, 1), 0.5, dtype=torch.float32,
+                      device=self._device)
+    with torch.inference_mode():
+      image = self._model.interpolate_from_features(f0, f1, time)['image']
+      if self._align is not None:
+        height, width = orig_hw
+        image = tiling.crop_to_bounding_box(
+            image, offset_height=(image.shape[1] - height) // 2,
+            offset_width=(image.shape[2] - width) // 2,
+            target_height=height, target_width=width)
+      features = None
+      if with_features:
+        repadded = image
+        if self._align is not None:
+          repadded, _ = tiling.pad_to_align(image, self._align)
+        features = self._model.extract_features(repadded)
+      image = cached_tree.quantize_u8(image) if as_uint8 else image
+      return image.contiguous(), features
+
+  # ---- the frame tree ----------------------------------------------------------
+
+  def expand_tree_device(self, frames: Any, times_to_interpolate: int,
+                         max_batch: int = 8, as_uint8: bool = False,
+                         cached: Optional[bool] = None) -> torch.Tensor:
+    """Expands (N, H, W, 3) frames to ((N-1)*2^T + 1, H, W, 3) on device.
+
+    `frames`: numpy or tensor, f32 in [0, 1] or uint8 (which crosses to the
+    device as uint8 and converts exactly). `as_uint8` returns the frames
+    quantized with io.images.to_uint8's rule, a quarter of the fetch.
+    `cached` picks the feature-cached DFS (the default, or FI_TREE_CACHED=0
+    for the chunked tree); the two agree to float noise. With patch tiling
+    the cached tree of every patch runs in turn and the frames are
+    reassembled once at the end (the tree commutes with tiling).
+    """
+    frames = self.to_device(frames)
+    if cached is None:
+      cached = os.environ.get('FI_TREE_CACHED', '1') != '0'
+    with torch.inference_mode():
+      if self.tiled():
+        return cached_tree.expand_tree_cached_tiled(
+            self, frames, times_to_interpolate, as_uint8, self._block_shape)
+      if cached:
+        return cached_tree.expand_tree_cached(self, frames,
+                                              times_to_interpolate, as_uint8)
+      return self._expand_tree_chunked(frames, times_to_interpolate,
+                                       max_batch, as_uint8)
+
+  def _expand_tree_chunked(self, frames: torch.Tensor, times: int,
+                           max_batch: int, as_uint8: bool) -> torch.Tensor:
+    """The uncached tree: each depth's pairs as whole forwards in chunks of
+    min(max_batch, pairs), the ragged last chunk filled with copies of the
+    first frame, then the midpoints interleaved in time order."""
+    seq = frames
+    n_frames = seq.shape[0]
+    for _ in range(times if n_frames >= 2 else 0):
+      n = seq.shape[0] - 1
+      chunk = min(max_batch, n)
+      n_chunks = -(-n // chunk)
+      pad = n_chunks * chunk - n
+      x0, x1 = seq[:-1], seq[1:]
+      if pad:
+        filler = seq[:1].expand((pad,) + tuple(seq.shape[1:]))
+        x0 = torch.cat([x0, filler])
+        x1 = torch.cat([x1, filler])
+      dt = torch.full((chunk,), 0.5, dtype=torch.float32, device=seq.device)
+      mids = torch.cat([
+          self.interpolate_device(x0[c * chunk:(c + 1) * chunk].contiguous(),
+                                  x1[c * chunk:(c + 1) * chunk].contiguous(),
+                                  dt)
+          for c in range(n_chunks)])[:n]
+      merged = torch.stack([seq[:-1], mids], dim=1)
+      merged = merged.reshape((2 * n,) + tuple(seq.shape[1:]))
+      seq = torch.cat([merged, seq[-1:]])
+    return cached_tree.quantize_u8(seq) if as_uint8 else seq.contiguous()
+
+
+_JAX_BUNDLE_FILES = ('params.msgpack', 'saved_model.pb', 'saved_model.pbtxt',
+                     'checkpoint')
+
+
+def load_interpolator(model_path: str,
+                      align: Optional[int] = 64,
+                      block_shape: Optional[Sequence[int]] = None,
+                      dtype_policy: Optional[str] = None,
+                      device: Any = 'cuda') -> Interpolator:
+  """An Interpolator from the port's own bundle (`options.json` +
+  `state_dict.pt`, io/params_io.save_state_bundle, which the trainer
+  exports). `dtype_policy` overrides the bundle's."""
+  if not os.path.isfile(os.path.join(model_path, params_io.STATE_FILE)):
+    found = [name for name in _JAX_BUNDLE_FILES
+             if os.path.exists(os.path.join(model_path, name))]
+    if found:
+      raise NotImplementedError(
+          f'{model_path} is a bundle of the JAX package or a TF release '
+          f'({", ".join(found)}); the port reads only its own bundle '
+          f'(options.json + {params_io.STATE_FILE}) so far: ROADMAP A9.')
+    raise FileNotFoundError(f'{model_path}: no options.json + '
+                            f'{params_io.STATE_FILE} bundle')
+  state, options = params_io.load_state_bundle(model_path)
+  if dtype_policy is not None and dtype_policy != options.dtype_policy:
+    options = dataclasses.replace(options, dtype_policy=dtype_policy)
+  return Interpolator(state, options, align=align, block_shape=block_shape,
+                      device=device)

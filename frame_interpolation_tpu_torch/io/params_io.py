@@ -25,7 +25,7 @@ import torch
 from ..options import Options
 
 _OPTIONS_FILE = 'options.json'
-_STATE_FILE = 'state_dict.pt'
+STATE_FILE = 'state_dict.pt'
 
 
 def _leaves(tree: Mapping[str, Any], prefix=()):
@@ -78,7 +78,7 @@ def save_state_bundle(path: str, state_dict: Mapping[str, torch.Tensor],
   with open(os.path.join(path, _OPTIONS_FILE), 'w') as f:
     json.dump(dataclasses.asdict(options), f, indent=2)
   cpu_state = {k: v.detach().cpu() for k, v in state_dict.items()}
-  torch.save(cpu_state, os.path.join(path, _STATE_FILE))
+  torch.save(cpu_state, os.path.join(path, STATE_FILE))
 
 
 def load_state_bundle(path: str) -> Tuple[Dict[str, torch.Tensor], Options]:
@@ -87,6 +87,6 @@ def load_state_bundle(path: str) -> Tuple[Dict[str, torch.Tensor], Options]:
     fields = json.load(f)
   for key in ('flow_convs', 'flow_filters'):
     fields[key] = tuple(fields[key])
-  state = torch.load(os.path.join(path, _STATE_FILE), map_location='cpu',
+  state = torch.load(os.path.join(path, STATE_FILE), map_location='cpu',
                      weights_only=True)
   return state, Options(**fields)

@@ -12,13 +12,14 @@ reference's training/train.py and train_lib.py):
   * TensorBoard scalars, images and histograms, and steps/sec
     (train_lib.py:212-214, 254-269);
   * an export of the trained weights at the end (train_lib.py:276-280), as
-    the port's state bundle (io/params_io.save_state_bundle).
+    the port's state bundle (io/params_io.save_state_bundle);
+  * an `eval_fn(state, step)` hook at each save interval, which the train
+    CLI fills with training/eval_lib.eval_loop (train_lib.py:313-314).
 
 The model, the batch and the augmentations live on one device; on CUDA the
 warp and the extractor's conv stacks run the hand-written kernels forward
-and backward (ops/warp.py, ops/conv_stack.py). Eval during training, the
-multi-host path and the perceptual losses wait for later slices (ROADMAP
-A7, A8, A10).
+and backward (ops/warp.py, ops/conv_stack.py). The multi-host path and the
+perceptual losses wait for later slices (ROADMAP A8, A10).
 """
 from __future__ import annotations
 
@@ -237,11 +238,13 @@ def train_loop(
     augmentation_names: Sequence[str] = (),
     seed: int = 0,
     log_fn: Callable[[str], None] = print,
+    eval_fn: Optional[Callable[[TrainState, int], None]] = None,
 ) -> TrainState:
   """Runs training to `opts.num_steps`, resuming from the run dir if set.
 
   Layout parity with the reference run dir (README.md:186-195):
-  `<run_dir>/train` holds the summaries and the checkpoints.
+  `<run_dir>/train` holds the summaries and the checkpoints. `eval_fn`, if
+  given, runs after each checkpoint with the state and its step.
   """
   step_fn = make_train_step(losses, opts, augmentation_names,
                             with_summaries=False)
@@ -290,6 +293,8 @@ def train_loop(
       ckpt.save(state)
       log_fn(f'step {next_step}: ' + ', '.join(
           f'{k}={v:.5f}' for k, v in host_metrics.items()))
+      if eval_fn is not None:
+        eval_fn(state, next_step)
       writer.flush()
 
   writer.close()
@@ -306,7 +311,9 @@ def train(model: FilmNet,
           device: Any = 'cuda',
           augmentation_names: Sequence[str] = (),
           seed: int = 0,
-          log_fn: Callable[[str], None] = print) -> TrainState:
+          log_fn: Callable[[str], None] = print,
+          eval_fn: Optional[Callable[[TrainState, int], None]] = None
+          ) -> TrainState:
   """End to end: init (or restore), run the loop, export the weights.
 
   The weights are drawn on the CPU from `init_generator` (seed 0 when
@@ -320,7 +327,7 @@ def train(model: FilmNet,
   state = create_train_state(model, opts)
   state = train_loop(state, losses, train_iterator, opts, run_dir,
                      augmentation_names=augmentation_names, seed=seed,
-                     log_fn=log_fn)
+                     log_fn=log_fn, eval_fn=eval_fn)
   bundle_dir = os.path.join(run_dir, 'saved_model')
   params_io.save_state_bundle(bundle_dir, state.model.state_dict(),
                               model_options)

@@ -318,6 +318,7 @@ def test_train_cli_on_cpu_leaves_the_run_layout(tmp_path):
                                   '--eval_files=a',
                                   '--experiment=film_net-VGG'])
 def test_train_cli_refuses_flags_of_later_slices(flag):
+  # --eval_files is ported; without as many --eval_names it is refused.
   from frame_interpolation_tpu_torch.cli import train
   with pytest.raises(SystemExit):
     train.main(['--base_folder', 'runs', flag])

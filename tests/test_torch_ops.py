@@ -421,15 +421,23 @@ def test_port_imports_without_jax_flax_absl_pil():
       import frame_interpolation_tpu_torch as pkg
       names = []
       for info in pkgutil.walk_packages(pkg.__path__, pkg.__name__ + '.'):
+        # The cog adapter needs the cog runtime, which only its container
+        # has (tests/test_torch_serving.py parses it).
+        if info.name.endswith('.serving.cog_predict'):
+          continue
         importlib.import_module(info.name)
         names.append(info.name)
       assert 'jax' not in sys.modules
       assert not any(m.split('.')[0] in blocked for m in sys.modules)
-      for name in ('cli.train', 'data.augmentations', 'data.dataset',
+      for name in ('cli.eval_benchmark', 'cli.interpolate_dir', 'cli.train',
+                   'data.augmentations', 'data.dataset',
                    'data.example_proto', 'data.records', 'data.tfrecord',
-                   'losses.losses', 'ops.image_metrics', 'training.configs',
+                   'inference.cached_tree', 'inference.recursion',
+                   'io.video', 'losses.losses', 'ops.image_metrics',
+                   'serving.predictor', 'training.configs',
+                   'training.eval_lib', 'training.metrics_lib',
                    'training.sources', 'training.train_lib',
-                   'utils.tensorboard'):
+                   'utils.fanout', 'utils.tensorboard'):
         assert pkg.__name__ + '.' + name in names, name
       print(len(names))
       """)
@@ -437,4 +445,4 @@ def test_port_imports_without_jax_flax_absl_pil():
                         text=True, check=False, timeout=120,
                         cwd=pathlib.Path(__file__).resolve().parent.parent)
   assert proc.returncode == 0, proc.stderr
-  assert int(proc.stdout.strip()) >= 37
+  assert int(proc.stdout.strip()) >= 48

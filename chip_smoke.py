@@ -28,7 +28,21 @@ the port's two paths:
     step; steps/s with the kernels and plain; then `train_lib.train` for
     20 steps with the augmentations and a resume to 25, checked for finite
     losses, checkpoints written and restored, and an export that the
-    Interpolator loads.
+    Interpolator loads; `cli.build_params` turns the run's newest
+    checkpoint into a bundle whose forward must equal the trained model's;
+  * the JAX package's bundle: the serving model written as options.json +
+    params.msgpack (io/params_io.save_params), decoded on the host
+    (io/msgpack_lite) and served through load_interpolator, held against
+    the direct Interpolator;
+  * training film_net-Style (the same step with l1 + vgg + style at step
+    1,500,001, where vgg weighs 0.25 and style 40; VGG-19 to conv5_2 at its
+    true widths, seeded random weights written as a MatConvNet .mat, since
+    the released one is not in the repository): parity as for L1, launch
+    counts, steps/s with the kernels and plain, the losses' share of a
+    step; then `train_lib.train` of an inline film_net-Style gin file
+    (training/configs/gin_compat) for 16 steps with the profiler's trace
+    window, whose trace of steps [10, 15) must name the conv, warp and
+    splat kernels.
 
 Between serving and training it drives the video slice through the same
 kernels, and after training the eval loop:
@@ -69,17 +83,21 @@ import numpy as np
 import torch
 
 from frame_interpolation_tpu_torch import losses as losses_lib
+from frame_interpolation_tpu_torch.cli import build_params
 from frame_interpolation_tpu_torch.inference import (Interpolator,
                                                      cached_tree,
                                                      interpolator as
                                                      interpolator_lib,
+                                                     load_interpolator,
                                                      recursion)
 from frame_interpolation_tpu_torch.io import images, params_io
+from frame_interpolation_tpu_torch.losses import vgg19
 from frame_interpolation_tpu_torch.models import create_model, init_params
 from frame_interpolation_tpu_torch.ops import _kernels, conv_stack, warp
 from frame_interpolation_tpu_torch.options import Options
 from frame_interpolation_tpu_torch.training import (configs, eval_lib,
                                                     metrics_lib, train_lib)
+from frame_interpolation_tpu_torch.training.configs import gin_compat
 from frame_interpolation_tpu_torch.utils import measure
 
 WARP_BF16_BOUND = 2 * 2.0**-8  # max-abs, images in [0, 1)
@@ -113,6 +131,47 @@ STEP_LAUNCHES = {'warp': 22, 'warp_planes': 22, 'splat': 22,
 TRAIN_BATCH, TRAIN_CROP = 8, 256
 TRAIN_STEPS, RESUME_STEPS, SAVE_INTERVAL = 20, 25, 10
 WARMUP_STEPS, TIMED_STEPS = 3, 10
+# film_net-Style: the step after its schedules' boundary (vgg 0.25, style
+# 40); VGG-19's conv widths to conv5_2; the gin loop and its trace window.
+STYLE_STEP = 1500001
+VGG_CHANNELS = (64, 64, 128, 128, 256, 256, 256, 256, 512, 512, 512, 512,
+                512, 512)
+GIN_STEPS, PROFILE_START, PROFILE_STEPS = 16, 10, 5
+# Substrings of our kernels' names in a trace: the conv (TF32 wgmma), the
+# warp and its planes (vector and run routes), the splat.
+TRACE_KERNELS = ('conv3x3_wgmma_kernel', 'warp_', 'splat_tile_kernel')
+# film_net-Style.gin as the reference lays it out, the weights file
+# filled in.
+STYLE_GIN = '''
+model.name = 'film_net'
+film_net.pyramid_levels = 7
+film_net.fusion_pyramid_levels = 5
+film_net.specialized_levels = 3
+film_net.sub_levels = 4
+film_net.flow_convs = [3, 3, 3, 3]
+film_net.flow_filters = [32, 64, 128, 256]
+film_net.filters = 64
+training.learning_rate = 0.0001
+training.num_steps = 3000000
+training_dataset.file = 'vimeo_interp_train.tfrecord@200'
+training_dataset.batch_size = 8
+training_dataset.crop_size = 256
+data_augmentation.names = ['random_image_rot90', 'random_flip',
+                           'random_rotate', 'random_reverse']
+training_losses.loss_names = ['l1', 'vgg', 'style']
+training_losses.loss_weight_schedules = [
+    @tf.keras.optimizers.schedules.PiecewiseConstantDecay,
+    @tf.keras.optimizers.schedules.PiecewiseConstantDecay,
+    @tf.keras.optimizers.schedules.PiecewiseConstantDecay]
+training_losses.loss_weight_parameters = [
+    {'boundaries': [0], 'values': [1.0, 1.0]},
+    {'boundaries': [1500000], 'values': [1.0, 0.25]},
+    {'boundaries': [1500000], 'values': [0.0, 40.0]}]
+test_losses.loss_names = ['l1', 'psnr', 'ssim']
+test_losses.loss_weights = [1.0, 1.0, 1.0]
+vgg.vgg_model_file = '{mat}'
+style.vgg_model_file = '{mat}'
+'''
 # The video tree: 3 frames of 1080p, T = 3, so 17 frames and 14 midpoints.
 VIDEO_FRAMES, VIDEO_TIMES, VIDEO_MAX_BATCH = 3, 3, 3
 VIDEO_H, VIDEO_W = 1080, 1920
@@ -412,52 +471,31 @@ def square_batches(seed):
     yield square_batch(rng)
 
 
-def loss_and_grads(model, batch):
+def loss_and_grads(model, batch, losses, step):
+  """The weighted loss at `step` and every parameter's gradient."""
   model.zero_grad(set_to_none=True)
   out = model(batch['x0'], batch['x1'], batch['time'])
-  loss = losses_lib.l1_loss(batch, out)
+  loss = losses_lib.compute_weighted_loss(losses, batch, out, step)
   loss.backward()
   grads = {n: None if p.grad is None else p.grad.detach().clone()
            for n, p in model.named_parameters()}
   return loss.item(), grads
 
 
-def steps_per_second(state, step_fn, batches) -> float:
-  """Mean steps/s over TIMED_STEPS steps after WARMUP_STEPS, host clock."""
-  for _ in range(WARMUP_STEPS):
-    step_fn(state, next(batches), torch.Generator())
-  torch.cuda.synchronize()
-  start = time.perf_counter()
-  for _ in range(TIMED_STEPS):
-    step_fn(state, next(batches), torch.Generator())
-  torch.cuda.synchronize()
-  return TIMED_STEPS / (time.perf_counter() - start)
-
-
-def check_training(card, failures):
-  """The training path: step parity, launch counts, speed, the loop."""
-  config = configs.get_experiment('film_net-L1')
-  options = config.model
-  model = init_params(create_model(options),
-                      torch.Generator().manual_seed(0)).cuda()
-  n_params = sum(p.numel() for p in model.parameters())
-  batch = train_lib.batch_to_device(square_batch(np.random.RandomState(1)),
-                               torch.device('cuda'))
-  report = {}
-
-  # One step's loss and gradients, kernels vs plain, TF32 off and cuDNN
-  # off in both: cuDNN's f32 algorithms leave residues of either sign
-  # where a conv's true output is exactly 0 (the squares' black
-  # background), which flips leaky relu's tie at 0 between two runs whose
-  # inputs differ by rounding; PyTorch's own convs keep exact zeros.
-  # flags() allows TF32 unless told otherwise, and the conv kernel's f32
-  # route follows that flag: the gate holds exact f32 against exact f32.
+def check_step_parity(label, model, batch, losses, step, failures):
+  """One train step's loss and gradients, kernels vs plain, TF32 off and
+  cuDNN off in both: cuDNN's f32 algorithms leave residues of either sign
+  where a conv's true output is exactly 0 (the squares' black
+  background), which flips leaky relu's tie at 0 between two runs whose
+  inputs differ by rounding; PyTorch's own convs keep exact zeros.
+  flags() allows TF32 unless told otherwise, and the conv kernel's f32
+  route follows that flag: the gate holds exact f32 against exact f32."""
   with torch.backends.cudnn.flags(enabled=False, allow_tf32=False):
     _kernels.reset_launch_counts()
-    loss_k, grads_k = loss_and_grads(model, batch)
+    loss_k, grads_k = loss_and_grads(model, batch, losses, step)
     step_launches = _kernels.launch_counts()
     with plain_versions():
-      loss_p, grads_p = loss_and_grads(model, batch)
+      loss_p, grads_p = loss_and_grads(model, batch, losses, step)
   plain_launches = sum(_kernels.launch_counts().values()) - sum(
       step_launches.values())
   loss_rel = abs(loss_k - loss_p) / abs(loss_p)
@@ -473,54 +511,86 @@ def check_training(card, failures):
     if rel > worst[1]:
       worst = (name, rel)
   if len(grads_k) != 82 or bad:
-    failures.append(f'train step: {len(grads_k)} parameter tensors, '
+    failures.append(f'{label} step: {len(grads_k)} parameter tensors, '
                     f'without a finite non-zero gradient: {bad}')
   if not loss_rel <= LOSS_REL_BOUND:
-    failures.append(f'train step loss rel err {loss_rel:.3e}')
+    failures.append(f'{label} step loss rel err {loss_rel:.3e}')
   if not worst[1] <= GRAD_REL_BOUND:
-    failures.append(f'train step grad rel err {worst[1]:.3e} ({worst[0]})')
+    failures.append(f'{label} step grad rel err {worst[1]:.3e} '
+                    f'({worst[0]})')
   if step_launches != STEP_LAUNCHES:
-    failures.append(f'launches per train step {step_launches} != '
+    failures.append(f'launches per {label} step {step_launches} != '
                     f'{STEP_LAUNCHES}')
   if plain_launches:
-    failures.append(f'plain train step launched {plain_launches} kernels')
-  print(f'train step (film_net-L1, released config {n_params} parameters, '
+    failures.append(f'plain {label} step launched {plain_launches} kernels')
+  n_params = sum(p.numel() for p in model.parameters())
+  print(f'train step ({label}, released config {n_params} parameters, '
         f'f32, TF32 and cuDNN off, batch '
-        f'{TRAIN_BATCH}x{TRAIN_CROP}x{TRAIN_CROP} '
-        f'moving squares): loss {loss_k:.7f} kernels, {loss_p:.7f} plain, '
-        f'rel err {loss_rel:.2e} (bound {LOSS_REL_BOUND:.0e}); '
-        f'{len(grads_k) - len(bad)}/{len(grads_k)} gradients finite and '
-        f'non-zero; worst grad rel err {worst[1]:.3e} ({worst[0]}, bound '
-        f'{GRAD_REL_BOUND:.0e}); launches per step {step_launches}')
-  report.update(loss_kernels=loss_k, loss_plain=loss_p, loss_rel=loss_rel,
-                grad_rel=grad_rel, step_launches=step_launches)
+        f'{batch["x0"].shape[0]}x{TRAIN_CROP}x{TRAIN_CROP} moving squares, '
+        f'step {step}, loss weights '
+        f'{ {k: w(step) for k, (_, w) in losses.items()} }): loss '
+        f'{loss_k:.7f} kernels, {loss_p:.7f} plain, rel err {loss_rel:.2e} '
+        f'(bound {LOSS_REL_BOUND:.0e}); {len(grads_k) - len(bad)}/'
+        f'{len(grads_k)} gradients finite and non-zero; worst grad rel err '
+        f'{worst[1]:.3e} ({worst[0]}, bound {GRAD_REL_BOUND:.0e}); launches '
+        f'per step {step_launches}')
+  return {'loss_kernels': loss_k, 'loss_plain': loss_p, 'loss_rel': loss_rel,
+          'grad_rel': grad_rel, 'step_launches': step_launches}
 
-  # Steps/s with the kernels and plain: the trainer's lean step (Adam,
-  # staircase schedule), batches made in memory, no augmentation;
-  # PyTorch's default precision (cuDNN convs may use TF32, and so does the
-  # conv kernel: its TF32 wgmma route).
+
+def steps_per_second(state, step_fn, batches) -> float:
+  """Mean steps/s over TIMED_STEPS steps after WARMUP_STEPS, host clock."""
+  for _ in range(WARMUP_STEPS):
+    step_fn(state, next(batches), torch.Generator())
+  torch.cuda.synchronize()
+  start = time.perf_counter()
+  for _ in range(TIMED_STEPS):
+    step_fn(state, next(batches), torch.Generator())
+  torch.cuda.synchronize()
+  return TIMED_STEPS / (time.perf_counter() - start)
+
+
+def train_speed(label, model, losses, step, card):
+  """Steps/s with the kernels and plain, and peak memory: the trainer's
+  lean step (Adam, staircase schedule) from `step`, batches made in
+  memory, no augmentation; PyTorch's default precision (cuDNN convs may
+  use TF32, and so does the conv kernel: its TF32 wgmma route)."""
   torch.backends.cudnn.allow_tf32 = True
   opts = train_lib.TrainingOptions()
-  step_fn = train_lib.make_train_step(
-      losses_lib.training_losses(['l1']), opts, with_summaries=False)
+  step_fn = train_lib.make_train_step(losses, opts, with_summaries=False)
   batches = (train_lib.batch_to_device(b, torch.device('cuda'))
              for b in square_batches(2))
-  torch.cuda.reset_peak_memory_stats()
   state = train_lib.create_train_state(model, opts)
+  state.step = step
+  torch.cuda.reset_peak_memory_stats()
   rate_k = steps_per_second(state, step_fn, batches)
   peak_k = torch.cuda.max_memory_allocated()
   torch.cuda.reset_peak_memory_stats()
   with plain_versions():
     rate_p = steps_per_second(state, step_fn, batches)
   peak_p = torch.cuda.max_memory_allocated()
-  print(f'train speed: {rate_k:.3f} steps/s with the kernels, {rate_p:.3f} '
-        f'plain (mean of {TIMED_STEPS} steps after {WARMUP_STEPS}, batch '
-        f'{TRAIN_BATCH}x{TRAIN_CROP}x{TRAIN_CROP}, f32, TF32 allowed); '
-        f'peak memory {peak_k / 2**30:.2f} GiB kernels, '
+  print(f'train speed ({label}): {rate_k:.3f} steps/s with the kernels, '
+        f'{rate_p:.3f} plain (mean of {TIMED_STEPS} steps after '
+        f'{WARMUP_STEPS}, batch {TRAIN_BATCH}x{TRAIN_CROP}x{TRAIN_CROP}, f32, '
+        f'TF32 allowed); peak memory {peak_k / 2**30:.2f} GiB kernels, '
         f'{peak_p / 2**30:.2f} GiB plain; on {card}')
-  report.update(steps_per_s=rate_k, plain_steps_per_s=rate_p,
-                peak_bytes=peak_k, plain_peak_bytes=peak_p)
-  del state, model, grads_k, grads_p
+  return {'steps_per_s': rate_k, 'plain_steps_per_s': rate_p,
+          'peak_bytes': peak_k, 'plain_peak_bytes': peak_p}
+
+
+def check_training(card, failures):
+  """The film_net-L1 path: step parity, launch counts, speed, the loop,
+  build_params on the loop's run."""
+  config = configs.get_experiment('film_net-L1')
+  options = config.model
+  model = init_params(create_model(options),
+                      torch.Generator().manual_seed(0)).cuda()
+  batch = train_lib.batch_to_device(square_batch(np.random.RandomState(1)),
+                                    torch.device('cuda'))
+  l1 = losses_lib.training_losses(['l1'])
+  report = check_step_parity('film_net-L1', model, batch, l1, 0, failures)
+  report.update(train_speed('film_net-L1', model, l1, 0, card))
+  del model
 
   # train_lib.train: 20 steps with the augmentations, then a resume to 25.
   with tempfile.TemporaryDirectory() as run_dir:
@@ -544,7 +614,6 @@ def check_training(card, failures):
                    'launches': _kernels.launch_counts(),
                    'checkpoints': train_lib.CheckpointManager(
                        os.path.join(run_dir, 'train')).steps()})
-      del state
     first, resumed = runs
     losses = [float(v) for r in runs for line in r['log']
               for v in re.findall(r'training_loss=([-+.\deE]+|nan|inf)',
@@ -554,8 +623,23 @@ def check_training(card, failures):
     interpolator = Interpolator(state_dict, exported, align=64,
                                 device='cuda')
     frames = square_batch(np.random.RandomState(4), n=1)
-    mid = interpolator(frames['x0'], frames['x1'], np.full((1,), 0.5,
-                                                           np.float32))
+    dt = np.full((1,), 0.5, np.float32)
+    mid = interpolator(frames['x0'], frames['x1'], dt)
+    # build_params on the run: its newest checkpoint (step 25) as a bundle,
+    # held against the trained model's own forward.
+    start = time.perf_counter()
+    built_dir = build_params.main([
+        '--base_folder', os.path.dirname(run_dir), '--label',
+        os.path.basename(run_dir), '--output',
+        os.path.join(run_dir, 'built')])
+    build_s = time.perf_counter() - start
+    built = load_interpolator(built_dir, align=64, device='cuda')
+    trained = Interpolator(state.model, options, align=64, device='cuda')
+    built_err = float(np.abs(built(frames['x0'], frames['x1'], dt) -
+                             trained(frames['x0'], frames['x1'], dt)).max())
+    built_same = all(torch.equal(v, built.model.state_dict()[k])
+                     for k, v in state.model.state_dict().items())
+    del state, trained, built, interpolator
   if first['launches'] != {k: TRAIN_STEPS * v
                            for k, v in STEP_LAUNCHES.items()}:
     failures.append(f'train launches {first["launches"]}')
@@ -573,15 +657,199 @@ def check_training(card, failures):
   if exported != options or mid.shape != (1, TRAIN_CROP, TRAIN_CROP, 3) or (
       not np.isfinite(mid).all()):
     failures.append('the exported weights did not serve a finite frame')
+  if not (built_same and built_err <= REPEAT_BOUND):
+    failures.append(f'build_params bundle: weights equal {built_same}, '
+                    f'forward max-abs {built_err:.3e}')
   print(f'train loop: train_lib.train for {TRAIN_STEPS} steps with '
         f'{list(config.augmentations)} in {first["seconds"]:.1f} s, '
         f'checkpoints {first["checkpoints"]}; resumed to {RESUME_STEPS} in '
         f'{resumed["seconds"]:.1f} s, checkpoints {resumed["checkpoints"]}; '
         f'training_loss at steps 10/20/25 {losses}; launches '
         f'{first["launches"]} then {resumed["launches"]}; the export serves '
-        f'a finite {mid.shape} frame')
-  report.update(train_runs=runs, train_losses=losses)
+        f'a finite {mid.shape} frame; build_params of the run (step 25) in '
+        f'{build_s:.1f} s on the host: weights equal {built_same}, forward '
+        f'max-abs {built_err:.1e} from the trained model (bound '
+        f'{REPEAT_BOUND:.0e})')
+  report.update(train_runs=runs, train_losses=losses, build_params_err=
+                built_err, build_params_s=build_s)
   return report, first['launches']
+
+
+def write_vgg_mat(path: str, seed: int = 0) -> None:
+  """VGG-19 to conv5_2 at its true widths, He-scaled weights from a seed,
+  as a MatConvNet .mat (the released imagenet-vgg-verydeep-19.mat is not
+  in the repository)."""
+  rng = np.random.RandomState(seed)
+  cin, kernels = 3, []
+  for cout in VGG_CHANNELS:
+    kernels.append(
+        ((rng.randn(3, 3, cin, cout) * (2.0 / (9 * cin))**0.5).astype(
+            np.float32), (rng.randn(cout) * 0.1).astype(np.float32)))
+    cin = cout
+  vgg19.save_vgg_weights(path, kernels)
+
+
+def loss_ms(loss_fn, batch, image) -> float:
+  """One loss's forward and its backward to the image, by CUDA events."""
+  def run():
+    pred = image.detach().requires_grad_()
+    loss_fn(batch, {'image': pred}).backward()
+  return measure.time_ms(run, iters=5, queued=False)
+
+
+def check_style(mat_path, card, l1_report, failures):
+  """One film_net-Style train step (released config, f32, VGG-19 at its
+  true widths): parity, launches, speed, and the losses' share."""
+  config = configs.get_experiment('film_net-Style', mat_path)
+  options = config.model
+  start = time.perf_counter()
+  vgg19.load_vgg_weights(mat_path)
+  load_s = time.perf_counter() - start
+  style = losses_lib.training_losses(
+      list(config.training_losses.names),
+      loss_weight_schedules=list(config.training_losses.weight_schedules),
+      vgg_model_file=config.vgg_model_file)
+  model = init_params(create_model(options),
+                      torch.Generator().manual_seed(0)).cuda()
+  batch = train_lib.batch_to_device(square_batch(np.random.RandomState(1)),
+                                    torch.device('cuda'))
+  report = check_step_parity('film_net-Style', model, batch, style,
+                             STYLE_STEP, failures)
+  report.update(train_speed('film_net-Style', model, style, STYLE_STEP,
+                            card))
+
+  # The share of the VGG and Style losses in a step (TF32 allowed, as the
+  # speed above): each loss's forward and backward to the prediction, and
+  # the lean step with all three losses and with l1 alone, CUDA events.
+  opts = train_lib.TrainingOptions()
+  state = train_lib.create_train_state(model, opts)
+  state.step = STYLE_STEP
+  with torch.no_grad():
+    image = model(batch['x0'], batch['x1'], batch['time'])['image']
+  parts = {name: loss_ms(fn, batch, image)
+           for name, (fn, _) in style.items()}
+  steps = {}
+  for label, losses in (('l1', losses_lib.training_losses(['l1'])),
+                        ('style', style)):
+    step_fn = train_lib.make_train_step(losses, opts, with_summaries=False)
+    steps[label] = measure.time_ms(
+        lambda: step_fn(state, batch, torch.Generator()), iters=5,
+        queued=False)
+  share = (parts['k*vgg'] + parts['k*style']) / steps['style']
+  print(f'film_net-Style step parts (CUDA events, TF32 allowed, batch '
+        f'{TRAIN_BATCH}): {steps["style"]:.3f} ms a step, {steps["l1"]:.3f} '
+        f'with l1 alone; forward + image backward of l1 '
+        f'{parts["l1"]:.3f} ms, vgg {parts["k*vgg"]:.3f}, style '
+        f'{parts["k*style"]:.3f}: vgg and style {100 * share:.1f}% of the '
+        f'step; VGG-19 .mat read in {load_s:.2f} s; L1 speed in this call '
+        f'{l1_report["steps_per_s"]:.3f} steps/s; on {card}')
+  report.update(step_ms=steps, loss_ms=parts, loss_share=share,
+                vgg_load_s=load_s)
+  return report
+
+
+def check_gin_loop(mat_path, card, failures):
+  """train_lib.train of an inline film_net-Style gin, loaded by the port's
+  gin_compat, for GIN_STEPS steps with the trace window."""
+  with tempfile.TemporaryDirectory() as work:
+    gin_path = os.path.join(work, 'film_net-Style.gin')
+    with open(gin_path, 'w') as f:
+      f.write(STYLE_GIN.replace('{mat}', mat_path))
+    config = gin_compat.load_training_gin(gin_path)
+    if config.vgg_model_file != mat_path or config.training_losses.names != (
+        'l1', 'vgg', 'style'):
+      failures.append(f'gin config {config.training_losses.names} '
+                      f'{config.vgg_model_file}')
+    losses = losses_lib.training_losses(
+        list(config.training_losses.names),
+        loss_weight_schedules=list(config.training_losses.weight_schedules),
+        vgg_model_file=config.vgg_model_file)
+    opts = train_lib.TrainingOptions(
+        learning_rate=config.learning_rate, num_steps=GIN_STEPS,
+        save_interval=GIN_STEPS, timing_interval=GIN_STEPS)
+    profile_dir, lines = os.path.join(work, 'profile'), []
+    _kernels.reset_launch_counts()
+    start = time.perf_counter()
+    state = train_lib.train(
+        create_model(config.model), config.model, losses, square_batches(6),
+        opts, os.path.join(work, 'run'), device='cuda',
+        augmentation_names=tuple(config.augmentations), log_fn=lines.append,
+        profile_dir=profile_dir, profile_start_step=PROFILE_START,
+        profile_num_steps=PROFILE_STEPS)
+    seconds = time.perf_counter() - start
+    launches = _kernels.launch_counts()
+    end = PROFILE_START + PROFILE_STEPS
+    trace_path = os.path.join(profile_dir,
+                              f'steps_{PROFILE_START}_{end}.json')
+    with open(trace_path) as f:
+      events = json.load(f)['traceEvents']
+    trace_mb = os.path.getsize(trace_path) / 2**20
+    del state
+  kernels = [e for e in events if e.get('cat') == 'kernel']
+  # The host's annotation of each update (the device's copy of it has the
+  # category gpu_user_annotation).
+  adam_steps = sum(1 for e in events
+                   if e.get('name') == 'Optimizer.step#Adam.step' and
+                   e.get('cat') == 'user_annotation')
+  ours = {}
+  for pattern in TRACE_KERNELS:
+    hits = [e for e in kernels if pattern in e['name']]
+    ours[pattern] = {'launches': len(hits),
+                     'ms': sum(e.get('dur', 0.0) for e in hits) / 1e3}
+  busy_ms = sum(e.get('dur', 0.0) for e in kernels) / 1e3
+  logged = (f'Wrote profiler trace for steps [{PROFILE_START}, {end}) to '
+            f'{trace_path}')
+  if launches != {k: GIN_STEPS * v for k, v in STEP_LAUNCHES.items()}:
+    failures.append(f'gin loop launches {launches}')
+  if logged not in lines or adam_steps != PROFILE_STEPS or not all(
+      v['launches'] for v in ours.values()):
+    failures.append(f'trace window: logged {logged in lines}, {adam_steps} '
+                    f'Adam steps, our kernels {ours}')
+  print(f'gin loop (film_net-Style from an inline gin through gin_compat, '
+        f'{GIN_STEPS} steps of batch {TRAIN_BATCH} with '
+        f'{list(config.augmentations)}) in {seconds:.1f} s; launches '
+        f'{launches}; trace of steps [{PROFILE_START}, {end}): '
+        f'{trace_mb:.1f} MB, {adam_steps} Adam steps, {len(kernels)} kernels '
+        f'busy {busy_ms:.3f} ms ({busy_ms / PROFILE_STEPS:.3f} ms a step, '
+        f'under the profiler), ours {ours}; on {card}')
+  return {'launches': launches, 'seconds': seconds, 'trace_mb': trace_mb,
+          'adam_steps': adam_steps, 'kernel_busy_ms': busy_ms,
+          'trace_kernels': ours}
+
+
+def check_jax_bundle(model, options, want, frames, dt, card, failures):
+  """The serving model written as the JAX package's bundle (options.json +
+  params.msgpack), read back through load_interpolator, serving the same
+  pair as the Interpolator built from the model itself."""
+  with tempfile.TemporaryDirectory() as bundle:
+    start = time.perf_counter()
+    params_io.save_params(bundle, model.state_dict(), options)
+    write_s = time.perf_counter() - start
+    size = os.path.getsize(os.path.join(bundle, params_io.PARAMS_FILE))
+    start = time.perf_counter()
+    state, loaded_options = params_io.load_params(bundle)
+    decode_s = time.perf_counter() - start
+    interpolator = load_interpolator(bundle, align=64, device='cuda')
+  same = loaded_options == options and all(
+      torch.equal(state[k], v.cpu()) for k, v in model.state_dict().items())
+  _kernels.reset_launch_counts()
+  got = interpolator(frames[0], frames[1], dt)
+  launches = _kernels.launch_counts()
+  err = float(np.abs(got - want).max())
+  if not same:
+    failures.append('the JAX bundle does not hold the serving weights')
+  if launches != PAIR_LAUNCHES:
+    failures.append(f'JAX bundle pair launches {launches}')
+  if got.shape != want.shape or err > REPEAT_BOUND:
+    failures.append(f'JAX bundle pair {got.shape}, max-abs {err:.3e}')
+  print(f'JAX bundle (released config, {size / 1e6:.1f} MB params.msgpack): '
+        f'written in {write_s:.2f} s, decoded in {decode_s:.2f} s on the '
+        f'host (io/msgpack_lite); options and weights equal: {same}; a 1080p '
+        f'pair served from it (bf16 policy) max-abs {err:.1e} from the '
+        f'direct Interpolator (bound {REPEAT_BOUND:.0e}); launches '
+        f'{launches}; on {card}')
+  return {'bytes': size, 'write_s': write_s, 'decode_s': decode_s,
+          'max_abs_err': err, 'launches': launches}
 
 
 def psnr_db(a: np.ndarray, b: np.ndarray) -> float:
@@ -986,6 +1254,8 @@ def main() -> int:
         f'{device_ms:.3f} ms/pair on device (plain versions: '
         f'{plain_device_ms:.3f} ms); launches {launches}; repeat max-abs '
         f'{repeat_err:.1e}; PSNR kernels vs plain {psnr:.2f} dB; on {card}')
+  bundle_report = check_jax_bundle(model, options, out, frames, dt, card,
+                                   failures)
 
   # Phase 5: the video slice: the exact uint8 rules, the frame tree by both
   # routes, the tiled tree.
@@ -994,8 +1264,14 @@ def main() -> int:
   tiled_report = check_tiled_tree(model, options, card, failures)
   del interpolator, model
 
-  # Phase 6: the training path.
+  # Phase 6: the training path: film_net-L1, then film_net-Style with
+  # VGG-19 at its true widths, by the preset and by a gin file.
   train_report, train_launches = check_training(card, failures)
+  with tempfile.TemporaryDirectory() as vgg_dir:
+    mat_path = os.path.join(vgg_dir, 'imagenet-vgg-verydeep-19.mat')
+    write_vgg_mat(mat_path)
+    style_report = check_style(mat_path, card, train_report, failures)
+    gin_report = check_gin_loop(mat_path, card, failures)
 
   # Phase 7: the eval loop.
   eval_report = check_eval(card, failures)
@@ -1033,9 +1309,10 @@ def main() -> int:
                  'device_ms': device_ms, 'plain_device_ms': plain_device_ms,
                  'launches': launches, 'psnr_db': psnr,
                  'repeat_err': repeat_err, 'uint8': uint8_report,
-                 'video': video_report, 'tiled_tree': tiled_report,
-                 'training': train_report, 'eval': eval_report,
-                 'failures': failures}, f, indent=1)
+                 'jax_bundle': bundle_report, 'video': video_report,
+                 'tiled_tree': tiled_report, 'training': train_report,
+                 'style': style_report, 'gin_loop': gin_report,
+                 'eval': eval_report, 'failures': failures}, f, indent=1)
 
   if failures:
     print('chip_smoke: FAILED: ' + '; '.join(failures), file=sys.stderr)

@@ -11,9 +11,10 @@ plus a mean row, optional PNG dumps of every image-shaped tensor, and a
     --output_dir /tmp/middlebury_eval --metrics l1,l2,ssim,psnr
 
 `--params` is 'random' (the released config, weights from seed 0) or a
-bundle of the port. `--device` defaults to cuda and raises when no GPU is
-visible. `--gin_config` waits for the port of the gin loader
-(training/configs/gin_compat.py, ROADMAP A7).
+bundle, the port's or the JAX package's. `--gin_config` reads a
+reference-style eval gin file (eval/config/*.gin), which supplies the
+tfrecord (unless `--tfrecord` is given), the metrics and max_examples.
+`--device` defaults to cuda and raises when no GPU is visible.
 """
 from __future__ import annotations
 
@@ -23,6 +24,8 @@ from typing import Dict, List, Optional, Sequence
 
 import numpy as np
 import torch
+
+from ._common import device_from_flag, load_interpolator_from_flag
 
 
 def run_evaluation(interpolator, tfrecord: str, output_dir: str,
@@ -110,10 +113,13 @@ def _list(value: str):
 def _parser() -> argparse.ArgumentParser:
   parser = argparse.ArgumentParser(description=__doc__.splitlines()[0])
   parser.add_argument('--params', required=True,
-                      help="A bundle of the port, or 'random': released "
-                      'config, weights from seed 0.')
-  parser.add_argument('--tfrecord', required=True,
+                      help="A bundle (the port's or the JAX package's), or "
+                      "'random': released config, weights from seed 0.")
+  parser.add_argument('--tfrecord', default=None,
                       help="Eval TFRecord spec ('file' or 'file@N').")
+  parser.add_argument('--gin_config', default=None,
+                      help='A reference-style eval gin file; supplies the '
+                      'tfrecord, metrics and max_examples.')
   parser.add_argument('--output_dir', required=True,
                       help='Directory for results.csv and frames.')
   parser.add_argument('--max_examples', type=int, default=-1,
@@ -133,15 +139,21 @@ def _parser() -> argparse.ArgumentParser:
 
 def main(argv: Optional[Sequence[str]] = None) -> None:
   args = _parser().parse_args(argv)
-  device = torch.device(args.device)
-  if device.type == 'cuda' and not torch.cuda.is_available():
-    raise RuntimeError('--device cuda requested but no GPU is visible to '
-                       'torch.')
-  from .interpolate_dir import load_interpolator_from_flag
+  tfrecord, metrics, max_examples = (args.tfrecord, args.metrics,
+                                     args.max_examples)
+  if args.gin_config:
+    from ..training.configs import gin_compat
+    eval_config = gin_compat.load_eval_gin(args.gin_config)
+    tfrecord = tfrecord or eval_config.tfrecord
+    metrics = list(eval_config.metrics)
+    max_examples = eval_config.max_examples
+  if not tfrecord:
+    raise ValueError('Provide --tfrecord or --gin_config.')
+  device = device_from_flag(args.device)
   interpolator = load_interpolator_from_flag(args.params, 64, None, device)
   totals = run_evaluation(
-      interpolator, args.tfrecord, args.output_dir, args.max_examples,
-      args.metrics, output_frames=args.output_frames,
+      interpolator, tfrecord, args.output_dir, max_examples,
+      metrics, output_frames=args.output_frames,
       batch_size=args.batch_size, model_description=args.params)
   print('mean:', ', '.join(f'{k}={v:.6f}' for k, v in totals.items()))
 

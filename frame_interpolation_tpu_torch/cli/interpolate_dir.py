@@ -16,8 +16,9 @@ generator instead. Both write the same frames.
     --output_video
 
 `--params` is 'random' (the released config with weights from seed 0) or
-a bundle of the port (options.json + state_dict.pt, what the trainer
-exports). `--device` defaults to cuda and raises when no GPU is visible.
+a bundle: the port's (options.json + state_dict.pt, what the trainer
+exports) or the JAX package's (options.json + params.msgpack). `--device`
+defaults to cuda and raises when no GPU is visible.
 Not carried over from the JAX CLI: --warp_impl, --fold_convs and
 --conv_stack choose between TPU execution layouts, which the port does not
 have; --mesh waits for the parallel slice (ROADMAP A10).
@@ -30,7 +31,7 @@ import logging
 import os
 from typing import List, Optional, Sequence
 
-import torch
+from ._common import device_from_flag, load_interpolator_from_flag
 
 _INPUT_EXT = ('png', 'jpg', 'jpeg')
 
@@ -40,8 +41,8 @@ def _parser() -> argparse.ArgumentParser:
   parser.add_argument('--pattern', required=True,
                       help='Glob pattern of directories with input frames.')
   parser.add_argument('--params', required=True,
-                      help="A bundle of the port, or 'random': released "
-                      'config, weights from seed 0.')
+                      help="A bundle (the port's or the JAX package's), "
+                      "or 'random': released config, weights from seed 0.")
   parser.add_argument('--times_to_interpolate', type=int, default=5,
                       help='Recursive midpoint depth: 2^T - 1 frames '
                       'between each input pair.')
@@ -80,21 +81,6 @@ def _parser() -> argparse.ArgumentParser:
   parser.add_argument('--device', default='cuda',
                       help="Torch device: 'cuda' (default) or 'cpu'.")
   return parser
-
-
-def load_interpolator_from_flag(params: str, align: int, block_shape,
-                                device):
-  """'random' -> the released config, seed-0 weights; else a port bundle."""
-  from ..inference import Interpolator, load_interpolator
-  if params != 'random':
-    return load_interpolator(params, align=align, block_shape=block_shape,
-                             device=device)
-  from ..models.film_net import create_model, init_params
-  from ..options import Options
-  options = Options.film_net_released()
-  model = init_params(create_model(options), torch.Generator().manual_seed(0))
-  return Interpolator(model, options, align=align, block_shape=block_shape,
-                      device=device)
 
 
 def process_directory(directory: str, interpolator,
@@ -149,10 +135,7 @@ def process_directory(directory: str, interpolator,
 
 def main(argv: Optional[Sequence[str]] = None) -> None:
   args = _parser().parse_args(argv)
-  device = torch.device(args.device)
-  if device.type == 'cuda' and not torch.cuda.is_available():
-    raise RuntimeError('--device cuda requested but no GPU is visible to '
-                       'torch.')
+  device = device_from_flag(args.device)
   directories = sorted(d for d in glob.glob(args.pattern)
                        if os.path.isdir(d))
   if not directories:

@@ -2,12 +2,16 @@ r"""One mid-frame interpolation CLI (PyTorch port).
 
   python3 -m frame_interpolation_tpu_torch.cli.interpolate_pair \
     --frame1 photos/one.png --frame2 photos/two.png \
-    --params random --output_frame photos/middle.png
+    --params <bundle or random> --output_frame photos/middle.png
 
-`--params random` runs the released configuration with weights drawn from
-a fixed seed (a smoke test on machines without a checkpoint); reading a
-parameter bundle is not ported yet. `--device` defaults to cuda and raises
-when no GPU is visible.
+`--params` is a bundle, the port's (options.json + state_dict.pt, what the
+trainer exports) or the JAX package's (options.json + params.msgpack), or
+'random': the released configuration with weights drawn from seed 0 (a
+smoke test on machines without a checkpoint). A bundle keeps its own dtype
+policy unless `--dtype_policy` is given. `--time` is the JAX CLI's flag;
+film_net predicts the midpoint only, so it takes 0.5 alone. A TF release
+converts into a JAX bundle with the JAX package's cli/build_params first.
+`--device` defaults to cuda and raises when no GPU is visible.
 """
 from __future__ import annotations
 
@@ -15,12 +19,8 @@ import argparse
 from typing import Optional, Sequence
 
 import numpy as np
-import torch
 
-from ..inference import Interpolator
-from ..io import images
-from ..models.film_net import create_model, init_params
-from ..options import Options
+from ._common import device_from_flag, load_interpolator_from_flag
 
 
 def _parser() -> argparse.ArgumentParser:
@@ -30,8 +30,8 @@ def _parser() -> argparse.ArgumentParser:
   parser.add_argument('--frame2', required=True,
                       help='Filepath of the second frame.')
   parser.add_argument('--params', required=True,
-                      help="'random': released config, seeded random "
-                      'weights.')
+                      help="A bundle (the port's or the JAX package's), or "
+                      "'random': released config, weights from seed 0.")
   parser.add_argument('--output_frame', required=True,
                       help='Filepath of the output mid-frame.')
   parser.add_argument('--align', type=int, default=64,
@@ -41,32 +41,35 @@ def _parser() -> argparse.ArgumentParser:
                       help='Number of patches along height.')
   parser.add_argument('--block_width', type=int, default=1,
                       help='Number of patches along width.')
-  parser.add_argument('--dtype_policy', default='float32',
+  parser.add_argument('--time', type=float, default=0.5,
+                      help='Sub-frame time; film_net predicts the midpoint '
+                      'only, so any value but 0.5 is refused.')
+  parser.add_argument('--dtype_policy', default=None,
                       choices=['float32', 'bfloat16'],
-                      help='Compute dtype policy.')
+                      help="Override the bundle's compute dtype policy.")
   parser.add_argument('--device', default='cuda',
                       help="Torch device: 'cuda' (default) or 'cpu'.")
   return parser
 
 
 def main(argv: Optional[Sequence[str]] = None) -> None:
-  args = _parser().parse_args(argv)
-  if args.params != 'random':
-    raise ValueError(f"--params {args.params!r}: only 'random' is supported; "
-                     'the parameter bundle reader is not ported yet.')
-  options = Options.film_net_released(dtype_policy=args.dtype_policy)
-  model = init_params(create_model(options),
-                      torch.Generator().manual_seed(0))
-  interpolator = Interpolator(model, options, align=args.align,
-                              block_shape=(args.block_height,
-                                           args.block_width),
-                              device=args.device)
+  parser = _parser()
+  args = parser.parse_args(argv)
+  if args.time != 0.5:
+    # The model replaces the time with 0.5 (models/film_net.py), so any
+    # other value would write the midpoint under another name.
+    parser.error(f'--time {args.time}: film_net predicts the midpoint '
+                 '(0.5) only')
+  from ..io import images
+  interpolator = load_interpolator_from_flag(
+      args.params, args.align, (args.block_height, args.block_width),
+      device_from_flag(args.device), dtype_policy=args.dtype_policy)
   image_1 = images.read_image(args.frame1)
   image_2 = images.read_image(args.frame2)
   if image_1.shape != image_2.shape:
     raise ValueError(
         f'Frame shapes differ: {image_1.shape} vs {image_2.shape}')
-  batch_dt = np.full((1,), 0.5, dtype=np.float32)
+  batch_dt = np.full((1,), args.time, dtype=np.float32)
   mid_frame = interpolator(image_1[np.newaxis], image_2[np.newaxis],
                            batch_dt)[0]
   images.write_image(args.output_frame, mid_frame)

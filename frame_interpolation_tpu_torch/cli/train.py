@@ -11,12 +11,17 @@ run-dir layout (README.md:186-195).
     --train_file vimeo_train.tfrecord@200 \
     --base_folder runs --label run0
 
-`--device` defaults to cuda and raises when no GPU is visible; `--device
-cpu` runs the plain versions of the kernels on the host. `--eval_files`
-with as many `--eval_names` evaluates those datasets at each save interval
-(training/eval_lib.py; summaries under `<run>/eval`). The gin loader, the
-VGG/Style losses and multi-host training wait for later slices (ROADMAP
-A7's gin_compat, A8, A10); their flags are not accepted.
+`--experiment` is film_net-L1, film_net-VGG or film_net-Style; the last
+two need `--vgg_model_file` (the MatConvNet imagenet-vgg-verydeep-19.mat).
+`--gin_config` reads a reference training gin file instead of the preset
+(training/configs/gin_compat.py); its `vgg.vgg_model_file` binding holds
+unless `--vgg_model_file` is given. `--device` defaults to cuda and raises
+when no GPU is visible; `--device cpu` runs the plain versions of the
+kernels on the host. `--eval_files` with as many `--eval_names` evaluates
+those datasets at each save interval (training/eval_lib.py; summaries
+under `<run>/eval`). `--profile_dir` writes a torch.profiler trace of
+steps [10, 15) there. Multi-host training waits for a later slice
+(ROADMAP A10); its flags are not accepted.
 """
 from __future__ import annotations
 
@@ -28,6 +33,8 @@ from typing import Optional, Sequence
 
 import torch
 
+from ._common import device_from_flag
+
 
 def _list(value: str):
   return [v for v in value.split(',') if v]
@@ -36,9 +43,15 @@ def _list(value: str):
 def _parser() -> argparse.ArgumentParser:
   parser = argparse.ArgumentParser(description=__doc__.splitlines()[0])
   parser.add_argument('--experiment', default='film_net-L1',
-                      choices=['film_net-L1'],
-                      help='Experiment preset (the released gin configs); '
-                      'VGG and Style wait for the port of vgg19.')
+                      choices=['film_net-L1', 'film_net-VGG',
+                               'film_net-Style'],
+                      help='Experiment preset (the released gin configs).')
+  parser.add_argument('--gin_config', default=None,
+                      help='A reference-style training gin file; overrides '
+                      '--experiment.')
+  parser.add_argument('--vgg_model_file', default=None,
+                      help='imagenet-vgg-verydeep-19.mat (MatConvNet), for '
+                      'the VGG and Style losses.')
   parser.add_argument('--base_folder', required=True,
                       help='Root folder for training runs.')
   parser.add_argument('--label', default='run0', help='Run descriptor.')
@@ -67,6 +80,9 @@ def _parser() -> argparse.ArgumentParser:
                       help='Names of the eval datasets, one per file.')
   parser.add_argument('--eval_max_examples', type=int, default=-1,
                       help='Max examples per eval dataset; -1 = all.')
+  parser.add_argument('--profile_dir', default=None,
+                      help='If set, write a torch.profiler trace of a few '
+                      'steps here.')
   parser.add_argument('--device', default='cuda',
                       help="Torch device: 'cuda' (default) or 'cpu'.")
   return parser
@@ -79,10 +95,7 @@ def main(argv: Optional[Sequence[str]] = None) -> None:
     parser.error(f'--eval_files has {len(args.eval_files)} entries and '
                  f'--eval_names {len(args.eval_names)}; give one name per '
                  'file.')
-  device = torch.device(args.device)
-  if device.type == 'cuda' and not torch.cuda.is_available():
-    raise RuntimeError('--device cuda requested but no GPU is visible to '
-                       'torch.')
+  device = device_from_flag(args.device)
 
   from .. import losses as losses_lib
   from ..data import dataset as dataset_lib
@@ -90,7 +103,13 @@ def main(argv: Optional[Sequence[str]] = None) -> None:
   from ..training import configs, eval_lib, metrics_lib, sources, train_lib
   from ..utils import tensorboard
 
-  config = configs.get_experiment(args.experiment)
+  if args.gin_config:
+    from ..training.configs import gin_compat
+    config = gin_compat.load_training_gin(
+        args.gin_config, vgg_model_file=args.vgg_model_file)
+  else:
+    config = configs.get_experiment(args.experiment,
+                                    vgg_model_file=args.vgg_model_file)
   run_dir = os.path.join(args.base_folder, args.label)
   os.makedirs(run_dir, exist_ok=True)
   # The effective config, for reproducibility (train.py:85-87).
@@ -109,7 +128,8 @@ def main(argv: Optional[Sequence[str]] = None) -> None:
       save_interval=args.save_interval)
   train_losses = losses_lib.training_losses(
       list(config.training_losses.names),
-      loss_weight_schedules=list(config.training_losses.weight_schedules))
+      loss_weight_schedules=list(config.training_losses.weight_schedules),
+      vgg_model_file=config.vgg_model_file)
   source_list, weights = sources.build_training_sources(
       dataset_lib, config.dataset, args.train_file, args.train_files,
       args.crop_sizes, crop_size, args.train_weights)
@@ -120,7 +140,8 @@ def main(argv: Optional[Sequence[str]] = None) -> None:
   if args.eval_files:
     test_losses = losses_lib.test_losses(
         list(config.test_losses.names),
-        loss_weight_schedules=list(config.test_losses.weight_schedules))
+        loss_weight_schedules=list(config.test_losses.weight_schedules),
+        vgg_model_file=config.vgg_model_file)
     eval_datasets = dataset_lib.create_eval_datasets(
         args.eval_files, args.eval_names, batch_size=1,
         max_examples=args.eval_max_examples)
@@ -137,7 +158,7 @@ def main(argv: Optional[Sequence[str]] = None) -> None:
                   init_generator=torch.Generator().manual_seed(0),
                   device=device,
                   augmentation_names=tuple(config.augmentations),
-                  eval_fn=eval_fn)
+                  eval_fn=eval_fn, profile_dir=args.profile_dir)
 
 
 if __name__ == '__main__':

@@ -276,8 +276,7 @@ class Interpolator:
     return cached_tree.quantize_u8(seq) if as_uint8 else seq.contiguous()
 
 
-_JAX_BUNDLE_FILES = ('params.msgpack', 'saved_model.pb', 'saved_model.pbtxt',
-                     'checkpoint')
+_TF_RELEASE_FILES = ('saved_model.pb', 'saved_model.pbtxt', 'checkpoint')
 
 
 def load_interpolator(model_path: str,
@@ -285,20 +284,28 @@ def load_interpolator(model_path: str,
                       block_shape: Optional[Sequence[int]] = None,
                       dtype_policy: Optional[str] = None,
                       device: Any = 'cuda') -> Interpolator:
-  """An Interpolator from the port's own bundle (`options.json` +
-  `state_dict.pt`, io/params_io.save_state_bundle, which the trainer
-  exports). `dtype_policy` overrides the bundle's."""
-  if not os.path.isfile(os.path.join(model_path, params_io.STATE_FILE)):
-    found = [name for name in _JAX_BUNDLE_FILES
+  """An Interpolator from a bundle: the port's own (`options.json` +
+  `state_dict.pt`, which the trainer exports) or the JAX package's
+  (`options.json` + `params.msgpack`). `dtype_policy` overrides the
+  bundle's."""
+  if os.path.isfile(os.path.join(model_path, params_io.STATE_FILE)):
+    state, options = params_io.load_state_bundle(model_path)
+  elif params_io.is_jax_bundle(model_path):
+    state, options = params_io.load_params(model_path)
+  else:
+    found = [name for name in _TF_RELEASE_FILES
              if os.path.exists(os.path.join(model_path, name))]
     if found:
       raise NotImplementedError(
-          f'{model_path} is a bundle of the JAX package or a TF release '
-          f'({", ".join(found)}); the port reads only its own bundle '
-          f'(options.json + {params_io.STATE_FILE}) so far: ROADMAP A9.')
-    raise FileNotFoundError(f'{model_path}: no options.json + '
-                            f'{params_io.STATE_FILE} bundle')
-  state, options = params_io.load_state_bundle(model_path)
+          f'{model_path} is a TF SavedModel or checkpoint '
+          f'({", ".join(found)}), which needs TensorFlow to read: convert '
+          'it with the JAX package (python3 -m '
+          'frame_interpolation_tpu.cli.build_params --tf_model '
+          f'{model_path} --output <bundle>), then load that bundle.')
+    raise FileNotFoundError(
+        f'{model_path}: neither a bundle of the port (options.json + '
+        f'{params_io.STATE_FILE}) nor of the JAX package (options.json + '
+        f'{params_io.PARAMS_FILE})')
   if dtype_policy is not None and dtype_policy != options.dtype_policy:
     options = dataclasses.replace(options, dtype_policy=dtype_policy)
   return Interpolator(state, options, align=align, block_shape=block_shape,

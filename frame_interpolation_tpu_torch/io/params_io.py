@@ -7,10 +7,15 @@ same parameters under the same module names as `weight` (OIHW) and `bias`.
 numpy can read) into a state_dict for `FilmNet.load_state_dict`;
 `to_flax_params` is its inverse. Neither imports JAX.
 
-`save_state_bundle` / `load_state_bundle` write and read the port's own
-bundle, which the trainer exports: a directory with `options.json` (the
-Options fields, as the JAX package's bundle has them) and `state_dict.pt`
-(`torch.save` of the FilmNet state_dict, f32 tensors on the CPU).
+Two bundles, each a directory with `options.json` (the Options fields):
+
+  * the port's own, which the trainer exports: `state_dict.pt`, the
+    `torch.save` of the FilmNet state_dict, f32 tensors on the CPU
+    (`save_state_bundle` / `load_state_bundle`);
+  * the JAX package's: `params.msgpack`, the flax tree as
+    `flax.serialization.to_bytes` writes it (`save_params` / `load_params`,
+    through io/msgpack_lite, so neither needs flax or msgpack). JAX's
+    `io.params_io.load_params` reads what `save_params` writes.
 """
 from __future__ import annotations
 
@@ -23,9 +28,17 @@ import numpy as np
 import torch
 
 from ..options import Options
+from . import msgpack_lite
 
-_OPTIONS_FILE = 'options.json'
+OPTIONS_FILE = 'options.json'
 STATE_FILE = 'state_dict.pt'
+PARAMS_FILE = 'params.msgpack'
+# Fields of the JAX package's Options that the port does not have: the
+# first three choose between TPU execution layouts. split_convs is a layout
+# the port has not ported yet (ROADMAP A13); until it does, a bundle's value
+# is dropped and the port runs the literal concat form, which computes the
+# same function up to accumulation order.
+_JAX_ONLY_FIELDS = ('warp_impl', 'fold_convs', 'conv_stack', 'split_convs')
 
 
 def _leaves(tree: Mapping[str, Any], prefix=()):
@@ -36,11 +49,17 @@ def _leaves(tree: Mapping[str, Any], prefix=()):
       yield prefix + (key,), value
 
 
+def _as_f32_numpy(value: Any) -> np.ndarray:
+  if isinstance(value, torch.Tensor):  # bfloat16 leaves of a JAX bundle
+    return value.detach().float().cpu().numpy()
+  return np.asarray(value, dtype=np.float32)
+
+
 def from_flax_params(tree: Mapping[str, Any]) -> Dict[str, torch.Tensor]:
   """Flax tree -> the port's state_dict (HWIO kernels become OIHW)."""
   state = {}
   for path, value in _leaves(tree):
-    array = np.asarray(value, dtype=np.float32)
+    array = _as_f32_numpy(value)
     module = '.'.join(path[:-1])
     if path[-1] == 'kernel':
       state[f'{module}.weight'] = torch.from_numpy(
@@ -71,22 +90,70 @@ def to_flax_params(
   return tree
 
 
+def write_options(path: str, options: Options) -> None:
+  """Writes `options` as `<path>/options.json`."""
+  os.makedirs(path, exist_ok=True)
+  with open(os.path.join(path, OPTIONS_FILE), 'w') as f:
+    json.dump(dataclasses.asdict(options), f, indent=2)
+
+
+def read_options(path: str) -> Options:
+  """Options from a bundle's options.json; the JAX package's layout
+  fields are dropped, any other field the port does not know raises."""
+  with open(os.path.join(path, OPTIONS_FILE)) as f:
+    fields = json.load(f)
+  for key in _JAX_ONLY_FIELDS:
+    fields.pop(key, None)
+  known = {f.name for f in dataclasses.fields(Options)}
+  unknown = sorted(set(fields) - known)
+  if unknown:
+    raise ValueError(f'{path}/{OPTIONS_FILE}: unknown Options fields '
+                     f'{unknown}')
+  for key in ('flow_convs', 'flow_filters'):
+    if key in fields:
+      fields[key] = tuple(fields[key])
+  return Options(**fields)
+
+
 def save_state_bundle(path: str, state_dict: Mapping[str, torch.Tensor],
                       options: Options) -> None:
   """Writes `options.json` and `state_dict.pt` into the directory `path`."""
-  os.makedirs(path, exist_ok=True)
-  with open(os.path.join(path, _OPTIONS_FILE), 'w') as f:
-    json.dump(dataclasses.asdict(options), f, indent=2)
+  write_options(path, options)
   cpu_state = {k: v.detach().cpu() for k, v in state_dict.items()}
   torch.save(cpu_state, os.path.join(path, STATE_FILE))
 
 
 def load_state_bundle(path: str) -> Tuple[Dict[str, torch.Tensor], Options]:
   """Reads (state_dict, Options) from a directory `save_state_bundle` made."""
-  with open(os.path.join(path, _OPTIONS_FILE)) as f:
-    fields = json.load(f)
-  for key in ('flow_convs', 'flow_filters'):
-    fields[key] = tuple(fields[key])
+  options = read_options(path)
   state = torch.load(os.path.join(path, STATE_FILE), map_location='cpu',
                      weights_only=True)
-  return state, Options(**fields)
+  return state, options
+
+
+def is_jax_bundle(path: str) -> bool:
+  """Whether `path` holds the JAX package's bundle (options.json +
+  params.msgpack)."""
+  return (os.path.isfile(os.path.join(path, OPTIONS_FILE)) and
+          os.path.isfile(os.path.join(path, PARAMS_FILE)))
+
+
+def save_params(path: str, state_dict: Mapping[str, torch.Tensor],
+                options: Options) -> None:
+  """Writes the JAX package's bundle: `options.json` and the flax tree of
+  `state_dict` as `params.msgpack` (JAX io/params_io.save_params)."""
+  write_options(path, options)
+  payload = msgpack_lite.serialize(to_flax_params(state_dict))
+  with open(os.path.join(path, PARAMS_FILE), 'wb') as f:
+    f.write(payload)
+
+
+def load_params(path: str) -> Tuple[Dict[str, torch.Tensor], Options]:
+  """Reads (state_dict, Options) from the JAX package's bundle; the tree
+  is `variables['params']` of the JAX FilmNet, module -> kernel/bias."""
+  options = read_options(path)
+  with open(os.path.join(path, PARAMS_FILE), 'rb') as f:
+    tree = msgpack_lite.restore(f.read())
+  if not isinstance(tree, dict):
+    raise ValueError(f'{path}/{PARAMS_FILE}: not a parameter tree')
+  return from_flax_params(tree), options

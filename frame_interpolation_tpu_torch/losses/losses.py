@@ -6,19 +6,22 @@ losses/losses.py): every loss takes (example, prediction) dicts, where
 the model output, and returns a scalar tensor. Training combines several
 losses with weights that depend on the step.
 
-The perceptual losses ('vgg', 'style') need the MatConvNet VGG-19 weights
-(imagenet-vgg-verydeep-19.mat), which the repository does not hold; they
-wait for ROADMAP A8 and raise NotImplementedError here.
+The perceptual losses ('vgg', 'style', losses/vgg19.py) need the
+MatConvNet VGG-19 weights (imagenet-vgg-verydeep-19.mat): `get_loss` raises
+ValueError without `vgg_model_file`, as the JAX package's does, and
+FileNotFoundError when the file is missing.
 """
 from __future__ import annotations
 
 import dataclasses
+import os
 from typing import Any, Callable, Dict, List, Mapping, Optional, Sequence, Tuple
 
 import numpy as np
 import torch
 
 from ..ops import image_metrics
+from . import vgg19
 
 LossFn = Callable[[Mapping[str, Any], Mapping[str, Any]], torch.Tensor]
 WeightFn = Callable[[Any], float]
@@ -82,6 +85,22 @@ def psnr_loss(example, prediction) -> torch.Tensor:
                             max_val=1.0).mean()
 
 
+def make_vgg_loss(vgg_model_file: str,
+                  weights: Optional[Sequence[float]] = None) -> LossFn:
+  def fn(example, prediction):
+    return vgg19.vgg_loss(prediction['image'], example['y'], vgg_model_file,
+                          weights)
+  return fn
+
+
+def make_style_loss(vgg_model_file: str,
+                    weights: Optional[Sequence[float]] = None) -> LossFn:
+  def fn(example, prediction):
+    return vgg19.style_loss(prediction['image'], example['y'],
+                            vgg_model_file, weights)
+  return fn
+
+
 # ---- registry and factories -------------------------------------------------
 
 _SIMPLE: Dict[str, LossFn] = {
@@ -99,10 +118,14 @@ def get_loss(loss_name: str,
   if loss_name in _SIMPLE:
     return _SIMPLE[loss_name]
   if loss_name in ('vgg', 'style'):
-    raise NotImplementedError(
-        f"loss {loss_name!r} needs the VGG-19 network, which the PyTorch "
-        'port does not have yet (ROADMAP A8: vgg19 once the MatConvNet '
-        'imagenet-vgg-verydeep-19.mat weights are in the repository).')
+    if not vgg_model_file:
+      raise ValueError(f'loss {loss_name!r} needs vgg_model_file')
+    # Checked here, not at the first step that reads it.
+    if not os.path.isfile(vgg_model_file):
+      raise FileNotFoundError(f'loss {loss_name!r}: no VGG-19 weights at '
+                              f'{vgg_model_file}')
+    make = make_vgg_loss if loss_name == 'vgg' else make_style_loss
+    return make(vgg_model_file)
   raise ValueError(f'Invalid loss function {loss_name}')
 
 

@@ -7,9 +7,10 @@ and returns the t=0.5 mid-frame PNG (times_to_interpolate=1) or a 30-fps
 video of 2^T + 1 frames. Inputs of different sizes are cropped to their
 common top-left region, as the reference does.
 
-The model path is the port's own bundle (options.json + state_dict.pt);
-reading the JAX package's bundle or a TF release waits for ROADMAP A9. The
-device defaults to cuda and raises without a GPU.
+The model path is a bundle, the port's (options.json + state_dict.pt) or
+the JAX package's (options.json + params.msgpack); a TF release converts
+into the latter with the JAX package's cli/build_params. The device
+defaults to cuda and raises without a GPU.
 """
 from __future__ import annotations
 

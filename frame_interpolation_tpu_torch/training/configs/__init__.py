@@ -5,8 +5,9 @@ value. The reference configures experiments with gin
 (training/config/film_net-{L1,VGG,Style}.gin and eval/config/*.gin in
 google-research/frame-interpolation). Here the same content lives in
 dataclasses; every released hyperparameter is kept verbatim for checkpoint
-parity. The VGG and Style presets are kept; their losses wait for the
-port's VGG-19 (ROADMAP A8), so training them raises.
+parity. The VGG and Style presets need the MatConvNet VGG-19 weights
+(`vgg_model_file`, losses/vgg19.py). gin_compat reads the reference's gin
+files into these dataclasses.
 """
 from __future__ import annotations
 

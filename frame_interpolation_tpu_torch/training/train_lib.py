@@ -8,18 +8,23 @@ reference's training/train.py and train_lib.py):
   * a weighted multi-loss objective whose weights depend on the step
     (train_lib.py:46-60);
   * checkpoint save and restore-and-resume every `save_interval` steps,
-    keeping `max_to_keep` (train_lib.py:194-210, 243-244);
+    keeping `max_to_keep` (train_lib.py:194-210, 243-244), with the
+    model's options.json beside them, which cli/build_params reads;
   * TensorBoard scalars, images and histograms, and steps/sec
-    (train_lib.py:212-214, 254-269);
+    (train_lib.py:212-214, 254-269) from utils/profiling.StepTimer;
   * an export of the trained weights at the end (train_lib.py:276-280), as
     the port's state bundle (io/params_io.save_state_bundle);
   * an `eval_fn(state, step)` hook at each save interval, which the train
-    CLI fills with training/eval_lib.eval_loop (train_lib.py:313-314).
+    CLI fills with training/eval_lib.eval_loop (train_lib.py:313-314);
+  * a profiler trace of a window of steps when `profile_dir` is set: steps
+    [profile_start_step, profile_start_step + profile_num_steps), written
+    by utils/profiling as `<profile_dir>/steps_<first>_<end>.json`, closed
+    early when the run ends (or fails) inside the window.
 
 The model, the batch and the augmentations live on one device; on CUDA the
 warp and the extractor's conv stacks run the hand-written kernels forward
-and backward (ops/warp.py, ops/conv_stack.py). The multi-host path and the
-perceptual losses wait for later slices (ROADMAP A8, A10).
+and backward (ops/warp.py, ops/conv_stack.py). The multi-host path waits
+for a later slice (ROADMAP A10).
 """
 from __future__ import annotations
 
@@ -27,7 +32,6 @@ import dataclasses
 import math
 import os
 import re
-import time
 from typing import (Any, Callable, Dict, Iterator, Mapping, Optional,
                     Sequence, Tuple)
 
@@ -39,7 +43,7 @@ from ..data import augmentations as augmentations_lib
 from ..io import params_io
 from ..models.film_net import FilmNet, init_params
 from ..options import Options
-from ..utils import tensorboard
+from ..utils import profiling, tensorboard
 
 
 @dataclasses.dataclass(frozen=True)
@@ -239,12 +243,17 @@ def train_loop(
     seed: int = 0,
     log_fn: Callable[[str], None] = print,
     eval_fn: Optional[Callable[[TrainState, int], None]] = None,
+    profile_dir: Optional[str] = None,
+    profile_start_step: int = 10,
+    profile_num_steps: int = 5,
 ) -> TrainState:
   """Runs training to `opts.num_steps`, resuming from the run dir if set.
 
   Layout parity with the reference run dir (README.md:186-195):
   `<run_dir>/train` holds the summaries and the checkpoints. `eval_fn`, if
-  given, runs after each checkpoint with the state and its step.
+  given, runs after each checkpoint with the state and its step. With
+  `profile_dir`, the steps from `profile_start_step` (counted in updates
+  made, as state.step is) for `profile_num_steps` are traced there.
   """
   step_fn = make_train_step(losses, opts, augmentation_names,
                             with_summaries=False)
@@ -259,46 +268,58 @@ def train_loop(
   schedule = learning_rate_schedule(opts)
 
   writer = tensorboard.create_writer(os.path.join(run_dir, 'train'))
-  timing_start = time.monotonic()
-  timing_step = state.step
-  while state.step < opts.num_steps:
-    batch = batch_to_device(next(train_iterator), device)
-    next_step = state.step + 1
-    will_log = (next_step % opts.save_interval == 0 or
-                next_step == opts.num_steps)
-    metrics, summaries = (summary_step_fn if will_log else step_fn)(
-        state, batch, step_generator(seed, state.step))
+  timer = profiling.StepTimer(opts.timing_interval, start_step=state.step,
+                              device=device)
+  trace = None
+  try:
+    while state.step < opts.num_steps:
+      if profile_dir and state.step == profile_start_step:
+        trace = profiling.Trace(profile_dir)
+      batch = batch_to_device(next(train_iterator), device)
+      next_step = state.step + 1
+      will_log = (next_step % opts.save_interval == 0 or
+                  next_step == opts.num_steps)
+      metrics, summaries = (summary_step_fn if will_log else step_fn)(
+          state, batch, step_generator(seed, state.step))
+      if trace is not None and (
+          next_step >= profile_start_step + profile_num_steps):
+        _close_trace(trace, profile_start_step, next_step, log_fn)
+        trace = None
 
-    if next_step % opts.timing_interval == 0:
-      if device.type == 'cuda':
-        torch.cuda.synchronize(device)
-      now = time.monotonic()
-      steps_per_sec = (next_step - timing_step) / max(now - timing_start,
-                                                      1e-9)
-      writer.scalar('steps/sec', steps_per_sec, next_step)
-      timing_start, timing_step = now, next_step
+      steps_per_sec = timer.update(next_step)
+      if steps_per_sec is not None:
+        writer.scalar('steps/sec', steps_per_sec, next_step)
 
-    if will_log:
-      host_metrics = {k: float(v) for k, v in metrics.items()}
-      for name, value in host_metrics.items():
-        writer.scalar(f'losses/{name}', value, next_step)
-      writer.scalar('learning_rate', schedule(next_step), next_step)
-      # Clipped image + histogram of every image-shaped step output, the
-      # reference's _summary_writer behavior (train_lib.py:103-111).
-      for name, value in summaries.items():
-        images = value.float().cpu().numpy()
-        writer.image(f'training/{name}', np.clip(images[0], 0.0, 1.0),
-                     next_step)
-        writer.histogram(f'training/{name}_h', images, next_step)
-      ckpt.save(state)
-      log_fn(f'step {next_step}: ' + ', '.join(
-          f'{k}={v:.5f}' for k, v in host_metrics.items()))
-      if eval_fn is not None:
-        eval_fn(state, next_step)
-      writer.flush()
-
+      if will_log:
+        host_metrics = {k: float(v) for k, v in metrics.items()}
+        for name, value in host_metrics.items():
+          writer.scalar(f'losses/{name}', value, next_step)
+        writer.scalar('learning_rate', schedule(next_step), next_step)
+        # Clipped image + histogram of every image-shaped step output, the
+        # reference's _summary_writer behavior (train_lib.py:103-111).
+        for name, value in summaries.items():
+          images = value.float().cpu().numpy()
+          writer.image(f'training/{name}', np.clip(images[0], 0.0, 1.0),
+                       next_step)
+          writer.histogram(f'training/{name}_h', images, next_step)
+        ckpt.save(state)
+        log_fn(f'step {next_step}: ' + ', '.join(
+            f'{k}={v:.5f}' for k, v in host_metrics.items()))
+        if eval_fn is not None:
+          eval_fn(state, next_step)
+        writer.flush()
+  finally:
+    # A run that ends or fails inside the window closes it there.
+    if trace is not None:
+      _close_trace(trace, profile_start_step, state.step, log_fn)
   writer.close()
   return state
+
+
+def _close_trace(trace: profiling.Trace, first: int, end: int,
+                 log_fn: Callable[[str], None]) -> None:
+  path = trace.stop(f'steps_{first}_{end}')
+  log_fn(f'Wrote profiler trace for steps [{first}, {end}) to {path}')
 
 
 def train(model: FilmNet,
@@ -312,7 +333,10 @@ def train(model: FilmNet,
           augmentation_names: Sequence[str] = (),
           seed: int = 0,
           log_fn: Callable[[str], None] = print,
-          eval_fn: Optional[Callable[[TrainState, int], None]] = None
+          eval_fn: Optional[Callable[[TrainState, int], None]] = None,
+          profile_dir: Optional[str] = None,
+          profile_start_step: int = 10,
+          profile_num_steps: int = 5,
           ) -> TrainState:
   """End to end: init (or restore), run the loop, export the weights.
 
@@ -325,9 +349,14 @@ def train(model: FilmNet,
     init_generator = torch.Generator().manual_seed(0)
   model = init_params(model, init_generator).to(device)
   state = create_train_state(model, opts)
+  # The model's hyperparameters beside its checkpoints, so that a
+  # checkpoint converts into a bundle (cli/build_params) on its own.
+  params_io.write_options(os.path.join(run_dir, 'train'), model_options)
   state = train_loop(state, losses, train_iterator, opts, run_dir,
                      augmentation_names=augmentation_names, seed=seed,
-                     log_fn=log_fn, eval_fn=eval_fn)
+                     log_fn=log_fn, eval_fn=eval_fn, profile_dir=profile_dir,
+                     profile_start_step=profile_start_step,
+                     profile_num_steps=profile_num_steps)
   bundle_dir = os.path.join(run_dir, 'saved_model')
   params_io.save_state_bundle(bundle_dir, state.model.state_dict(),
                               model_options)

@@ -317,8 +317,20 @@ def test_train_cli_on_cpu_leaves_the_run_layout(tmp_path):
                                   '--vgg_model_file=vgg.mat',
                                   '--eval_files=a',
                                   '--experiment=film_net-VGG'])
-def test_train_cli_refuses_flags_of_later_slices(flag):
-  # --eval_files is ported; without as many --eval_names it is refused.
+def test_train_cli_refuses_flags_of_later_slices(flag, tmp_path,
+                                                 monkeypatch):
+  # Every flag is ported; each refuses what it cannot run with: a missing
+  # gin file, a missing .mat, --eval_files without as many --eval_names, a
+  # VGG experiment without --vgg_model_file.
   from frame_interpolation_tpu_torch.cli import train
-  with pytest.raises(SystemExit):
-    train.main(['--base_folder', 'runs', flag])
+  monkeypatch.chdir(tmp_path)  # a.gin and vgg.mat do not exist here
+  extra, error = {
+      '--gin_config=a.gin': ([], FileNotFoundError),
+      '--vgg_model_file=vgg.mat': (['--experiment=film_net-Style'],
+                                   FileNotFoundError),
+      '--eval_files=a': ([], SystemExit),
+      '--experiment=film_net-VGG': ([], ValueError),
+  }[flag]
+  with pytest.raises(error):
+    train.main(['--base_folder', str(tmp_path / 'runs'), '--device=cpu',
+                '--train_file=a.tfrecord', flag] + extra)

@@ -141,11 +141,20 @@ def test_load_interpolator_reads_the_port_bundle(bundle, tiny_state,
   assert interp.options == Options.tiny(dtype_policy='bfloat16')
   for name, value in interp.model.state_dict().items():
     np.testing.assert_array_equal(value.numpy(), tiny_state[name].numpy())
+  # The JAX package's bundle loads too, its own policy kept.
   jax_bundle = str(tmp_path / 'jax')
   jax_params_io.save_params(jax_bundle, params_io.to_flax_params(tiny_state),
-                            JaxOptions.tiny())
-  with pytest.raises(NotImplementedError, match='A9'):
-    load_interpolator(jax_bundle, device='cpu')
+                            JaxOptions.tiny(dtype_policy='bfloat16'))
+  interp = load_interpolator(jax_bundle, align=ALIGN, device='cpu')
+  assert interp.options == Options.tiny(dtype_policy='bfloat16')
+  for name, value in interp.model.state_dict().items():
+    np.testing.assert_array_equal(value.numpy(), tiny_state[name].numpy())
+  # A TF release needs TensorFlow: the message names the converter.
+  tf_dir = tmp_path / 'tf'
+  tf_dir.mkdir()
+  (tf_dir / 'saved_model.pb').write_bytes(b'')
+  with pytest.raises(NotImplementedError, match='build_params --tf_model'):
+    load_interpolator(str(tf_dir), device='cpu')
   with pytest.raises(FileNotFoundError):
     load_interpolator(str(tmp_path), device='cpu')
 

@@ -31,6 +31,7 @@ from frame_interpolation_tpu_torch import losses
 from frame_interpolation_tpu_torch.data import augmentations
 from frame_interpolation_tpu_torch.inference import Interpolator
 from frame_interpolation_tpu_torch.io import params_io
+from frame_interpolation_tpu_torch.losses import vgg19
 from frame_interpolation_tpu_torch.models import film_net
 from frame_interpolation_tpu_torch.ops import conv_stack, warp
 from frame_interpolation_tpu_torch.options import Options
@@ -38,6 +39,17 @@ from frame_interpolation_tpu_torch.training import configs, sources
 from frame_interpolation_tpu_torch.training import train_lib
 
 torch.set_num_threads(2)
+
+
+def _write_vgg_mat(path):
+  """A small-channel VGG-19 .mat of seeded weights, in MatConvNet's layout
+  (vgg19.save_vgg_weights)."""
+  pytest.importorskip('scipy.io')
+  rng = np.random.RandomState(0)
+  vgg19.save_vgg_weights(path, [
+      ((rng.randn(3, 3, cin, 8) * (9 * cin)**-0.5).astype(np.float32),
+       (rng.randn(8) * 0.1).astype(np.float32))
+      for cin in (3,) + (8,) * 13])
 
 H = W = 32
 
@@ -265,9 +277,23 @@ def test_weighted_losses_and_schedules_match_jax():
 
 
 @pytest.mark.parametrize('name', ['vgg', 'style'])
-def test_perceptual_losses_wait_for_vgg19(name):
-  with pytest.raises(NotImplementedError, match='ROADMAP A8'):
-    losses.get_loss(name, vgg_model_file='imagenet-vgg-verydeep-19.mat')
+def test_perceptual_losses_wait_for_vgg19(name, tmp_path):
+  # They need the weights file, as JAX's do, and compute with one.
+  with pytest.raises(ValueError, match='needs vgg_model_file'):
+    losses.get_loss(name)
+  missing = str(tmp_path / 'imagenet-vgg-verydeep-19.mat')
+  with pytest.raises(FileNotFoundError, match='no VGG-19 weights'):
+    losses.get_loss(name, vgg_model_file=missing)
+  path = str(tmp_path / 'vgg.mat')
+  _write_vgg_mat(path)
+  rng = np.random.RandomState(7)
+  example = {'y': rng.rand(1, 20, 24, 3).astype(np.float32)}
+  prediction = {'image': rng.rand(1, 20, 24, 3).astype(np.float32)}
+  want = float(jax.jit(jax_losses.get_loss(name, path))(example, prediction))
+  got = float(losses.get_loss(name, path)(
+      {'y': torch.from_numpy(example['y'])},
+      {'image': torch.from_numpy(prediction['image'])}))
+  assert want > 0 and abs(got - want) <= 1e-5 * want
 
 
 # ---- presets and sources ----------------------------------------------------

@@ -45,7 +45,7 @@ the port's two paths:
     splat kernels.
 
 Between serving and training it drives the video slice through the same
-kernels, and after training the eval loop:
+kernels, then the sharded serving paths, and after training the eval loop:
 
   * the exact uint8 rules on the card: u8 -> f32 of all 256 byte values
     bit for bit against numpy's v / 255, and the device quantization of a
@@ -59,9 +59,23 @@ kernels, and after training the eval loop:
     route;
   * the tiled tree of a 1080p pair (2x2 patches, T = 1) against the tiled
     pair forward;
+  * sharded serving on meshes that repeat the card (parallel/): the
+    row-sharded 1080p pair (SpatialShardedInterpolator on [cuda:0] * 4 and
+    * 2, and over every GPU where there are more) against the
+    single-device Interpolator, with the launch counts the split levels
+    predict; the 2x2 patches of a pair over 4 shards (ShardedInterpolator)
+    against the tiled pair; the 17-frame tree over 4 shards
+    (ShardedVideoInterpolator) against the chunked tree; ms and peak
+    memory of each;
   * the eval loop (released config, f32, two 256x448 triplets; metrics
     l1, l2, ssim, psnr and the L1 training loss), kernels against plain
     with TF32 and cuDNN off, and its ms per example.
+
+The warp's row mode (B1-rows: a slab of output rows against the whole
+frame or a halo of one slab each side, as the row-sharded forward runs
+it) is held bit for bit against the whole-frame warp's rows, and against
+its plain version, at 1088x1920x67 and x64 bf16 and 544x960x195 f32 over
+2 and 4 slabs, on both branches.
 
 Each phase prints its lines; the second-to-last line is the per-kernel JSON
 record and the last line is {"ok": true, "device": {...}}. Any failed check
@@ -95,6 +109,8 @@ from frame_interpolation_tpu_torch.losses import vgg19
 from frame_interpolation_tpu_torch.models import create_model, init_params
 from frame_interpolation_tpu_torch.ops import _kernels, conv_stack, warp
 from frame_interpolation_tpu_torch.options import Options
+from frame_interpolation_tpu_torch.parallel import inference as sharded
+from frame_interpolation_tpu_torch.parallel import mesh as parallel_mesh
 from frame_interpolation_tpu_torch.training import (configs, eval_lib,
                                                     metrics_lib, train_lib)
 from frame_interpolation_tpu_torch.training.configs import gin_compat
@@ -122,12 +138,12 @@ REQUESTS = 3
 # fusion warps; per frame 7 C=64 second convs and 15 wider second convs +
 # 9 rectangular first convs, and each frame is extracted separately.
 PAIR_LAUNCHES = {'warp': 22, 'warp_planes': 0, 'splat': 0,
-                 'conv3x3_c64': 14, 'conv3x3_wide': 48}
+                 'conv3x3_c64': 14, 'conv3x3_wide': 48, 'warp_rows': 0}
 # Launches per train step: the forward's, plus one planes and one splat
 # launch per warp in the backward (every warp's image and flow need a
 # gradient); the conv backward is plain PyTorch.
 STEP_LAUNCHES = {'warp': 22, 'warp_planes': 22, 'splat': 22,
-                 'conv3x3_c64': 14, 'conv3x3_wide': 48}
+                 'conv3x3_c64': 14, 'conv3x3_wide': 48, 'warp_rows': 0}
 TRAIN_BATCH, TRAIN_CROP = 8, 256
 TRAIN_STEPS, RESUME_STEPS, SAVE_INTERVAL = 20, 25, 10
 WARMUP_STEPS, TIMED_STEPS = 3, 10
@@ -179,7 +195,8 @@ VIDEO_OUTPUTS = (VIDEO_FRAMES - 1) * 2**VIDEO_TIMES + 1
 # The cached DFS: 22 warps a midpoint; 9 extractions (3 inputs + 6
 # midpoints that are not final-depth leaves) of 7 C=64 and 24 wide convs.
 CACHED_TREE_LAUNCHES = {'warp': 14 * 22, 'warp_planes': 0, 'splat': 0,
-                        'conv3x3_c64': 9 * 7, 'conv3x3_wide': 9 * 24}
+                        'conv3x3_c64': 9 * 7, 'conv3x3_wide': 9 * 24,
+                        'warp_rows': 0}
 # The chunked tree at max_batch 3: 6 forwards (a batch of 2 at depth 1,
 # 3+3 and 3+3+3 with filler pairs at depths 2 and 3); a launch covers the
 # whole batch, so each forward launches a pair's 22/14/48.
@@ -187,7 +204,31 @@ CHUNKED_TREE_LAUNCHES = {k: 6 * v for k, v in PAIR_LAUNCHES.items()}
 # The tiled tree of a pair at T = 1 in 2x2 patches: each patch's cached
 # tree extracts its 2 frames and makes one midpoint.
 TILED_TREE_LAUNCHES = {'warp': 4 * 22, 'warp_planes': 0, 'splat': 0,
-                       'conv3x3_c64': 4 * 2 * 7, 'conv3x3_wide': 4 * 2 * 24}
+                       'conv3x3_c64': 4 * 2 * 7, 'conv3x3_wide': 4 * 2 * 24,
+                       'warp_rows': 0}
+# Sharded serving on one card, the pair padded to 1088x1920. Every shard
+# runs every conv site (on its slab or the whole level), so 14n C=64 and
+# 48n wide launches. A level splits when its rows divide into even slabs:
+# over 4 shards the levels of 1088..136 rows (slabs 272..34), not 68 (17);
+# over 2 the levels of 1088..68 rows, not 34. A shard warps a split level
+# in row mode: the flow estimator warps levels 0-5 and the fusion levels
+# 0-4, each in two directions, so over 4 shards 8 + 8 row-mode and 4 + 2
+# whole warps a shard, over 2 shards 10 + 10 and 2 + 0.
+SPATIAL_LAUNCHES = {
+    4: {'warp': 4 * 6, 'warp_planes': 0, 'splat': 0, 'conv3x3_c64': 4 * 14,
+        'conv3x3_wide': 4 * 48, 'warp_rows': 4 * 16},
+    2: {'warp': 2 * 2, 'warp_planes': 0, 'splat': 0, 'conv3x3_c64': 2 * 14,
+        'conv3x3_wide': 2 * 48, 'warp_rows': 2 * 20},
+}
+SHARDS = 4
+# The 2x2 patches of a pair over 4 shards: each shard's one-patch forward
+# launches a pair's 22/14/48.
+SHARDED_PATCH_LAUNCHES = {k: SHARDS * v for k, v in PAIR_LAUNCHES.items()}
+# The 17-frame tree over 4 shards, one node a shard: chunks of 4 nodes,
+# 1 + 1 + 2 of them at depths 1-3 (2, 4 and 8 pairs), so 16 one-node
+# forwards.
+SHARDED_TREE_LAUNCHES = {k: 16 * v for k, v in PAIR_LAUNCHES.items()}
+SPATIAL_PSNR_DB = 50.0         # sharded vs single device, whole output
 TREE_PSNR_DB = 50.0            # per frame, the same model at other batches
 UINT8_LEVELS = 1               # device uint8 vs host quantization, levels
 # Eval means, kernels vs plain in exact f32 (TF32 and cuDNN off): the
@@ -207,6 +248,7 @@ REPLACES = {
     'splat': 'frame_interpolation_tpu/ops/warp_splat.py:67',
     'conv3x3_c64': 'frame_interpolation_tpu/ops/conv_stack.py:141',
     'conv3x3_wide': 'frame_interpolation_tpu/ops/conv_stack_wide.py:124',
+    'warp_rows': 'frame_interpolation_tpu/ops/warp_window.py:134',
 }
 SOURCES = {
     'warp': 'frame_interpolation_tpu_torch/csrc/warp.cu',
@@ -214,6 +256,7 @@ SOURCES = {
     'splat': 'frame_interpolation_tpu_torch/csrc/splat.cu',
     'conv3x3_c64': 'frame_interpolation_tpu_torch/csrc/conv3x3.cu',
     'conv3x3_wide': 'frame_interpolation_tpu_torch/csrc/conv3x3.cu',
+    'warp_rows': 'frame_interpolation_tpu_torch/csrc/warp.cu',
 }
 
 
@@ -287,6 +330,83 @@ def check_warp(rng, h, w, c, dtype, bound, batch=1, timed=True):
                # Three lerps a channel, 3 FLOPs each.
                9.0 * image.numel(), nbytes, measure.PEAK_FLOPS['float32'])
   return result
+
+
+def rows_extension(image, row0, slab, k):
+  """Global rows [row0 - k*slab, row0 + (k+1)*slab) of `image`, zeros
+  beyond the frame (the halo branch), or the whole frame for k = 0 (the
+  gather branch); and the extension's global first row."""
+  if k == 0:
+    return image, 0
+  lo = row0 - k * slab
+  ext = torch.zeros((image.shape[0], (2 * k + 1) * slab) + image.shape[2:],
+                    dtype=image.dtype, device=image.device)
+  a, b = max(lo, 0), min(row0 + (k + 1) * slab, image.shape[1])
+  ext[:, a - lo:b - lo] = image[:, a:b]
+  return ext, lo
+
+
+def check_warp_rows(rng, h, w, c, dtype, bound, timed_cases):
+  """B1-rows: each slab of n in {2, 4}, on the halo branch (one slab each
+  side) and the gather branch (the whole frame), bit for bit against the
+  whole-frame kernel's rows and within `bound` of the row-mode plain
+  version. Timed for (n, branch) in `timed_cases`: all n slabs' launches,
+  against one F.grid_sample a slab on its extension and the bound of the
+  bytes the slabs' taps reach (each slab's output and flow, and the source
+  rows between its lowest and highest tap)."""
+  image = torch.from_numpy(rng.rand(1, h, w, c).astype(np.float32)).to(
+      'cuda', dtype)
+  flow = smooth_seam_flow(h, w)
+  full = warp.backward_warp_kernel(image, flow)
+  results = []
+  for n in (2, 4):
+    slab = h // n
+    for branch, k in (('halo', 1), ('gather', 0)):
+      cases = []
+      for d in range(n):
+        row0 = d * slab
+        ext, src_row0 = rows_extension(image, row0, slab, k)
+        cases.append((ext, flow[:, row0:row0 + slab].contiguous(), row0,
+                      src_row0))
+
+      def kernel():
+        return [warp.backward_warp_rows_kernel(e, f, r, s0, h)
+                for e, f, r, s0 in cases]
+
+      def plain():
+        return [warp.backward_warp_rows_plain(e, f, r, s0, h)
+                for e, f, r, s0 in cases]
+
+      got, want = kernel(), plain()
+      torch.cuda.synchronize()
+      full_err = max((g.float() - full[:, r:r + slab].float()).abs().max(
+          ).item() for g, (_, _, r, _) in zip(got, cases))
+      err = max((g.float() - p.float()).abs().max().item()
+                for g, p in zip(got, want))
+      result = {'shape': f'{h}x{w}x{c} n={n} {branch}',
+                'dtype': str(dtype).split('.')[-1], 'max_abs_err': err,
+                'full_err': full_err, 'bound': bound,
+                'ok': full_err == 0 and err <= bound}
+      if (n, branch) in timed_cases:
+        grids = [measure.bilinear_grid(f, r - s0, e.shape[1]).to(dtype)
+                 for e, f, r, s0 in cases]
+
+        def library():
+          return [torch.nn.functional.grid_sample(
+              e.permute(0, 3, 1, 2), g, mode='bilinear',
+              padding_mode='border', align_corners=True)
+                  for (e, _, _, _), g in zip(cases, grids)]
+
+        nbytes = 0
+        for e, f, r, s0 in cases:
+          iy = warp.query_coords(e.shape[1], w, f, r, s0, h)[0]
+          reach = int(iy.max().item()) + 2 - int(iy.min().item())
+          nbytes += ((f.shape[1] + reach) * w * c * image.element_size() +
+                     f.numel() * 4)
+        add_timing(result, kernel, plain, library, 9.0 * image.numel(),
+                   nbytes, measure.PEAK_FLOPS['float32'])
+      results.append(result)
+  return results
 
 
 def check_conv(rng, h, w, cin, cout, pool, dtype, bound, batch=1,
@@ -1021,6 +1141,102 @@ def check_tiled_tree(model, options, card, failures):
   return {'psnr': psnr, 'launches': launches, 'ms': ms, 'peak_bytes': peak}
 
 
+def check_spatial(model, options, frames, dt, want, card, failures):
+  """The row-sharded 1080p pair on [cuda:0] * n, n = 4 and 2, and over
+  every GPU where there are more, against the single-device output."""
+  x0, x1 = (torch.from_numpy(f).cuda() for f in frames)
+  dtd = torch.from_numpy(dt).cuda()
+  meshes = [(n, parallel_mesh.Mesh(['cuda:0'] * n)) for n in (SHARDS, 2)]
+  if torch.cuda.device_count() > 1:
+    meshes.append((None, parallel_mesh.create_mesh()))
+  report = {}
+  for n, mesh in meshes:
+    interp = sharded.SpatialShardedInterpolator(model, options, mesh,
+                                                align=64)
+    out, launches, peak = run_counted(lambda: interp.call_device(x0, x1, dtd))
+    out = out.cpu().numpy()
+    ms = measure.time_ms(lambda: interp.call_device(x0, x1, dtd), iters=3,
+                         queued=False)
+    psnr = psnr_db(out, want)
+    name = repr(mesh)
+    if out.shape != want.shape or not np.isfinite(out).all() or not (
+        psnr >= SPATIAL_PSNR_DB):
+      failures.append(f'spatial {name}: {out.shape}, {psnr:.2f} dB')
+    if n is not None and launches != SPATIAL_LAUNCHES[n]:
+      failures.append(f'spatial {name} launches {launches} != '
+                      f'{SPATIAL_LAUNCHES[n]}')
+    print(f'spatial sharding {name} (1080p pair, released config, bf16 '
+          f'policy): {psnr:.2f} dB vs one device (bound {SPATIAL_PSNR_DB}); '
+          f'{ms:.3f} ms a pair on the device, peak memory '
+          f'{peak / 2**30:.2f} GiB; launches {launches}; on {card}')
+    report[name] = {'psnr': psnr, 'ms': ms, 'peak_bytes': peak,
+                    'launches': launches}
+    del interp
+  return report
+
+
+def check_sharded_patches_and_tree(model, options, interpolator, card,
+                                   failures):
+  """The 2x2 patches of a 1080p pair over 4 shards against the tiled pair,
+  and the 17-frame tree over 4 shards against the chunked tree."""
+  mesh = parallel_mesh.Mesh(['cuda:0'] * SHARDS)
+  frames = np.random.RandomState(1).rand(2, 1, VIDEO_H, VIDEO_W, 3).astype(
+      np.float32)
+  x0, x1 = (torch.from_numpy(f).cuda() for f in frames)
+  dtd = torch.full((1,), 0.5, device='cuda')
+  tiled = Interpolator(model, options, align=64, block_shape=(2, 2),
+                       device='cuda')
+  want = tiled.call_device(x0, x1, dtd).cpu().numpy()
+  patches = sharded.ShardedInterpolator(model, options, mesh, (2, 2),
+                                        align=64)
+  out, launches, peak = run_counted(lambda: patches.call_device(x0, x1, dtd))
+  patch_psnr = psnr_db(out.cpu().numpy(), want)
+  patch_ms = measure.time_ms(lambda: patches.call_device(x0, x1, dtd),
+                             iters=3, queued=False)
+  if not patch_psnr >= SPATIAL_PSNR_DB:
+    failures.append(f'sharded patches {patch_psnr:.2f} dB vs tiled')
+  if launches != SHARDED_PATCH_LAUNCHES:
+    failures.append(f'sharded patch launches {launches} != '
+                    f'{SHARDED_PATCH_LAUNCHES}')
+  report = {'patches': {'psnr': patch_psnr, 'ms': patch_ms,
+                        'peak_bytes': peak, 'launches': launches}}
+  print(f'sharded patches {mesh!r} (1080p pair, 2x2 patches): '
+        f'{patch_psnr:.2f} dB vs the tiled pair (bound {SPATIAL_PSNR_DB}); '
+        f'{patch_ms:.3f} ms a pair, peak memory {peak / 2**30:.2f} GiB; '
+        f'launches {launches}; on {card}')
+  del patches, tiled
+
+  video = torch.from_numpy(np.random.RandomState(0).randint(
+      0, 256, (VIDEO_FRAMES, VIDEO_H, VIDEO_W, 3)).astype(np.uint8)).cuda()
+  chunked = interpolator.expand_tree_device(
+      video, VIDEO_TIMES, cached=False, max_batch=VIDEO_MAX_BATCH)
+  chunked = chunked.cpu().numpy()
+  tree_interp = sharded.ShardedVideoInterpolator(model, options, mesh,
+                                                 align=64)
+  out, launches, peak = run_counted(
+      lambda: tree_interp.expand_tree_device(video, VIDEO_TIMES))
+  out = out.cpu().numpy()
+  tree_psnr = min_frame_psnr(out, chunked)
+  tree_ms = measure.time_ms(
+      lambda: tree_interp.expand_tree_device(video, VIDEO_TIMES), iters=2,
+      queued=False)
+  if out.shape != chunked.shape or not tree_psnr >= SPATIAL_PSNR_DB:
+    failures.append(f'sharded tree {out.shape}, {tree_psnr:.2f} dB vs the '
+                    f'chunked tree')
+  if launches != SHARDED_TREE_LAUNCHES:
+    failures.append(f'sharded tree launches {launches} != '
+                    f'{SHARDED_TREE_LAUNCHES}')
+  report['tree'] = {'psnr': tree_psnr, 'ms': tree_ms,
+                    'ms_per_frame': tree_ms / VIDEO_OUTPUTS,
+                    'peak_bytes': peak, 'launches': launches}
+  print(f'sharded tree {mesh!r} ({VIDEO_OUTPUTS} frames of 1080p, one node '
+        f'a shard): {tree_psnr:.2f} dB min frame vs the chunked tree (bound '
+        f'{SPATIAL_PSNR_DB}); {tree_ms / VIDEO_OUTPUTS:.3f} ms per output '
+        f'frame, peak memory {peak / 2**30:.2f} GiB; launches {launches}; '
+        f'on {card}')
+  return report
+
+
 def check_eval(card, failures):
   """eval_lib.eval_loop, kernels vs plain in exact f32."""
   config = configs.get_experiment('film_net-L1')
@@ -1183,6 +1399,18 @@ def main() -> int:
           rng, b, h, w, c, dtype,
           SPLAT_F32_BOUND if f32 else SPLAT_BF16_BOUND, flow_kind,
           timed or (flow_kind == 'oob' and (h, c) == (256, 67))))
+  # The warp's row mode (B1-rows) at the finest fusion and flow warps of
+  # the row-sharded 1080p pair and at an f32 fusion level, timed on the
+  # branch each mesh of the serving phase takes at the finest level.
+  checks['warp_rows'] = []
+  for h, w, c, dtype, bound in ((1088, 1920, 67, torch.bfloat16,
+                                 WARP_BF16_BOUND),
+                                (1088, 1920, 64, torch.bfloat16,
+                                 WARP_BF16_BOUND),
+                                (544, 960, 195, torch.float32,
+                                 WARP_F32_BOUND)):
+    checks['warp_rows'].extend(check_warp_rows(
+        rng, h, w, c, dtype, bound, ((4, 'halo'), (2, 'gather'))))
   for name, results in checks.items():
     for r in results:
       flow_kind = f' {r["flow"]} flow' if 'flow' in r else ''
@@ -1193,6 +1421,8 @@ def main() -> int:
             (f' rel_err {r["rel_err"]:.3e}' if 'rel_err' in r else '') +
             (f' (library rel_err {r["library_rel_err"]:.1e})'
              if 'library_rel_err' in r else '') +
+            (f' (whole-frame rows max-abs {r["full_err"]:.1e})'
+             if 'full_err' in r else '') +
             f' (bound {r["bound"]:.1e}) {"ok" if r["ok"] else "FAILED"}' +
             (f'; kernel {r["ms"]:.3f} ms, plain {r["plain_ms"]:.3f} ms, '
              f'library {library}, bound {r["bound_ms"]:.3f} ms '
@@ -1262,9 +1492,18 @@ def main() -> int:
   uint8_report = check_uint8_rules(failures)
   video_report = check_video(interpolator, card, failures)
   tiled_report = check_tiled_tree(model, options, card, failures)
+
+  # Phase 6: sharded serving on meshes of the card.
+  spatial_report = check_spatial(model, options, frames, dt, out, card,
+                                 failures)
+  sharded_report = check_sharded_patches_and_tree(model, options,
+                                                  interpolator, card,
+                                                  failures)
+  spatial_launches = spatial_report[
+      repr(parallel_mesh.Mesh(['cuda:0'] * SHARDS))]['launches']
   del interpolator, model
 
-  # Phase 6: the training path: film_net-L1, then film_net-Style with
+  # Phase 7: the training path: film_net-L1, then film_net-Style with
   # VGG-19 at its true widths, by the preset and by a gin file.
   train_report, train_launches = check_training(card, failures)
   with tempfile.TemporaryDirectory() as vgg_dir:
@@ -1273,16 +1512,19 @@ def main() -> int:
     style_report = check_style(mat_path, card, train_report, failures)
     gin_report = check_gin_loop(mat_path, card, failures)
 
-  # Phase 7: the eval loop.
+  # Phase 8: the eval loop.
   eval_report = check_eval(card, failures)
 
   # Launches: the serving run's for the forward kernels, the 20-step
-  # training run's for the backward ones. Times: the serving kernels' bf16
-  # shapes, the backward kernels' every timed shape.
+  # training run's for the backward ones, the row-sharded pair's over 4
+  # shards for the row mode. Times: the serving kernels' bf16 shapes, the
+  # backward kernels' every timed shape.
   record = {'kernels': []}
   for name in ('warp', 'warp_planes', 'splat', 'conv3x3_c64',
-               'conv3x3_wide'):
+               'conv3x3_wide', 'warp_rows'):
     backward = name in ('warp_planes', 'splat')
+    main_launches = (train_launches if backward else spatial_launches
+                     if name == 'warp_rows' else launches)
     timed = [r for r in checks[name]
              if 'ms' in r and (backward or r['dtype'] == 'bfloat16')]
     libraries = [r['library_ms'] for r in timed]
@@ -1291,7 +1533,7 @@ def main() -> int:
     record['kernels'].append({
         'name': name, 'route': 'cuda', 'source': SOURCES[name],
         'replaces': REPLACES[name],
-        'launches': (train_launches if backward else launches)[name],
+        'launches': main_launches[name],
         'max_abs_err': max(r['max_abs_err'] for r in timed),
         'ms': sum(r['ms'] for r in timed),
         'plain_ms': sum(r['plain_ms'] for r in timed),
@@ -1310,7 +1552,8 @@ def main() -> int:
                  'launches': launches, 'psnr_db': psnr,
                  'repeat_err': repeat_err, 'uint8': uint8_report,
                  'jax_bundle': bundle_report, 'video': video_report,
-                 'tiled_tree': tiled_report, 'training': train_report,
+                 'tiled_tree': tiled_report, 'spatial': spatial_report,
+                 'sharded': sharded_report, 'training': train_report,
                  'style': style_report, 'gin_loop': gin_report,
                  'eval': eval_report, 'failures': failures}, f, indent=1)
 

@@ -2,6 +2,7 @@
 from __future__ import annotations
 
 import dataclasses
+import logging
 from typing import Optional, Sequence
 
 import torch
@@ -36,3 +37,48 @@ def load_interpolator_from_flag(params: str, align: Optional[int],
   model = init_params(create_model(options), torch.Generator().manual_seed(0))
   return Interpolator(model, options, align=align, block_shape=block_shape,
                       device=device)
+
+
+def to_mesh_interpolator(interpolator, mode: Optional[str],
+                         align: Optional[int],
+                         block_shape: Optional[Sequence[int]] = None,
+                         kind: str = 'pair'):
+  """`--mesh`: wraps a loaded Interpolator in a sharded class (parallel/)
+  over every visible device of its type.
+
+  mode: 'none' or None (the interpolator as it is), 'data' (a pair's
+  patches, kind='pair', or the frame tree's nodes, kind='video', split over
+  the mesh) or 'spatial' (the rows of one full-frame forward, kind='pair'
+  only). With one visible device it logs so and serves unsharded, as the
+  JAX package's CLIs do.
+  """
+  if not mode or mode == 'none':
+    return interpolator
+  from ..parallel import inference as sharded
+  from ..parallel import mesh as mesh_lib
+  if kind == 'video' and mode != 'data':
+    raise ValueError('directory interpolation shards the frame tree; only '
+                     f'--mesh data applies (got {mode!r})')
+  if mode not in ('data', 'spatial'):
+    raise ValueError(f'unknown --mesh mode: {mode!r}')
+  devices = mesh_lib.visible_devices(interpolator.device)
+  if len(devices) == 1:
+    logging.info('--mesh %s requested but only one device is visible; '
+                 'running single-device.', mode)
+    return interpolator
+  mesh = mesh_lib.create_mesh(devices)
+  logging.info('--mesh %s over %s', mode, mesh)
+  model, options = interpolator.model, interpolator.options
+  if kind == 'video':
+    return sharded.ShardedVideoInterpolator(model, options, mesh, align=align)
+  if mode == 'spatial':
+    return sharded.SpatialShardedInterpolator(model, options, mesh,
+                                              align=align)
+  block_shape = tuple(block_shape or (1, 1))
+  if block_shape[0] * block_shape[1] < mesh.size:
+    logging.warning('--mesh data splits the %s patch grid over %d devices; '
+                    'pass --block_height/--block_width so that the patches '
+                    'cover the mesh (the others run copies).', block_shape,
+                    mesh.size)
+  return sharded.ShardedInterpolator(model, options, mesh, block_shape,
+                                     align=align)

@@ -19,9 +19,13 @@ generator instead. Both write the same frames.
 a bundle: the port's (options.json + state_dict.pt, what the trainer
 exports) or the JAX package's (options.json + params.msgpack). `--device`
 defaults to cuda and raises when no GPU is visible.
+`--mesh data` splits each chunk of the frame tree's nodes over every
+visible GPU (parallel.ShardedVideoInterpolator: the chunked tree); it
+takes the device frame tree alone, without --streaming or patches. With
+one visible GPU it logs so and runs on it alone.
 Not carried over from the JAX CLI: --warp_impl, --fold_convs and
 --conv_stack choose between TPU execution layouts, which the port does not
-have; --mesh waits for the parallel slice (ROADMAP A10).
+have.
 """
 from __future__ import annotations
 
@@ -31,7 +35,8 @@ import logging
 import os
 from typing import List, Optional, Sequence
 
-from ._common import device_from_flag, load_interpolator_from_flag
+from ._common import (device_from_flag, load_interpolator_from_flag,
+                      to_mesh_interpolator)
 
 _INPUT_EXT = ('png', 'jpg', 'jpeg')
 
@@ -80,6 +85,9 @@ def _parser() -> argparse.ArgumentParser:
                       help='This host\'s shard in [0, num_shards).')
   parser.add_argument('--device', default='cuda',
                       help="Torch device: 'cuda' (default) or 'cpu'.")
+  parser.add_argument('--mesh', default='none', choices=['none', 'data'],
+                      help="'data' splits each frame-tree chunk over every "
+                      'visible GPU; outputs match one device.')
   return parser
 
 
@@ -134,7 +142,15 @@ def process_directory(directory: str, interpolator,
 
 
 def main(argv: Optional[Sequence[str]] = None) -> None:
-  args = _parser().parse_args(argv)
+  parser = _parser()
+  args = parser.parse_args(argv)
+  if args.mesh != 'none':
+    if args.streaming:
+      parser.error('--mesh data shards the device frame tree; it does not '
+                   'apply to the in-order --streaming generator.')
+    if args.block_height * args.block_width > 1:
+      parser.error('--mesh data shards whole frame-tree nodes; for patches '
+                   'use interpolate_pair --mesh data.')
   device = device_from_flag(args.device)
   directories = sorted(d for d in glob.glob(args.pattern)
                        if os.path.isdir(d))
@@ -148,6 +164,8 @@ def main(argv: Optional[Sequence[str]] = None) -> None:
                  args.num_shards, len(directories))
   interpolator = load_interpolator_from_flag(
       args.params, args.align, (args.block_height, args.block_width), device)
+  interpolator = to_mesh_interpolator(interpolator, args.mesh, args.align,
+                                      kind='video')
   for directory in directories:
     process_directory(directory, interpolator, args)
 

@@ -12,6 +12,12 @@ policy unless `--dtype_policy` is given. `--time` is the JAX CLI's flag;
 film_net predicts the midpoint only, so it takes 0.5 alone. A TF release
 converts into a JAX bundle with the JAX package's cli/build_params first.
 `--device` defaults to cuda and raises when no GPU is visible.
+
+`--mesh data` splits the --block_height x --block_width patches over every
+visible GPU (parallel.ShardedInterpolator); `--mesh spatial` splits the
+rows of one full-frame forward over them (parallel.
+SpatialShardedInterpolator), with the full-frame forward's output. With
+one visible GPU both log so and run on it alone.
 """
 from __future__ import annotations
 
@@ -20,7 +26,8 @@ from typing import Optional, Sequence
 
 import numpy as np
 
-from ._common import device_from_flag, load_interpolator_from_flag
+from ._common import (device_from_flag, load_interpolator_from_flag,
+                      to_mesh_interpolator)
 
 
 def _parser() -> argparse.ArgumentParser:
@@ -49,6 +56,11 @@ def _parser() -> argparse.ArgumentParser:
                       help="Override the bundle's compute dtype policy.")
   parser.add_argument('--device', default='cuda',
                       help="Torch device: 'cuda' (default) or 'cpu'.")
+  parser.add_argument('--mesh', default='none',
+                      choices=['none', 'data', 'spatial'],
+                      help="Over every visible GPU: 'data' splits the "
+                      "patches, 'spatial' the rows of one full-frame "
+                      'forward. Outputs match one device.')
   return parser
 
 
@@ -64,6 +76,9 @@ def main(argv: Optional[Sequence[str]] = None) -> None:
   interpolator = load_interpolator_from_flag(
       args.params, args.align, (args.block_height, args.block_width),
       device_from_flag(args.device), dtype_policy=args.dtype_policy)
+  interpolator = to_mesh_interpolator(
+      interpolator, args.mesh, args.align,
+      block_shape=(args.block_height, args.block_width), kind='pair')
   image_1 = images.read_image(args.frame1)
   image_2 = images.read_image(args.frame2)
   if image_1.shape != image_2.shape:

@@ -474,17 +474,22 @@ typedef CUresult (*EncodeTiled)(CUtensorMap*, CUtensorMapDataType, cuuint32_t,
                                 CUtensorMapL2promotion,
                                 CUtensorMapFloatOOBfill);
 
-EncodeTiled encode_tiled() {
-  static EncodeTiled fn = nullptr;
-  if (fn == nullptr) {
-    void* p = nullptr;
-    cudaDriverEntryPointQueryResult found;
-    if (cudaGetDriverEntryPoint("cuTensorMapEncodeTiled", &p,
-                                cudaEnableDefault, &found) == cudaSuccess &&
-        found == cudaDriverEntryPointSuccess) {
-      fn = reinterpret_cast<EncodeTiled>(p);
-    }
+EncodeTiled find_encode_tiled() {
+  void* p = nullptr;
+  cudaDriverEntryPointQueryResult found;
+  if (cudaGetDriverEntryPoint("cuTensorMapEncodeTiled", &p, cudaEnableDefault,
+                              &found) == cudaSuccess &&
+      found == cudaDriverEntryPointSuccess) {
+    return reinterpret_cast<EncodeTiled>(p);
   }
+  return nullptr;
+}
+
+// Looked up once, by whichever host thread launches first: C++11 runs a
+// function-local static's initializer exactly once, the other threads
+// waiting for it (the sharded paths launch from several threads).
+EncodeTiled encode_tiled() {
+  static const EncodeTiled fn = find_encode_tiled();
   return fn;
 }
 
@@ -541,6 +546,8 @@ int launch_wgmma(const void* x, const void* w, const void* bias, void* out,
   }
   auto kernel = conv3x3_wgmma_kernel<T, BN>;
   // Raised once per device for this instance (each holds its own flags).
+  // Two threads that launch at once may both raise it: the same value,
+  // set twice, and the flag is atomic.
   static std::atomic<bool> smem_raised[kMaxDevices];
   const bool kept = device >= 0 && device < kMaxDevices;
   if (!kept || !smem_raised[device].load(std::memory_order_relaxed)) {

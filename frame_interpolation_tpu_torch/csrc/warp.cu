@@ -5,7 +5,9 @@
 // frame_interpolation_tpu/ops/warp_window.py, in both of its modes. The
 // primal mode (emit_planes off, reached through _forward /
 // backward_warp_window) is fi_warp_*; the planes mode (emit_planes on,
-// reached through the window VJP's _bwd) is fi_warp_planes_*.
+// reached through the window VJP's _bwd) is fi_warp_planes_*; the primal
+// on a slab of output rows (_forward with row_offset, src_row0 and
+// clamp_h, reached through backward_warp_window_rows) is fi_warp_rows_*.
 //
 //   out[b, y, x, c] = bilerp(image[b], y + flow[b,y,x,1], x + flow[b,y,x,0])
 //
@@ -43,6 +45,19 @@
 //    load instructions for the same bytes, and that, not the bytes, is
 //    what it runs into first.
 //
+// Row mode: the row-sharded forward (ops/warp.py backward_warp_rows) warps
+// each shard's slab of H_out output rows, whose first row is global row
+// row_offset, against an image of H_src rows whose first row is global row
+// src_row0: the whole frame (src_row0 = 0) or an extension of the slab by
+// whole slabs on each side. Queries are computed and clamped in global
+// coordinates, against the frame's clamp_h rows, so they are the
+// whole-frame warp's bit for bit; only the clamped integer row corner
+// shifts by src_row0. The caller guarantees that every corner it can reach
+// lies inside the image it passes (the halo predicate of
+// backward_warp_rows); the kernel does not clamp again. The same routes and
+// the same bytes per output pixel as the whole-frame warp, which is this
+// mode with H_src = H_out = clamp_h = H and both offsets 0.
+//
 // Planes mode: the flow-derivative planes of the warp, for the training
 // backward (ops/warp.py flow_cotangent_from_planes reduces them against
 // the cotangent):
@@ -74,6 +89,34 @@ constexpr int kRunThreads = 128;
 constexpr int kMaxRun = 32;
 constexpr int kRunElements = 4096;
 constexpr int kUnroll = 2;
+
+// The rows of a launch (see Row mode above).
+struct Rows {
+  int h_src;       // rows of the image
+  int h_out;       // rows of the flow and the output
+  int row_offset;  // global row of the output's first row
+  int src_row0;    // global row of the image's first row
+  int clamp_h;     // global rows the taps clamp to
+};
+
+// Output pixel p of the flat (B * h_out * W) range: the query at its
+// global row, and the offset in the image of its top-left tap.
+struct Pixel {
+  Query q;
+  int64_t tap;
+};
+
+__device__ __forceinline__ Pixel locate(int64_t p, const float2* flow,
+                                        const Rows& r, int W, int C) {
+  const int x = (int)(p % W);
+  const int64_t by = p / W;
+  const int y = (int)(by % r.h_out);
+  const int64_t b = by / r.h_out;
+  Pixel px;
+  px.q = query(y + r.row_offset, x, flow[p], r.clamp_h, W);
+  px.tap = ((b * r.h_src + (px.q.iy - r.src_row0)) * W + px.q.ix) * C;
+  return px;
+}
 
 // One element as f32, through the read-only path.
 __device__ __forceinline__ float load1(const float* p) { return __ldg(p); }
@@ -119,24 +162,20 @@ template <typename T, bool kPlanes>
 __global__ void __launch_bounds__(kVectorThreads)
     warp_vector_kernel(const T* __restrict__ image,
                        const float2* __restrict__ flow, T* __restrict__ out,
-                       T* __restrict__ dv_out, int H, int W, int C,
+                       T* __restrict__ dv_out, Rows rows, int W, int C,
                        int pieces, int64_t total) {
   constexpr int kVec = 16 / sizeof(T);
   const int64_t idx = (int64_t)blockIdx.x * blockDim.x + threadIdx.x;
   if (idx >= total) return;
   const int piece = (int)(idx % pieces);
-  const int64_t p = idx / pieces;  // output pixel: (b * H + y) * W + x
-  const int x = (int)(p % W);
-  const int64_t by = p / W;
-  const int y = (int)(by % H);
-  const int64_t b = by / H;
-
-  const Query q = query(y, x, flow[p], H, W);
+  const int64_t p = idx / pieces;  // output pixel: (b * h_out + y) * W + x
+  const Pixel px = locate(p, flow, rows, W, C);
+  const Query& q = px.q;
   const float cgx = kPlanes ? clip_grad(q.tx) : 0.f;
   const float cgy = kPlanes ? clip_grad(q.ty) : 0.f;
 
   const int c0 = piece * kVec;
-  const T* t00 = image + ((b * H + q.iy) * W + q.ix) * C + c0;
+  const T* t00 = image + px.tap + c0;
   const uint4 v00 = *reinterpret_cast<const uint4*>(t00);
   const uint4 v01 = *reinterpret_cast<const uint4*>(t00 + C);
   const uint4 v10 = *reinterpret_cast<const uint4*>(t00 + (int64_t)W * C);
@@ -179,7 +218,7 @@ template <typename T, bool kPlanes>
 __global__ void __launch_bounds__(kRunThreads)
     warp_run_kernel(const T* __restrict__ image,
                     const float2* __restrict__ flow, T* __restrict__ out,
-                    T* __restrict__ dv_out, int H, int W, int C,
+                    T* __restrict__ dv_out, Rows rows, int W, int C,
                     int64_t pixels, int run) {
   __shared__ RunPixel s_px[kMaxRun];
   __shared__ float2 s_cg[kPlanes ? kMaxRun : 1];  // clip gradients (x, y)
@@ -187,14 +226,11 @@ __global__ void __launch_bounds__(kRunThreads)
   const int64_t p0 = (int64_t)blockIdx.x * run;
   const int n = (int)(pixels - p0 < run ? pixels - p0 : run);
   if (tid < n) {
-    const int64_t p = p0 + tid;
-    const int x = (int)(p % W);
-    const int64_t by = p / W;
-    const int y = (int)(by % H);
-    const int64_t b = by / H;
-    const Query q = query(y, x, flow[p], H, W);
-    s_px[tid] = RunPixel{((b * H + q.iy) * W + q.ix) * C, q.ax, q.ay};
-    if (kPlanes) s_cg[tid] = make_float2(clip_grad(q.tx), clip_grad(q.ty));
+    const Pixel px = locate(p0 + tid, flow, rows, W, C);
+    s_px[tid] = RunPixel{px.tap, px.q.ax, px.q.ay};
+    if (kPlanes) {
+      s_cg[tid] = make_float2(clip_grad(px.q.tx), clip_grad(px.q.ty));
+    }
   }
   __syncthreads();
 
@@ -258,15 +294,19 @@ __global__ void __launch_bounds__(kRunThreads)
 // `out` takes du).
 template <typename T, bool kPlanes>
 int launch_warp(const void* image, const void* flow, void* out, void* dv_out,
-                int B, int H, int W, int C, void* stream) {
-  if (H < 2 || W < 2 || C < 1 || B < 1) return (int)cudaErrorInvalidValue;
+                int B, Rows rows, int W, int C, void* stream) {
+  if (rows.clamp_h < 2 || W < 2 || C < 1 || B < 1 || rows.h_src < 1 ||
+      rows.h_out < 1 || rows.row_offset < 0 ||
+      rows.row_offset + rows.h_out > rows.clamp_h) {
+    return (int)cudaErrorInvalidValue;
+  }
   constexpr int kVec = 16 / sizeof(T);
   const T* in = static_cast<const T*>(image);
   const float2* fl = static_cast<const float2*>(flow);
   T* o = static_cast<T*>(out);
   T* v = static_cast<T*>(dv_out);
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  const int64_t pixels = (int64_t)B * H * W;
+  const int64_t pixels = (int64_t)B * rows.h_out * W;
   const bool vector = C % kVec == 0 &&
                       reinterpret_cast<uintptr_t>(image) % 16 == 0 &&
                       reinterpret_cast<uintptr_t>(out) % 16 == 0 &&
@@ -277,7 +317,7 @@ int launch_warp(const void* image, const void* flow, void* out, void* dv_out,
     const int64_t blocks = (total + kVectorThreads - 1) / kVectorThreads;
     if (blocks > 0x7fffffffLL) return (int)cudaErrorInvalidConfiguration;
     warp_vector_kernel<T, kPlanes><<<(unsigned)blocks, kVectorThreads, 0, s>>>(
-        in, fl, o, v, H, W, C, pieces, total);
+        in, fl, o, v, rows, W, C, pieces, total);
   } else {
     // The run route stores aligned pairs: p0 * C is even and so must be
     // the outputs' addresses in elements (the wrapper's fresh tensors are).
@@ -290,38 +330,60 @@ int launch_warp(const void* image, const void* flow, void* out, void* dv_out,
     const int64_t blocks = (pixels + run - 1) / run;
     if (blocks > 0x7fffffffLL) return (int)cudaErrorInvalidConfiguration;
     warp_run_kernel<T, kPlanes><<<(unsigned)blocks, kRunThreads, 0, s>>>(
-        in, fl, o, v, H, W, C, pixels, run);
+        in, fl, o, v, rows, W, C, pixels, run);
   }
   return (int)cudaGetLastError();
 }
+
+// A whole frame: the image's rows are the output's and the clamp's.
+Rows frame_rows(int H) { return Rows{H, H, 0, 0, H}; }
 
 }  // namespace
 
 extern "C" int fi_warp_bf16(const void* image, const void* flow, void* out,
                             int B, int H, int W, int C, void* stream) {
-  return launch_warp<__nv_bfloat16, false>(image, flow, out, nullptr, B, H,
-                                           W, C, stream);
+  return launch_warp<__nv_bfloat16, false>(image, flow, out, nullptr, B,
+                                           frame_rows(H), W, C, stream);
 }
 
 extern "C" int fi_warp_f32(const void* image, const void* flow, void* out,
                            int B, int H, int W, int C, void* stream) {
-  return launch_warp<float, false>(image, flow, out, nullptr, B, H, W, C,
-                                   stream);
+  return launch_warp<float, false>(image, flow, out, nullptr, B,
+                                   frame_rows(H), W, C, stream);
+}
+
+extern "C" int fi_warp_rows_bf16(const void* image, const void* flow,
+                                 void* out, int B, int H_src, int H_out,
+                                 int W, int C, int row_offset, int src_row0,
+                                 int clamp_h, void* stream) {
+  return launch_warp<__nv_bfloat16, false>(
+      image, flow, out, nullptr, B,
+      Rows{H_src, H_out, row_offset, src_row0, clamp_h}, W, C, stream);
+}
+
+extern "C" int fi_warp_rows_f32(const void* image, const void* flow,
+                                void* out, int B, int H_src, int H_out,
+                                int W, int C, int row_offset, int src_row0,
+                                int clamp_h, void* stream) {
+  return launch_warp<float, false>(
+      image, flow, out, nullptr, B,
+      Rows{H_src, H_out, row_offset, src_row0, clamp_h}, W, C, stream);
 }
 
 extern "C" int fi_warp_planes_bf16(const void* image, const void* flow,
                                    void* du, void* dv, int B, int H, int W,
                                    int C, void* stream) {
   if (dv == nullptr) return (int)cudaErrorInvalidValue;
-  return launch_warp<__nv_bfloat16, true>(image, flow, du, dv, B, H, W, C,
-                                          stream);
+  return launch_warp<__nv_bfloat16, true>(image, flow, du, dv, B,
+                                          frame_rows(H), W, C, stream);
 }
 
 extern "C" int fi_warp_planes_f32(const void* image, const void* flow,
                                   void* du, void* dv, int B, int H, int W,
                                   int C, void* stream) {
   if (dv == nullptr) return (int)cudaErrorInvalidValue;
-  return launch_warp<float, true>(image, flow, du, dv, B, H, W, C, stream);
+  return launch_warp<float, true>(image, flow, du, dv, B, frame_rows(H), W,
+                                  C, stream);
 }
 
 extern "C" const char* fi_error_string(int code) {

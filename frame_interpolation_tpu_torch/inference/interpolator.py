@@ -52,7 +52,7 @@ def u8_to_unit_f32(frames: torch.Tensor) -> torch.Tensor:
   return table[frames.long()]
 
 
-def _as_model(params_or_model: Any, options: Options) -> FilmNet:
+def as_model(params_or_model: Any, options: Options) -> FilmNet:
   if isinstance(params_or_model, nn.Module):
     return params_or_model
   if not isinstance(params_or_model, Mapping):
@@ -90,7 +90,7 @@ class Interpolator:
     self._options = options
     self._align = align or None
     self._block_shape = tuple(block_shape) if block_shape else None
-    self._model = _as_model(params_or_model, options).to(self._device).eval()
+    self._model = as_model(params_or_model, options).to(self._device).eval()
 
   @property
   def options(self) -> Options:
@@ -244,36 +244,45 @@ class Interpolator:
       if cached:
         return cached_tree.expand_tree_cached(self, frames,
                                               times_to_interpolate, as_uint8)
-      return self._expand_tree_chunked(frames, times_to_interpolate,
-                                       max_batch, as_uint8)
+      return expand_tree_chunked(frames, times_to_interpolate, max_batch,
+                                 as_uint8, self.interpolate_device)
 
-  def _expand_tree_chunked(self, frames: torch.Tensor, times: int,
-                           max_batch: int, as_uint8: bool) -> torch.Tensor:
-    """The uncached tree: each depth's pairs as whole forwards in chunks of
-    min(max_batch, pairs), the ragged last chunk filled with copies of the
-    first frame, then the midpoints interleaved in time order."""
-    seq = frames
-    n_frames = seq.shape[0]
-    for _ in range(times if n_frames >= 2 else 0):
-      n = seq.shape[0] - 1
-      chunk = min(max_batch, n)
-      n_chunks = -(-n // chunk)
-      pad = n_chunks * chunk - n
-      x0, x1 = seq[:-1], seq[1:]
-      if pad:
-        filler = seq[:1].expand((pad,) + tuple(seq.shape[1:]))
-        x0 = torch.cat([x0, filler])
-        x1 = torch.cat([x1, filler])
-      dt = torch.full((chunk,), 0.5, dtype=torch.float32, device=seq.device)
-      mids = torch.cat([
-          self.interpolate_device(x0[c * chunk:(c + 1) * chunk].contiguous(),
-                                  x1[c * chunk:(c + 1) * chunk].contiguous(),
-                                  dt)
-          for c in range(n_chunks)])[:n]
-      merged = torch.stack([seq[:-1], mids], dim=1)
-      merged = merged.reshape((2 * n,) + tuple(seq.shape[1:]))
-      seq = torch.cat([merged, seq[-1:]])
-    return cached_tree.quantize_u8(seq) if as_uint8 else seq.contiguous()
+
+def expand_tree_chunked(frames: torch.Tensor, times: int, max_batch: int,
+                        as_uint8: bool, forward,
+                        batch_quantum: int = 1) -> torch.Tensor:
+  """The uncached tree: each depth's pairs as whole forwards in chunks of
+  min(max_batch, pairs), the ragged last chunk filled with copies of the
+  first frame, then the midpoints interleaved in time order.
+
+  `forward(x0, x1, dt)` runs one chunk (Interpolator.interpolate_device).
+  Chunks are rounded up to a multiple of `batch_quantum`, so that a
+  forward sharded over a mesh of that many devices splits every chunk
+  evenly (parallel/inference.ShardedVideoInterpolator): the hooks of
+  expand_tree_program in the JAX package.
+  """
+  q = batch_quantum
+  seq = frames
+  n_frames = seq.shape[0]
+  for _ in range(times if n_frames >= 2 else 0):
+    n = seq.shape[0] - 1
+    chunk = min(max(max_batch, q), -(-n // q) * q)
+    n_chunks = -(-n // chunk)
+    pad = n_chunks * chunk - n
+    x0, x1 = seq[:-1], seq[1:]
+    if pad:
+      filler = seq[:1].expand((pad,) + tuple(seq.shape[1:]))
+      x0 = torch.cat([x0, filler])
+      x1 = torch.cat([x1, filler])
+    dt = torch.full((chunk,), 0.5, dtype=torch.float32, device=seq.device)
+    mids = torch.cat([
+        forward(x0[c * chunk:(c + 1) * chunk].contiguous(),
+                x1[c * chunk:(c + 1) * chunk].contiguous(), dt)
+        for c in range(n_chunks)])[:n]
+    merged = torch.stack([seq[:-1], mids], dim=1)
+    merged = merged.reshape((2 * n,) + tuple(seq.shape[1:]))
+    seq = torch.cat([merged, seq[-1:]])
+  return cached_tree.quantize_u8(seq) if as_uint8 else seq.contiguous()
 
 
 _TF_RELEASE_FILES = ('saved_model.pb', 'saved_model.pbtxt', 'checkpoint')

@@ -16,6 +16,10 @@ cfeat_conv_0 (3->64) and cfeat_conv_2 (64->128) stay plain convs, as they
 stay XLA convs in the JAX package. On CUDA the kernel takes channel counts
 that are multiples of 64 and raises for any other, so a CUDA model needs
 `filters` to be a multiple of 64; on the CPU any count runs.
+
+Inside a shard of a row-sharded forward (ops/rows.py), a sub-level on a
+slab runs its two convs by conv_stack.stack_rows (one 2-row halo for
+both), and a pooled slab whose level does not split is gathered whole.
 """
 from __future__ import annotations
 
@@ -24,7 +28,7 @@ from typing import List
 import torch
 from torch import nn
 
-from ..ops import conv_stack
+from ..ops import conv_stack, rows
 from ..options import Options
 from .layers import Conv, leaky_relu
 
@@ -46,16 +50,25 @@ class SubTreeExtractor(nn.Module):
     """Extracts `n` pyramid levels of features from `image` (finest first)."""
     head = image
     pyramid = []
+    shard = rows.current()
     for i in range(n):
       first = getattr(self, f'cfeat_conv_{2 * i}')
       second = getattr(self, f'cfeat_conv_{2 * i + 1}')
       pool = i < n - 1
       if i >= 2:
-        head, _ = conv_stack.conv3x3_leaky(head, first.weight, first.bias)
+        def first_conv(x, first=first):
+          return conv_stack.conv3x3_leaky(x, first.weight, first.bias)[0]
       else:
-        head = leaky_relu(first(head))
-      feat, pooled = conv_stack.conv3x3_leaky(head, second.weight,
-                                              second.bias, pool=pool)
+        def first_conv(x, first=first):
+          return leaky_relu(first.conv(x))
+      if shard is not None and shard.split(head):
+        feat, pooled = conv_stack.stack_rows(head, first_conv, second.weight,
+                                             second.bias, pool, shard)
+        if pool:
+          pooled = shard.settle(pooled)
+      else:
+        feat, pooled = conv_stack.conv3x3_leaky(
+            first_conv(head), second.weight, second.bias, pool=pool)
       pyramid.append(feat)
       if pool:
         head = pooled

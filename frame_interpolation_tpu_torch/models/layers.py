@@ -5,6 +5,10 @@ models use: 'SAME' padding, parameters kept in f32, and input, kernel and
 bias cast to the layer's compute dtype before the conv (flax's
 promote_dtype). Tensors stay NHWC at the interface; the conv itself runs on
 the channels_last NCHW view of the same memory, so no layout copy is made.
+Inside a shard of a row-sharded forward (ops/rows.py) a conv on a slab
+takes the rows its window reaches from the neighbouring slabs, the halo
+GSPMD adds in JAX: 3x3 SAME one row on each side, the fusion's 2x2
+TF-SAME one row below, 1x1 none.
 """
 from __future__ import annotations
 
@@ -13,6 +17,8 @@ import math
 import torch
 import torch.nn.functional as F
 from torch import nn
+
+from ..ops import rows
 
 
 class _LeakyRelu(torch.autograd.Function):
@@ -54,6 +60,17 @@ class Conv(nn.Module):
     self.compute_dtype = compute_dtype
 
   def forward(self, x: torch.Tensor) -> torch.Tensor:
+    shard = rows.current()
+    k = self.weight.shape[-1]
+    if k == 1 or shard is None or not shard.split(x):
+      return self.conv(x)
+    # TF's SAME: (k - 1) // 2 rows before, the rest after.
+    above = (k - 1) // 2
+    ext = shard.halo(x, above, k - 1 - above)
+    return self.conv(ext)[:, above:above + x.shape[1]]
+
+  def conv(self, x: torch.Tensor) -> torch.Tensor:
+    """The conv of `x` alone, as if it were the whole frame."""
     dtype = self.compute_dtype
     k = self.weight.shape[-1]
     x = x.to(dtype).permute(0, 3, 1, 2)

@@ -9,8 +9,11 @@ objects into one shared library under `_build/` (named by a hash of the
 sources and flags, so an edited source rebuilds), loaded with ctypes.
 
 `LAUNCHES` counts kernel launches by the TPU kernel each launch stands in
-for. A wrapper adds one where it launches its kernel, and nowhere else, so
-a run can show that its main path went through the kernels.
+for. A wrapper adds one (`count_launch`) where it launches its kernel, and
+nowhere else, so a run can show that its main path went through the
+kernels. The shards of the sharded paths (parallel/) launch from threads
+of their own: the build and the counts each take a lock, so shards
+neither build twice nor lose counts.
 """
 from __future__ import annotations
 
@@ -19,6 +22,7 @@ import hashlib
 import os
 import shutil
 import subprocess
+import threading
 import time
 from pathlib import Path
 from typing import Dict
@@ -35,25 +39,38 @@ NVCC_FLAGS = (*ARCH_FLAGS, '-std=c++17', '-O3', '-Xcompiler', '-fPIC',
 # warp: ops/warp_window.py's window warp (B1); warp_planes: the same kernel
 # in its emit_planes mode (B4); splat: ops/warp_splat.py's two splat
 # kernels (B5, B6); conv3x3_c64: the C=64 stack of ops/conv_stack.py (B2);
-# conv3x3_wide: the C>=128 flat stack of ops/conv_stack_wide.py (B3). All
-# names in the JAX package.
+# conv3x3_wide: the C>=128 flat stack of ops/conv_stack_wide.py (B3);
+# warp_rows: the window warp on a slab of output rows, as
+# backward_warp_window_rows runs it (B1-rows). All names in the JAX
+# package.
 LAUNCHES: Dict[str, int] = {'warp': 0, 'warp_planes': 0, 'splat': 0,
-                            'conv3x3_c64': 0, 'conv3x3_wide': 0}
+                            'conv3x3_c64': 0, 'conv3x3_wide': 0,
+                            'warp_rows': 0}
 
 # Filled by the first library() call: 'path', 'seconds' (0.0 when the
 # library was already built) and 'log' (nvcc's -Xptxas -v report).
 BUILD_INFO: Dict[str, object] = {}
 
 _lib = None
+_LIB_LOCK = threading.Lock()
+_COUNT_LOCK = threading.Lock()
+
+
+def count_launch(name: str) -> None:
+  """Adds one launch of `name`; safe from several threads."""
+  with _COUNT_LOCK:
+    LAUNCHES[name] += 1
 
 
 def reset_launch_counts() -> None:
-  for name in LAUNCHES:
-    LAUNCHES[name] = 0
+  with _COUNT_LOCK:
+    for name in LAUNCHES:
+      LAUNCHES[name] = 0
 
 
 def launch_counts() -> Dict[str, int]:
-  return dict(LAUNCHES)
+  with _COUNT_LOCK:
+    return dict(LAUNCHES)
 
 
 def _nvcc() -> str:
@@ -122,6 +139,14 @@ def _declare(lib: ctypes.CDLL) -> None:
     # image, flow, out, B, H, W, C, stream
     fn.argtypes = [ptr, ptr, ptr, i32, i32, i32, i32, ptr]
     fn.restype = i32
+  for name in ('fi_warp_rows_bf16', 'fi_warp_rows_f32'):
+    fn = getattr(lib, name)
+    # image (B, H_src rows from global row src_row0), flow (B, H_out rows
+    # from global row row_offset), out, B, H_src, H_out, W, C, row_offset,
+    # src_row0, clamp_h, stream
+    fn.argtypes = [ptr, ptr, ptr, i32, i32, i32, i32, i32, i32, i32, i32,
+                   ptr]
+    fn.restype = i32
   for name in ('fi_warp_planes_bf16', 'fi_warp_planes_f32'):
     fn = getattr(lib, name)
     # image, flow, du, dv, B, H, W, C, stream
@@ -143,12 +168,14 @@ def _declare(lib: ctypes.CDLL) -> None:
 
 
 def library() -> ctypes.CDLL:
-  """The kernels' shared library, built and loaded on first call."""
+  """The kernels' shared library, built and loaded on first call (once,
+  whichever thread calls first; the others wait for it)."""
   global _lib
-  if _lib is None:
-    lib = ctypes.CDLL(str(_build()))
-    _declare(lib)
-    _lib = lib
+  with _LIB_LOCK:
+    if _lib is None:
+      lib = ctypes.CDLL(str(_build()))
+      _declare(lib)
+      _lib = lib
   return _lib
 
 

@@ -22,10 +22,15 @@ ops/conv_stack_wide.py _wide_diff_bwd).
 
 Tensors are NHWC, as in the JAX package; weights are PyTorch's OIHW
 parameters in f32, cast to the input dtype as flax's promote_dtype does.
+
+`stack_rows` runs the extractor's two convs on one shard's slab of a
+row-sharded forward (ops/rows.py), as the JAX package's stack_rows runs
+its fused stacks on each device's slab.
 """
 from __future__ import annotations
 
-from typing import Optional, Tuple
+import threading
+from typing import Callable, Optional, Tuple
 
 import torch
 import torch.nn.functional as F
@@ -38,8 +43,14 @@ _CHANNEL_MULTIPLE = 64
 
 # weight -> (key, packed): the (Cout, 3, 3, Cin) copy the kernel reads,
 # rebuilt when the weight is written to in place, moved, or another dtype
-# is asked for.
+# is asked for. Shards on one device share their replica's weights, from
+# threads of their own: the lock packs each weight once.
 _PACKED = WeakTensorKeyDictionary()
+_PACKED_LOCK = threading.Lock()
+
+# Rows each side of a slab for the extractor's two 3x3 convs: one for
+# each, and even, so that the fused pool's row pairs stay the frame's.
+HALO_ROWS = 2
 
 
 def kernel_symbol(dtype: torch.dtype, allow_tf32: bool) -> str:
@@ -66,11 +77,12 @@ def _packed_weight(weight: torch.Tensor, dtype: torch.dtype) -> torch.Tensor:
     # Inference tensors keep no version counter: nothing to key a cache on.
     return _pack(weight, dtype)
   key = (weight._version, weight.data_ptr(), weight.device, dtype)
-  cached = _PACKED.get(weight)
-  if cached is None or cached[0] != key:
-    cached = (key, _pack(weight, dtype))
-    _PACKED[weight] = cached
-  return cached[1]
+  with _PACKED_LOCK:
+    cached = _PACKED.get(weight)
+    if cached is None or cached[0] != key:
+      cached = (key, _pack(weight, dtype))
+      _PACKED[weight] = cached
+    return cached[1]
 
 
 def _check(x: torch.Tensor, weight: torch.Tensor, bias: torch.Tensor) -> None:
@@ -144,7 +156,7 @@ def conv3x3_leaky_kernel(x: torch.Tensor, weight: torch.Tensor,
             n, h, w, cin, cout, negative_slope, _kernels.stream_of(x))
   _kernels.check('conv3x3_leaky', code)
   wide = not (cin == _CHANNEL_MULTIPLE and cout == _CHANNEL_MULTIPLE)
-  _kernels.LAUNCHES['conv3x3_wide' if wide else 'conv3x3_c64'] += 1
+  _kernels.count_launch('conv3x3_wide' if wide else 'conv3x3_c64')
   return features, pooled
 
 
@@ -209,3 +221,42 @@ def conv3x3_leaky(x: torch.Tensor, weight: torch.Tensor, bias: torch.Tensor,
   out = Conv3x3Leaky.apply(x, weight, bias, pool, negative_slope,
                            x.device.type == 'cpu')
   return out if pool else (out, None)
+
+
+def apply_valid_rows(y: torch.Tensor,
+                     valid_rows: Tuple[int, int]) -> torch.Tensor:
+  """Zeroes the rows of NHWC `y` outside [lo, hi) (ops/conv_stack.py
+  apply_valid_rows): the halo rows that lie beyond the frame, where SAME
+  padding gives the second conv zeros and not conv0 of zeros."""
+  lo, hi = valid_rows
+  if lo <= 0 and hi >= y.shape[1]:
+    return y
+  rows = torch.arange(y.shape[1], device=y.device)
+  keep = ((rows >= lo) & (rows < hi))[None, :, None, None]
+  return torch.where(keep, y, torch.zeros((), dtype=y.dtype, device=y.device))
+
+
+def stack_rows(head: torch.Tensor,
+               first: Callable[[torch.Tensor], torch.Tensor],
+               weight: torch.Tensor, bias: torch.Tensor, pool: bool, shard
+               ) -> Tuple[torch.Tensor, Optional[torch.Tensor]]:
+  """An extractor sub-level's two convs on this shard's slab (inference).
+
+  Counterpart of ops/conv_stack.py stack_rows. `head` is this shard's
+  slab of a split level (ops/rows.RowShard); `first` is the sub-level's
+  first conv with its activation, `weight`/`bias` its second conv's, run
+  by `conv3x3_leaky` with the fused pool when `pool`. The slab takes
+  HALO_ROWS rows from each neighbour (zeros beyond the frame), the first
+  conv's output is zeroed on the rows beyond the frame, and the second's
+  interior rows are the frame's rows: the whole-frame stack's, row for
+  row. Returns (features, pooled or None) of the slab.
+  """
+  slab = head.shape[1]
+  ext = shard.halo(head, HALO_ROWS, HALO_ROWS)
+  top = shard.index * slab - HALO_ROWS  # global row of ext's first row
+  y0 = apply_valid_rows(first(ext), (-top, shard.height(head.shape[2]) - top))
+  features, pooled = conv3x3_leaky(y0.contiguous(), weight, bias, pool=pool)
+  features = features[:, HALO_ROWS:HALO_ROWS + slab]
+  if pooled is not None:
+    pooled = pooled[:, HALO_ROWS // 2:(HALO_ROWS + slab) // 2]
+  return features, pooled

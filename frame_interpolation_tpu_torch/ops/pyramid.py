@@ -1,7 +1,10 @@
 """Pyramid algebra for the FILM interpolator, on NHWC tensors.
 
 Port of frame_interpolation_tpu/ops/pyramid.py. Pyramids are plain Python
-lists of (B, H, W, C) tensors, finest level first.
+lists of (B, H, W, C) tensors, finest level first. Inside a shard of a
+row-sharded forward (ops/rows.py) the pool of a slab stays local (the
+slabs are even) and is gathered whole where the level below does not
+split.
 """
 from __future__ import annotations
 
@@ -10,14 +13,18 @@ from typing import List, Sequence
 import torch
 import torch.nn.functional as F
 
-from . import resize
+from . import resize, rows
 from . import warp as warp_ops
 
 
 def avg_pool_2x(image: torch.Tensor) -> torch.Tensor:
   """2x2 stride-2 VALID average pooling (odd extents floor)."""
   pooled = F.avg_pool2d(image.permute(0, 3, 1, 2), 2)
-  return pooled.permute(0, 2, 3, 1).contiguous()
+  pooled = pooled.permute(0, 2, 3, 1).contiguous()
+  shard = rows.current()
+  if shard is not None and shard.split(image):
+    return shard.settle(pooled)
+  return pooled
 
 
 def build_image_pyramid(image: torch.Tensor,

@@ -3,11 +3,21 @@
 Port of frame_interpolation_tpu/ops/resize.py: half-pixel centres, no
 antialiasing. The flow upsampling (bilinear, exactly 2x on the model's
 path) and the fusion decoder's nearest upsampling use it.
+
+Inside a shard of a row-sharded forward (ops/rows.py), an upsample to a
+split level gives this shard's rows. From a split level, the rows double
+exactly: the bilinear takes one row from each neighbouring slab (the
+frame's edge row again beyond it, as the resize clamps) and the nearest
+none; from a level that does not split, the whole plane is resized and
+the shard takes its rows. The arithmetic of each output row is the whole
+frame's.
 """
 from __future__ import annotations
 
 import numpy as np
 import torch
+
+from . import rows
 
 
 def _linear_interp_tables(in_size: int, out_size: int):
@@ -52,14 +62,9 @@ def _upsample2x_axis_linear(x: torch.Tensor, dim: int) -> torch.Tensor:
   return torch.stack([even, odd], dim=dim + 1).reshape(shape)
 
 
-def resize_bilinear(image: torch.Tensor, size) -> torch.Tensor:
-  """`tf.image.resize(images, size)` (bilinear, half-pixel, no antialias).
-
-  image: (B, H, W, C). Returns float32, as TF does.
-  """
-  new_h, new_w = int(size[0]), int(size[1])
-  h, w = image.shape[1], image.shape[2]
-  x = image.float()
+def _resize_bilinear_whole(x: torch.Tensor, new_h: int,
+                           new_w: int) -> torch.Tensor:
+  h, w = x.shape[1], x.shape[2]
   if (h, w) == (new_h, new_w):
     return x
   if new_h == 2 * h and new_w == 2 * w:
@@ -67,9 +72,8 @@ def resize_bilinear(image: torch.Tensor, size) -> torch.Tensor:
   return _resample_axis_linear(_resample_axis_linear(x, 1, new_h), 2, new_w)
 
 
-def resize_nearest(image: torch.Tensor, size) -> torch.Tensor:
-  """`tf.image.resize(images, size, method=NEAREST)`; keeps the dtype."""
-  new_h, new_w = int(size[0]), int(size[1])
+def _resize_nearest_whole(image: torch.Tensor, new_h: int,
+                          new_w: int) -> torch.Tensor:
   h, w = image.shape[1], image.shape[2]
   if (h, w) == (new_h, new_w):
     return image
@@ -78,3 +82,67 @@ def resize_nearest(image: torch.Tensor, size) -> torch.Tensor:
   hi = torch.from_numpy(_nearest_index_table(h, new_h)).to(image.device)
   wi = torch.from_numpy(_nearest_index_table(w, new_w)).to(image.device)
   return image.index_select(1, hi).index_select(2, wi)
+
+
+def _sharded(image: torch.Tensor, new_w: int, shard, whole, rows_2x,
+             cols):
+  """This shard's rows of `whole(image, H, new_w)`, the resize to a split
+  level of H global rows. A slab of a split level doubles its rows by
+  `rows_2x(slab, shard)` and resizes its columns by `cols(x, new_w)`:
+  rows double exactly between split levels, and each element's arithmetic
+  is the whole frame's (the general tables give the 2x weights 0.25 and
+  0.75, and the nearest's index i // 2)."""
+  if not shard.split(image):
+    return shard.take(whole(image, shard.height(new_w), new_w))
+  if image.shape[2] == new_w:
+    return image
+  return cols(rows_2x(image, shard), new_w)
+
+
+def _bilinear_rows_2x(slab: torch.Tensor, shard) -> torch.Tensor:
+  ext = shard.halo(slab, 1, 1, edge='clamp')
+  return _upsample2x_axis_linear(ext, 1)[:, 2:2 + 2 * slab.shape[1]]
+
+
+def _bilinear_cols(x: torch.Tensor, new_w: int) -> torch.Tensor:
+  if new_w == 2 * x.shape[2]:
+    return _upsample2x_axis_linear(x, 2)
+  return _resample_axis_linear(x, 2, new_w)
+
+
+def _nearest_cols(x: torch.Tensor, new_w: int) -> torch.Tensor:
+  if new_w == 2 * x.shape[2]:
+    return x.repeat_interleave(2, dim=2)
+  wi = torch.from_numpy(_nearest_index_table(x.shape[2], new_w))
+  return x.index_select(2, wi.to(x.device))
+
+
+def _sharding_to(size):
+  """The installed RowShard if `size` is a split level's slab, else None."""
+  shard = rows.current()
+  if shard is not None and shard.split_width(int(size[1])):
+    return shard
+  return None
+
+
+def resize_bilinear(image: torch.Tensor, size) -> torch.Tensor:
+  """`tf.image.resize(images, size)` (bilinear, half-pixel, no antialias).
+
+  image: (B, H, W, C). Returns float32, as TF does.
+  """
+  shard = _sharding_to(size)
+  if shard is not None:
+    return _sharded(image.float(), int(size[1]), shard,
+                    _resize_bilinear_whole, _bilinear_rows_2x,
+                    _bilinear_cols)
+  return _resize_bilinear_whole(image.float(), int(size[0]), int(size[1]))
+
+
+def resize_nearest(image: torch.Tensor, size) -> torch.Tensor:
+  """`tf.image.resize(images, size, method=NEAREST)`; keeps the dtype."""
+  shard = _sharding_to(size)
+  if shard is not None:
+    return _sharded(image, int(size[1]), shard, _resize_nearest_whole,
+                    lambda slab, _: slab.repeat_interleave(2, dim=1),
+                    _nearest_cols)
+  return _resize_nearest_whole(image, int(size[0]), int(size[1]))

@@ -24,21 +24,28 @@ The gradient is written out, as the JAX window VJP writes it
   * the image cotangent splats the output cotangent into the four clamped
     corners with the forward's weights, accumulated in f32.
 
-Three functions have a plain version and a CUDA kernel each: the warp
-(csrc/warp.cu), the planes (csrc/warp.cu, planes mode) and the splat
-(csrc/splat.cu). `backward_warp` runs them through `BackwardWarp`; a CPU
+Four functions have a plain version and a CUDA kernel each: the warp
+(csrc/warp.cu), the planes (csrc/warp.cu, planes mode), the splat
+(csrc/splat.cu) and the warp of a slab of output rows (csrc/warp.cu, row
+mode). `backward_warp` runs the first three through `BackwardWarp`; a CPU
 tensor takes the plain versions and a CUDA tensor the kernels, and there is
-no other route.
+no other route. Inside a shard of a row-sharded forward (ops/rows.py) it
+warps the shard's slab of a split level by `backward_warp_rows`, the
+counterpart of ops/warp_window.py backward_warp_window_rows, which runs
+the fourth (inference only, as in JAX).
 """
 from __future__ import annotations
 
-from typing import Tuple
+from typing import Optional, Tuple
 
 import torch
 
 from . import _kernels
+from . import rows as rows_lib
 
 _KERNEL_DTYPES = {torch.bfloat16: 'fi_warp_bf16', torch.float32: 'fi_warp_f32'}
+_ROWS_DTYPES = {torch.bfloat16: 'fi_warp_rows_bf16',
+                torch.float32: 'fi_warp_rows_f32'}
 _PLANES_DTYPES = {torch.bfloat16: 'fi_warp_planes_bf16',
                   torch.float32: 'fi_warp_planes_f32'}
 _SPLAT_DTYPES = {torch.bfloat16: 'fi_splat_bf16', torch.float32: 'fi_splat_f32'}
@@ -56,42 +63,55 @@ def _check_shapes(image: torch.Tensor, flow: torch.Tensor) -> None:
                      f'{tuple(image.shape)}')
 
 
-def query_coords(h: int, w: int, flow: torch.Tensor
+def query_coords(h: int, w: int, flow: torch.Tensor, row_offset: int = 0,
+                 src_row0: int = 0, clamp_h: Optional[int] = None
                  ) -> Tuple[torch.Tensor, ...]:
-  """Clamped corners, weights and raw offsets for a (B, H, W, 2) flow.
+  """Clamped corners, weights and raw offsets for a (B, Hout, W, 2) flow.
 
   Exactly `_query_coords_full` of the JAX package: f32 query coordinates,
   floor clamped to [0, size-2], alpha clamped to [0, 1]. Returns (iy, ix)
   int64, (ay, ax) f32 and the raw pre-clip offsets (ty, tx) f32.
+
+  The output grid is the flow's; `h`, `w` are the source's extents. Row
+  mode (ops/warp_window.py _forward): the flow's first row is global row
+  `row_offset`; with `clamp_h` the rows clamp to the frame's `clamp_h`
+  global rows and iy is then shifted into a source whose first row is
+  global row `src_row0` (without it, the source is the whole frame).
   """
   flow = flow.float()
   gy = torch.arange(flow.shape[1], dtype=torch.float32, device=flow.device)
+  gy = gy + float(row_offset)
   gx = torch.arange(flow.shape[2], dtype=torch.float32, device=flow.device)
   qy = gy[:, None] + flow[..., 1]
   qx = gx[None, :] + flow[..., 0]
-  fy = torch.clamp(torch.floor(qy), 0.0, float(h - 2))
+  fy = torch.clamp(torch.floor(qy), 0.0,
+                   float((h if clamp_h is None else clamp_h) - 2))
   fx = torch.clamp(torch.floor(qx), 0.0, float(w - 2))
   ty = qy - fy
   tx = qx - fx
   ay = torch.clamp(ty, 0.0, 1.0)
   ax = torch.clamp(tx, 0.0, 1.0)
-  return fy.long(), fx.long(), ay, ax, ty, tx
+  iy = fy.long()
+  if clamp_h is not None:
+    iy = iy - src_row0
+  return iy, fx.long(), ay, ax, ty, tx
 
 
-def _taps(image: torch.Tensor, flow: torch.Tensor):
-  """Top-left tap rows (B*H*W,), coords reshaped to (B*H*W, 1) columns."""
-  _check_shapes(image, flow)
+def _taps(image: torch.Tensor, flow: torch.Tensor, **rows):
+  """Top-left tap rows (B*Hout*W,), coords reshaped to (B*Hout*W, 1)
+  columns; `rows` are query_coords' row-mode arguments."""
+  if not rows:
+    _check_shapes(image, flow)
   b, h, w, _ = image.shape
-  iy, ix, ay, ax, ty, tx = query_coords(h, w, flow)
+  iy, ix, ay, ax, ty, tx = query_coords(h, w, flow, **rows)
   batch = torch.arange(b, device=image.device)[:, None, None] * (h * w)
   top = (batch + iy * w + ix).reshape(-1)
   return top, *(t.reshape(-1, 1) for t in (ay, ax, ty, tx))
 
 
-def backward_warp_plain(image: torch.Tensor,
-                        flow: torch.Tensor) -> torch.Tensor:
-  """The warp as plain tensor ops (any device): gather four taps, blend."""
-  top, ay, ax, _, _ = _taps(image, flow)
+def _blend_plain(image: torch.Tensor, flow: torch.Tensor,
+                 **rows) -> torch.Tensor:
+  top, ay, ax, _, _ = _taps(image, flow, **rows)
   b, h, w, c = image.shape
   pixels = image.reshape(b * h * w, c)
   t00 = pixels[top].float()
@@ -100,7 +120,47 @@ def backward_warp_plain(image: torch.Tensor,
   t11 = pixels[top + w + 1].float()
   out = ((1.0 - ay) * ((1.0 - ax) * t00 + ax * t01) +
          ay * ((1.0 - ax) * t10 + ax * t11))
-  return out.reshape(b, h, w, c).to(image.dtype)
+  return out.reshape(flow.shape[:3] + (c,)).to(image.dtype)
+
+
+def backward_warp_plain(image: torch.Tensor,
+                        flow: torch.Tensor) -> torch.Tensor:
+  """The warp as plain tensor ops (any device): gather four taps, blend."""
+  return _blend_plain(image, flow)
+
+
+def _check_rows(image: torch.Tensor, flow: torch.Tensor, row_offset: int,
+                clamp_h: int) -> None:
+  if image.dim() != 4 or flow.dim() != 4 or flow.shape[-1] != 2:
+    raise ValueError(f'expected image (B, Hsrc, W, C) and flow (B, Hout, '
+                     f'W, 2); got {tuple(image.shape)} and '
+                     f'{tuple(flow.shape)}')
+  if flow.shape[0] != image.shape[0] or flow.shape[2] != image.shape[2]:
+    raise ValueError(f'flow {tuple(flow.shape)} does not match image '
+                     f'{tuple(image.shape)} in batch and width')
+  if clamp_h < 2 or image.shape[2] < 2:
+    raise ValueError(f'the bilinear warp needs H, W >= 2; got clamp_h '
+                     f'{clamp_h}, W {image.shape[2]}')
+  if row_offset < 0 or row_offset + flow.shape[1] > clamp_h:
+    raise ValueError(f'output rows [{row_offset}, '
+                     f'{row_offset + flow.shape[1]}) leave the frame\'s '
+                     f'{clamp_h} rows')
+
+
+def backward_warp_rows_plain(image: torch.Tensor, flow: torch.Tensor,
+                             row_offset: int, src_row0: int,
+                             clamp_h: int) -> torch.Tensor:
+  """The row-mode warp as plain tensor ops (any device).
+
+  `image` (B, Hsrc, W, C) holds global rows [src_row0, src_row0 + Hsrc) of
+  a frame of `clamp_h` rows; `flow` (B, Hout, W, 2) the output rows
+  [row_offset, row_offset + Hout). Returns the whole-frame warp's rows
+  [row_offset, row_offset + Hout), provided every tap lies in the image
+  (the caller's halo predicate: backward_warp_rows).
+  """
+  _check_rows(image, flow, row_offset, clamp_h)
+  return _blend_plain(image, flow, row_offset=row_offset, src_row0=src_row0,
+                      clamp_h=clamp_h)
 
 
 def _clip_grad(t: torch.Tensor) -> torch.Tensor:
@@ -176,6 +236,78 @@ def _check_kernel_args(name: str, image: torch.Tensor,
     raise ValueError(f'{name}: image and flow on different devices')
 
 
+def backward_warp_rows_kernel(image: torch.Tensor, flow: torch.Tensor,
+                              row_offset: int, src_row0: int,
+                              clamp_h: int) -> torch.Tensor:
+  """The row-mode warp through csrc/warp.cu (`backward_warp_rows_plain`'s
+  arguments). CUDA tensors only; raises otherwise."""
+  _check_rows(image, flow, row_offset, clamp_h)
+  _kernels.require_cuda('backward_warp_rows', image)
+  _kernels.require_cuda('backward_warp_rows', flow, alignment=8)
+  if image.dtype not in _ROWS_DTYPES or flow.dtype != torch.float32:
+    raise ValueError(f'backward_warp_rows: the kernel takes bf16 or f32 '
+                     f'images and an f32 flow; got {image.dtype}, '
+                     f'{flow.dtype}')
+  if flow.device != image.device:
+    raise ValueError('backward_warp_rows: image and flow on different '
+                     'devices')
+  b, h_src, w, c = image.shape
+  h_out = flow.shape[1]
+  out = torch.empty((b, h_out, w, c), dtype=image.dtype, device=image.device)
+  if out.numel() == 0:
+    return out
+  fn = getattr(_kernels.library(), _ROWS_DTYPES[image.dtype])
+  code = fn(image.data_ptr(), flow.data_ptr(), out.data_ptr(), b, h_src,
+            h_out, w, c, row_offset, src_row0, clamp_h,
+            _kernels.stream_of(image))
+  _kernels.check('backward_warp_rows', code)
+  _kernels.count_launch('warp_rows')
+  return out
+
+
+# The film_net pyramid resolves motion up to about 192 px (7 levels of up
+# to 64 px each, reference models/film_net/options.py:30-34): a halo of
+# k slabs with k * slab > 192 holds every realistic flow's taps.
+MOTION_REACH_PX = 192
+
+
+def halo_slabs(slab: int, n: int) -> int:
+  """The row-sharded warp's halo in slabs on each side, or 0 for the
+  whole frame (ops/warp_window.py _halo_slab_count): k slabs with
+  k * slab > MOTION_REACH_PX, unless a shard would then take at least as
+  many slabs (2k) from the others as the whole frame holds (n - 1)."""
+  k = -(-MOTION_REACH_PX // slab)
+  return 0 if 2 * k >= n - 1 else k
+
+
+def backward_warp_rows(image: torch.Tensor, flow: torch.Tensor,
+                       shard: 'rows_lib.RowShard') -> torch.Tensor:
+  """The warp of this shard's slab of a split level (inference only).
+
+  Counterpart of ops/warp_window.py backward_warp_window_rows. `image` and
+  `flow` are this shard's slabs. The source rows the slab's taps can reach
+  come from the other shards: `halo_slabs` slabs on each side (zeros
+  beyond the frame, never read: the taps clamp to the frame) when every
+  shard's largest |flow_y| is at most k * slab - 1, agreed by pmax so
+  every shard takes the same branch, else the whole frame. Queries are
+  the whole frame's (global rows, global clamp), so each slab is the
+  whole-frame warp's rows bit for bit.
+  """
+  slab = image.shape[1]
+  height = slab * shard.n
+  row0 = shard.index * slab
+  k = halo_slabs(slab, shard.n)
+  if k and shard.pmax(flow[..., 1].abs().max().item()) <= k * slab - 1:
+    source = shard.halo(image, k * slab, k * slab)
+    src_row0 = row0 - k * slab
+  else:
+    source, src_row0 = shard.gather(image), 0
+  warp = (backward_warp_rows_plain if image.device.type == 'cpu'
+          else backward_warp_rows_kernel)
+  return warp(source.contiguous(), flow.contiguous(), row0, src_row0,
+              height)
+
+
 def backward_warp_kernel(image: torch.Tensor,
                          flow: torch.Tensor) -> torch.Tensor:
   """The warp through csrc/warp.cu. CUDA tensors only; raises otherwise."""
@@ -188,7 +320,7 @@ def backward_warp_kernel(image: torch.Tensor,
   code = fn(image.data_ptr(), flow.data_ptr(), out.data_ptr(), b, h, w, c,
             _kernels.stream_of(image))
   _kernels.check('backward_warp', code)
-  _kernels.LAUNCHES['warp'] += 1
+  _kernels.count_launch('warp')
   return out
 
 
@@ -205,7 +337,7 @@ def warp_planes_kernel(image: torch.Tensor, flow: torch.Tensor
   code = fn(image.data_ptr(), flow.data_ptr(), du.data_ptr(), dv.data_ptr(),
             b, h, w, c, _kernels.stream_of(image))
   _kernels.check('warp_planes', code)
-  _kernels.LAUNCHES['warp_planes'] += 1
+  _kernels.count_launch('warp_planes')
   return du, dv
 
 
@@ -223,7 +355,7 @@ def splat_kernel(g: torch.Tensor, flow: torch.Tensor) -> torch.Tensor:
   code = fn(g.data_ptr(), flow.data_ptr(), acc.data_ptr(), b, h, w, c,
             _kernels.stream_of(g))
   _kernels.check('splat', code)
-  _kernels.LAUNCHES['splat'] += 1
+  _kernels.count_launch('splat')
   return acc
 
 
@@ -264,6 +396,10 @@ def backward_warp(image: torch.Tensor, flow: torch.Tensor) -> torch.Tensor:
 
   Returns the warped image in the image's shape and dtype, differentiable
   in both arguments. CPU tensors take the plain versions, CUDA tensors the
-  kernels (forward and backward).
+  kernels (forward and backward). Inside a shard of a row-sharded forward,
+  a slab of a split level takes `backward_warp_rows` (no gradient).
   """
+  shard = rows_lib.current()
+  if shard is not None and shard.split(image):
+    return backward_warp_rows(image, flow, shard)
   return BackwardWarp.apply(image, flow, image.device.type == 'cpu')

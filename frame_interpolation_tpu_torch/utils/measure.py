@@ -76,17 +76,22 @@ def conv_cost(n: int, h: int, w: int, cin: int, cout: int, pool: bool,
   return flops, nbytes
 
 
-def bilinear_grid(flow: torch.Tensor) -> torch.Tensor:
+def bilinear_grid(flow: torch.Tensor, row_shift: int = 0,
+                  source_h: int = None) -> torch.Tensor:
   """The (B, H, W, 2) grid under which `F.grid_sample` (bilinear, border
   padding, align_corners=True) computes the port's warp of a (B, H, W, 2)
   flow, and the image gradient of its backward the warp's splat.
 
   The warp clamps the floor of each coordinate to [0, size-2] and its alpha
   to [0, 1]; border padding clamps the coordinate to [0, size-1]. Both give
-  the same corner weights.
+  the same corner weights. For the row mode's yardstick, `row_shift`
+  (row_offset - src_row0) moves the rows into a source of `source_h` rows
+  (border padding then clamps to that source's rows, not the frame's).
   """
   _, h, w, _ = flow.shape
+  source_h = h if source_h is None else source_h
   ys, xs = torch.meshgrid(torch.arange(h, device=flow.device),
                           torch.arange(w, device=flow.device), indexing='ij')
   return torch.stack([(xs + flow[..., 0]) * (2.0 / (w - 1)) - 1,
-                      (ys + flow[..., 1]) * (2.0 / (h - 1)) - 1], dim=-1)
+                      (ys + row_shift + flow[..., 1]) * (2.0 / (source_h - 1))
+                      - 1], dim=-1)

@@ -102,3 +102,25 @@ def test_kernel_wrappers_pass_what_the_entry_points_declare(
   assert name.endswith('bf16' if dtype == torch.bfloat16 else 'f32')
   assert args[:2] == (image.data_ptr(), flow.data_ptr())
   assert _kernels.LAUNCHES == {launch: 1}
+
+
+@pytest.mark.parametrize('dtype', [torch.float32, torch.bfloat16])
+def test_rows_kernel_wrapper_passes_the_row_arguments(monkeypatch, dtype):
+  # fi_warp_rows_*: the extension's rows (H_src) and the slab's (H_out),
+  # then the slab's and the extension's global first rows and the frame's.
+  library = _declared()
+  monkeypatch.setattr(_kernels, 'library', lambda: library)
+  monkeypatch.setattr(_kernels, 'require_cuda', lambda *a, **k: None)
+  monkeypatch.setattr(_kernels, 'stream_of', lambda t: 0)
+  monkeypatch.setattr(_kernels, 'LAUNCHES', {'warp_rows': 0})
+  image = torch.zeros(2, 24, 7, 67, dtype=dtype)
+  flow = torch.zeros(2, 8, 7, 2)
+  out = warp.backward_warp_rows_kernel(image, flow, 16, 8, 32)
+  assert tuple(out.shape) == (2, 8, 7, 67) and out.dtype == dtype
+  calls = [(e.name, c) for e in library.entries.values() for c in e.calls]
+  suffix = 'bf16' if dtype == torch.bfloat16 else 'f32'
+  assert [name for name, _ in calls] == [f'fi_warp_rows_{suffix}']
+  args = calls[0][1]
+  assert args[:3] == (image.data_ptr(), flow.data_ptr(), out.data_ptr())
+  assert args[3:11] == (2, 24, 8, 7, 67, 16, 8, 32)
+  assert _kernels.LAUNCHES == {'warp_rows': 1}

@@ -71,6 +71,29 @@ kernels, then the sharded serving paths, and after training the eval loop:
     l1, l2, ssim, psnr and the L1 training loss), kernels against plain
     with TF32 and cuDNN off, and its ms per example.
 
+Then the slice that completes the port:
+
+  * the split-concat convs (Options.split_convs): the 1080p bf16 pair split
+    against concat (>= 50 dB, 22/14/48 launches in both forms, ms a pair
+    of each in turns, the form 'auto' picks on CUDA), the pair in f32 at
+    544x960 (1e-4), one film_net-L1 step in each form under the
+    step-parity bounds, the row-sharded pair with split convs on
+    [cuda:0] * 2 against one device;
+  * the native CRC (native/, built with cc on this host): crc32c, its
+    mask and the TFRecord scan against the Python loop on 64 MiB of
+    seeded bytes and on a TFRecord of them the port's writer wrote, MB/s
+    of both (a JSON line of its own before the kernels' line);
+  * the dataset builders: cli.create_middlebury_tfrecord on a seeded
+    1080p Middlebury-layout tree (4 clips, 2 shards), read back and
+    evaluated on the card against the same frames from memory (needs PIL;
+    where it does not import, a line says so and the phase does not run);
+  * data-parallel training (parallel/distributed.py): two ranks sharing
+    cuda:0 over gloo (subprocesses of this script, batch 4 each) against
+    one process at batch 8 over 3 steps with the augmentations, launches
+    a step and rank, steps/s of both; world size 1 over NCCL against the
+    step without a group; one rank a card over NCCL where there are
+    several GPUs.
+
 The warp's row mode (B1-rows: a slab of output rows against the whole
 frame or a halo of one slab each side, as the row-sharded forward runs
 it) is held bit for bit against the whole-frame warp's rows, and against
@@ -86,9 +109,11 @@ from __future__ import annotations
 
 import argparse
 import contextlib
+import dataclasses
 import json
 import os
 import re
+import subprocess
 import sys
 import tempfile
 import time
@@ -97,7 +122,11 @@ import numpy as np
 import torch
 
 from frame_interpolation_tpu_torch import losses as losses_lib
-from frame_interpolation_tpu_torch.cli import build_params
+from frame_interpolation_tpu_torch import native
+from frame_interpolation_tpu_torch.cli import (build_params,
+                                               create_middlebury_tfrecord)
+from frame_interpolation_tpu_torch.data import dataset as dataset_lib
+from frame_interpolation_tpu_torch.data import tfrecord
 from frame_interpolation_tpu_torch.inference import (Interpolator,
                                                      cached_tree,
                                                      interpolator as
@@ -106,9 +135,11 @@ from frame_interpolation_tpu_torch.inference import (Interpolator,
                                                      recursion)
 from frame_interpolation_tpu_torch.io import images, params_io
 from frame_interpolation_tpu_torch.losses import vgg19
-from frame_interpolation_tpu_torch.models import create_model, init_params
+from frame_interpolation_tpu_torch.models import (create_model, init_params,
+                                                  layers)
 from frame_interpolation_tpu_torch.ops import _kernels, conv_stack, warp
 from frame_interpolation_tpu_torch.options import Options
+from frame_interpolation_tpu_torch.parallel import distributed
 from frame_interpolation_tpu_torch.parallel import inference as sharded
 from frame_interpolation_tpu_torch.parallel import mesh as parallel_mesh
 from frame_interpolation_tpu_torch.training import (configs, eval_lib,
@@ -242,6 +273,26 @@ EVAL_REL_BOUND = 1e-4
 EVAL_SSIM_BOUND = 1e-4
 EVAL_PSNR_BOUND_DB = 1e-3
 EVAL_BATCHES, EVAL_H, EVAL_W = 2, 256, 448
+# Split-concat convs against the concat form: the 1080p bf16 pair (one
+# more bf16 rounding of each partial output at 18 sites: the kernels vs
+# plain bound), the pair in f32 at 544x960 with TF32 off (reassociation:
+# the conv's f32 bound).
+SPLIT_PSNR_DB = 50.0
+SPLIT_F32_BOUND = 1e-4         # max-abs, images in [0, 1)
+SPLIT_H, SPLIT_W = 544, 960
+# The native CRC: 64 MiB of seeded bytes, as 64 records of 1 MiB.
+CRC_BYTES, CRC_RECORD, CRC_REPEATS = 64 << 20, 1 << 20, 3
+# The builders: 4 Middlebury-layout clips of 1080p in 2 shards, evaluated
+# from the records and from memory: the same pixels (PNG is lossless), so
+# the same means up to the eval's own run-to-run order.
+BUILDER_CLIPS, BUILDER_SHARDS, BUILDER_BOUND = 4, 2, 1e-4
+# Data-parallel: 3 parity steps (TF32 and cuDNN off) and steps/s over 5
+# after 2; ranks at batch 4 sum in another order than one process at 8,
+# which the step-parity bounds cover, and the 3-step losses drift by the
+# updates' rounding.
+DDP_STEPS, DDP_WARMUP, DDP_TIMED = 3, 2, 5
+DDP_TRAJECTORY_BOUND = 1e-4
+DDP_TIMEOUT_S = 600
 REPLACES = {
     'warp': 'frame_interpolation_tpu/ops/warp_window.py:134',
     'warp_planes': 'frame_interpolation_tpu/ops/warp_window.py:134',
@@ -1290,12 +1341,467 @@ def check_eval(card, failures):
           launches, 'ms_per_example': ms}
 
 
+# ---- PR 8: split convs, the native CRC, the builders, data-parallel -------
+
+
+def form_interpolators(state, dtype_policy: str):
+  """The released config under `dtype_policy` in both split forms, from
+  the same weights."""
+  out = {}
+  for form in ('off', 'on'):
+    options = Options.film_net_released(dtype_policy=dtype_policy,
+                                        split_convs=form)
+    model = create_model(options)
+    model.load_state_dict(state)
+    out[form] = Interpolator(model, options, align=64, device='cuda')
+  return out
+
+
+def check_split(state, frames, dt, card, failures):
+  """The split-concat convs against the concat form: the 1080p bf16 pair
+  (agreement, launches, ms a pair in turns), the pair in f32 at 544x960,
+  one film_net-L1 step in each form, and the row-sharded pair on
+  [cuda:0] * 2 with split convs against one device."""
+  x0, x1 = (torch.from_numpy(f).cuda() for f in frames)
+  dtd = torch.from_numpy(dt).cuda()
+  interps = form_interpolators(state, 'bfloat16')
+  outs, report = {}, {'launches': {}, 'ms': {'off': [], 'on': []}}
+  for form, interp in interps.items():
+    out, launches, _ = run_counted(lambda: interp.call_device(x0, x1, dtd))
+    outs[form] = out.float().cpu().numpy()
+    report['launches'][form] = launches
+    if launches != PAIR_LAUNCHES:
+      failures.append(f'split_convs={form} pair launches {launches}')
+  psnr = psnr_db(outs['on'], outs['off'])
+  if not psnr >= SPLIT_PSNR_DB:
+    failures.append(f'split vs concat pair {psnr:.2f} dB')
+  for form in ('off', 'on', 'on', 'off'):
+    report['ms'][form].append(measure.time_ms(
+        lambda: interps[form].call_device(x0, x1, dtd), iters=3,
+        queued=False))
+  auto = 'on' if layers.should_split('auto', 'cuda') else 'off'
+  means = {f: float(np.mean(v)) for f, v in report['ms'].items()}
+  print(f'split convs, 1080p pair (released config, bf16 policy): split vs '
+        f'concat {psnr:.2f} dB (bound {SPLIT_PSNR_DB}); ms a pair (CUDA '
+        f'events, in turns off/on/on/off, 3 pairs each) concat '
+        f'{report["ms"]["off"]} mean {means["off"]:.3f}, split '
+        f'{report["ms"]["on"]} mean {means["on"]:.3f}; launches '
+        f'{report["launches"]}; split_convs=\'auto\' on cuda picks '
+        f'{auto!r}; on {card}')
+  del interps
+
+  small = np.random.RandomState(6).rand(2, 1, SPLIT_H, SPLIT_W, 3).astype(
+      np.float32)
+  f32 = {form: interp(small[0], small[1], dt)
+         for form, interp in form_interpolators(state, 'float32').items()}
+  f32_err = float(np.abs(f32['on'] - f32['off']).max())
+  if not f32_err <= SPLIT_F32_BOUND:
+    failures.append(f'split vs concat f32 max-abs {f32_err:.3e}')
+
+  # One film_net-L1 step in each form, TF32 and cuDNN off (as the step
+  # parity runs), held to the step-parity bounds.
+  config = configs.get_experiment('film_net-L1')
+  train_state = init_params(create_model(config.model),
+                            torch.Generator().manual_seed(0)).state_dict()
+  batch = train_lib.batch_to_device(square_batch(np.random.RandomState(1)),
+                                    torch.device('cuda'))
+  l1 = losses_lib.training_losses(['l1'])
+  steps = {}
+  with torch.backends.cudnn.flags(enabled=False, allow_tf32=False):
+    for form in ('off', 'on'):
+      model = create_model(dataclasses.replace(config.model,
+                                               split_convs=form))
+      model.load_state_dict(train_state)
+      model.cuda()
+      (loss, grads), launches, _ = run_counted(
+          lambda: loss_and_grads(model, batch, l1, 0))
+      steps[form] = (loss, grads, launches)
+      del model
+  loss_rel = abs(steps['on'][0] - steps['off'][0]) / abs(steps['off'][0])
+  worst, bad = ('', 0.0), []
+  for name, g in steps['on'][1].items():
+    ref = steps['off'][1][name]
+    if g is None or not torch.isfinite(g).all() or not g.abs().max() > 0:
+      bad.append(name)
+      continue
+    rel = ((g - ref).abs().max() / ref.abs().max()).item()
+    worst = max(worst, (name, rel), key=lambda w: w[1])
+  if len(steps['on'][1]) != 82 or bad:
+    failures.append(f'split step: gradients without a finite non-zero '
+                    f'value {bad}')
+  if not loss_rel <= LOSS_REL_BOUND or not worst[1] <= GRAD_REL_BOUND:
+    failures.append(f'split vs concat step: loss rel {loss_rel:.3e}, '
+                    f'grad rel {worst[1]:.3e} ({worst[0]})')
+  for form, (_, _, launches) in steps.items():
+    if launches != STEP_LAUNCHES:
+      failures.append(f'split_convs={form} step launches {launches}')
+  print(f'split convs, f32: the 544x960 pair split vs concat max-abs '
+        f'{f32_err:.2e} (bound {SPLIT_F32_BOUND:.0e}); one film_net-L1 step '
+        f'(batch 8x256x256, TF32 and cuDNN off): loss {steps["on"][0]:.7f} '
+        f'split, {steps["off"][0]:.7f} concat, rel {loss_rel:.2e} (bound '
+        f'{LOSS_REL_BOUND:.0e}); worst grad rel {worst[1]:.3e} ({worst[0]}, '
+        f'bound {GRAD_REL_BOUND:.0e}); {82 - len(bad)}/82 finite and '
+        f'non-zero; launches a step {steps["on"][2]}; on {card}')
+
+  # The row-sharded pair with split convs: each split conv's two pieces
+  # take their halos in one exchange.
+  options = Options.film_net_released(dtype_policy='bfloat16',
+                                      split_convs='on')
+  model = create_model(options)
+  model.load_state_dict(state)
+  mesh = parallel_mesh.Mesh(['cuda:0'] * 2)
+  interp = sharded.SpatialShardedInterpolator(model, options, mesh, align=64)
+  out, launches, _ = run_counted(lambda: interp.call_device(x0, x1, dtd))
+  rows_psnr = psnr_db(out.float().cpu().numpy(), outs['on'])
+  if not rows_psnr >= SPATIAL_PSNR_DB or launches != SPATIAL_LAUNCHES[2]:
+    failures.append(f'row-sharded split pair {rows_psnr:.2f} dB, launches '
+                    f'{launches}')
+  print(f'split convs, row-sharded 1080p pair on {mesh!r}: '
+        f'{rows_psnr:.2f} dB vs one device (bound {SPATIAL_PSNR_DB}); '
+        f'launches {launches}; on {card}')
+  report.update(psnr=psnr, auto=auto, f32_err=f32_err, loss_rel=loss_rel,
+                grad_rel=worst[1], step_launches=steps['on'][2],
+                rows_psnr=rows_psnr)
+  return report
+
+
+def mask_crc(crc: int) -> int:
+  """The TFRecord mask of a CRC, in Python."""
+  return ((crc >> 15 | crc << 17) + 0xA282EAD8) & 0xFFFFFFFF
+
+
+@contextlib.contextmanager
+def python_crc():
+  """data/tfrecord.py as on a host where the native library does not
+  build: the Python loop."""
+  saved = native.available
+  native.available = lambda: False
+  try:
+    yield
+  finally:
+    native.available = saved
+
+
+def check_native_crc(card, failures):
+  """The native CRC built with cc on this host, against the Python loop on
+  64 MiB of seeded bytes and on a TFRecord of them the port's writer
+  wrote; MB/s of both."""
+  native.library()  # raises if cc is absent or the build fails
+  # The first TFRecord the run wrote (the trainer's event files) built it.
+  build_s = native.BUILD_INFO['seconds']
+  data = np.random.RandomState(7).bytes(CRC_BYTES)
+  mb = CRC_BYTES / 2**20
+  start = time.perf_counter()
+  for _ in range(CRC_REPEATS):
+    got = native.crc32c(data)
+  native_mbs = CRC_REPEATS * mb / (time.perf_counter() - start)
+  start = time.perf_counter()
+  want = tfrecord.python_crc32c(data)
+  python_mbs = mb / (time.perf_counter() - start)
+  masked_ok = native.masked_crc32c(data) == mask_crc(want)
+  payloads = [data[i:i + CRC_RECORD] for i in range(0, CRC_BYTES, CRC_RECORD)]
+  with tempfile.TemporaryDirectory() as tmp:
+    path = os.path.join(tmp, 'crc.tfrecord')
+    backend = tfrecord.crc_backend()
+    with tfrecord.TFRecordWriter(path) as writer:
+      for p in payloads:
+        writer.write(p)
+    with open(path, 'rb') as f:
+      frames = native.scan_tfrecord(f.read())
+    start = time.perf_counter()
+    native_read = list(tfrecord.read_records(path, validate=True))
+    read_mbs = mb / (time.perf_counter() - start)
+    start = time.perf_counter()
+    with python_crc():
+      python_read = list(tfrecord.read_records(path, validate=True))
+    python_read_mbs = mb / (time.perf_counter() - start)
+  scan_ok = (len(frames) == len(payloads) and native_read == payloads ==
+             python_read)
+  ok = got == want and masked_ok and scan_ok and backend == 'native'
+  if not ok:
+    failures.append(f'native CRC: crc {got:#x} vs python {want:#x}, masked '
+                    f'{masked_ok}, scan {scan_ok}, writer backend {backend}')
+  built = (f'built on this host with cc in {build_s:.2f} s' if build_s
+           else 'found built')
+  print(f'native CRC: {built} ({native.BUILD_INFO["path"]}); crc32c of {mb:.0f} MiB of seeded bytes '
+        f'{got:#010x} native, {want:#010x} Python, masked equal {masked_ok}; '
+        f'{native_mbs:.1f} MB/s native, {python_mbs:.2f} MB/s Python; a '
+        f'TFRecord of {len(payloads)} 1 MiB records written with the '
+        f'{backend} CRC: scan and read_records(validate=True) equal the '
+        f'Python reader {scan_ok}, reading {read_mbs:.1f} MB/s native, '
+        f'{python_read_mbs:.2f} MB/s Python; on {card}')
+  return {'ok': ok, 'build_s': build_s, 'native_mb_s': native_mbs,
+          'python_mb_s': python_mbs, 'read_mb_s': read_mbs,
+          'python_read_mb_s': python_read_mbs}
+
+
+def builder_frame(rng, h=VIDEO_H, w=VIDEO_W):
+  """A seeded uint8 frame: a smooth gradient with a bright square."""
+  yy, xx = np.mgrid[0:h, 0:w]
+  frame = np.stack([(xx * 255 // w), (yy * 255 // h),
+                    np.full((h, w), rng.randint(256))], axis=-1)
+  cy, cx = rng.randint(100, h - 300), rng.randint(100, w - 300)
+  frame[cy:cy + 200, cx:cx + 200] = rng.randint(256, size=3)
+  return frame.astype(np.uint8)
+
+
+def check_builders(card, failures):
+  """cli.create_middlebury_tfrecord on a seeded 1080p Middlebury-layout
+  tree (4 clips, 2 shards), read back and evaluated on the card against
+  the same frames from memory. Needs PIL, which this host may lack."""
+  try:
+    from PIL import Image
+  except ImportError as e:
+    print(f'builders: not run: PIL does not import on this host ({e}); '
+          'the CPU tests carry the builders')
+    return {'ran': False}
+  rng = np.random.RandomState(8)
+  names = ('frame10.png', 'frame10i11.png', 'frame11.png')
+  clips = {f'clip{i}': [builder_frame(rng) for _ in names]
+           for i in range(BUILDER_CLIPS)}
+  config = configs.get_experiment('film_net-L1')
+  model = init_params(create_model(config.model),
+                      torch.Generator().manual_seed(0)).cuda()
+  metrics = metrics_lib.create_metrics_fns(
+      losses_lib.test_losses(['l1', 'l2', 'ssim', 'psnr']),
+      losses_lib.training_losses(['l1']))
+  with tempfile.TemporaryDirectory() as root:
+    for clip, frames in clips.items():
+      for name, frame in zip(names, frames):
+        folder = 'other-gt-interp' if name == 'frame10i11.png' else (
+            'other-data')
+        os.makedirs(os.path.join(root, folder, clip), exist_ok=True)
+        Image.fromarray(frame).save(os.path.join(root, folder, clip, name))
+    out = os.path.join(root, 'records', 'middlebury.tfrecord')
+    start = time.perf_counter()
+    written = create_middlebury_tfrecord.main([
+        '--input_dir', root, '--output_tfrecord_filepath', out,
+        '--num_shards', str(BUILDER_SHARDS)])
+    build_s = time.perf_counter() - start
+    records = dataset_lib.create_eval_datasets(
+        [f'{out}@{BUILDER_SHARDS}'], ['middlebury'], batch_size=1)
+    # Round-robin over the shards, read in shard order.
+    order = [f'clip{i}' for s in range(BUILDER_SHARDS)
+             for i in range(s, BUILDER_CLIPS, BUILDER_SHARDS)]
+    memory = [{'x0': clips[c][0][None] / np.float32(255),
+               'y': clips[c][1][None] / np.float32(255),
+               'x1': clips[c][2][None] / np.float32(255),
+               'time': np.full((1, 1), 0.5, np.float32)} for c in order]
+    results = {}
+    for name, ds in (('records', records['middlebury']), ('memory', memory)):
+      got, launches, _ = run_counted(lambda: eval_lib.eval_loop(
+          model, {'middlebury': ds}, metrics, 0, log_fn=lambda _: None))
+      results[name] = (got['middlebury'], launches)
+  del model
+  want_launches = {k: BUILDER_CLIPS * v for k, v in PAIR_LAUNCHES.items()}
+  errors = {}
+  for name, value in results['memory'][0].items():
+    diff = abs(results['records'][0][name] - value)
+    errors[name] = diff if name == 'ssim' else diff / max(abs(value), 1e-12)
+  ok = (written == BUILDER_CLIPS and max(errors.values()) <= BUILDER_BOUND
+        and results['records'][1] == want_launches)
+  if not ok:
+    failures.append(f'builders: {written} written, errors {errors}, '
+                    f'launches {results["records"][1]}')
+  print(f'builders: create_middlebury_tfrecord wrote {written} 1080p '
+        f'triplets into {BUILDER_SHARDS} shards in {build_s:.1f} s (native '
+        f'CRC); eval_loop on the card (released config, f32) from the '
+        f'records {results["records"][0]}, from memory '
+        f'{results["memory"][0]}; errors {errors} (bound '
+        f'{BUILDER_BOUND:.0e}); launches {results["records"][1]}; on {card}')
+  return {'ran': True, 'written': written, 'build_s': build_s,
+          'errors': errors}
+
+
+def ddp_steps(device, data_parallel: bool, steps: int = DDP_STEPS,
+              timed: bool = True):
+  """film_net-L1 train steps (released config, f32) on the global batches
+  of moving squares, with the augmentations: `steps` under TF32 and cuDNN
+  off (losses, launches a step, the first step's gradients, which a
+  data-parallel step leaves averaged), then, if `timed`, steps/s with
+  PyTorch's default precision."""
+  config = configs.get_experiment('film_net-L1')
+  model = init_params(create_model(config.model),
+                      torch.Generator().manual_seed(0)).to(device)
+  opts = train_lib.TrainingOptions()
+  step_fn = train_lib.make_train_step(
+      losses_lib.training_losses(['l1']), opts, tuple(config.augmentations),
+      with_summaries=False, data_parallel=data_parallel)
+  state = train_lib.create_train_state(model, opts)
+  batches = square_batches(5)
+  result = {'losses': [], 'launches': []}
+
+  def step():
+    batch = train_lib.batch_to_device(next(batches), device)
+    return step_fn(state, batch, train_lib.step_generator(0, state.step))[0]
+
+  with torch.backends.cudnn.flags(enabled=False, allow_tf32=False):
+    for i in range(steps):
+      metrics, launches, _ = run_counted(step)
+      result['losses'].append(float(metrics['training_loss']))
+      result['launches'].append(launches)
+      if i == 0:
+        result['grads'] = {n: p.grad.detach().cpu().clone()
+                           for n, p in model.named_parameters()}
+  if timed:
+    with tf32_allowed(True):
+      for _ in range(DDP_WARMUP):
+        step()
+      torch.cuda.synchronize()
+      start = time.perf_counter()
+      for _ in range(DDP_TIMED):
+        step()
+      torch.cuda.synchronize()
+      result['steps_per_s'] = DDP_TIMED / (time.perf_counter() - start)
+  return result
+
+
+def ddp_rank_main(args) -> int:
+  """One rank of the data-parallel phase (a subprocess of this script)."""
+  torch.backends.cudnn.allow_tf32 = False
+  backend = distributed.initialize_multihost(args.ddp_url, args.ddp_world,
+                                             args.ddp_rank, 'cuda')
+  try:
+    device = distributed.rank_device('cuda')
+    torch.cuda.set_device(device)
+    result = ddp_steps(device, data_parallel=True)
+    result.update(backend=backend, device=str(device))
+    if args.ddp_world == 1:
+      # The same step without the process group, in this process.
+      alone = ddp_steps(device, data_parallel=False, steps=1, timed=False)
+      grads = [g.to(device) for g in alone['grads'].values()]
+      reduced = distributed.all_reduce_mean(grads)
+      result['alone'] = {
+          'loss': alone['losses'][0],
+          'all_reduce_identity': all(torch.equal(a, b)
+                                     for a, b in zip(grads, reduced)),
+          'grads': alone['grads']}
+    if args.ddp_rank != 0:
+      del result['grads']
+    torch.save(result, os.path.join(args.ddp_out, f'rank{args.ddp_rank}.pt'))
+  finally:
+    distributed.shutdown()
+  return 0
+
+
+def run_ranks(world: int, out_dir: str):
+  """Runs `world` ranks of ddp_rank_main as subprocesses; their results."""
+  url = f'file://{out_dir}/rendezvous_{world}'
+  procs = [subprocess.Popen(
+      [sys.executable, os.path.abspath(__file__), '--ddp_rank', str(r),
+       '--ddp_world', str(world), '--ddp_url', url, '--ddp_out', out_dir],
+      stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
+           for r in range(world)]
+  try:
+    logs = [p.communicate(timeout=DDP_TIMEOUT_S)[0] for p in procs]
+  finally:
+    for p in procs:
+      if p.poll() is None:
+        p.kill()
+        p.wait()
+  for r, (p, log) in enumerate(zip(procs, logs)):
+    if p.returncode != 0:
+      raise CheckFailed(f'data-parallel rank {r} of {world} exited with '
+                        f'{p.returncode}:\n{log[-4000:]}')
+  return [torch.load(os.path.join(out_dir, f'rank{r}.pt'), weights_only=True)
+          for r in range(world)]
+
+
+def compare_ranks(label, ranks, single, backend, failures):
+  """The ranks' steps against one process's on the global batch."""
+  first = ranks[0]
+  loss_rel = abs(first['losses'][0] - single['losses'][0]) / abs(
+      single['losses'][0])
+  trajectory = max(abs(a - b) / abs(b) for r in ranks
+                   for a, b in zip(r['losses'], single['losses']))
+  worst = max(((n, ((g - single['grads'][n]).abs().max() /
+                    single['grads'][n].abs().max()).item())
+               for n, g in first['grads'].items()), key=lambda w: w[1])
+  launches_ok = all(l == STEP_LAUNCHES for r in ranks for l in r['launches'])
+  backends = {r['backend'] for r in ranks}
+  if not (loss_rel <= LOSS_REL_BOUND and worst[1] <= GRAD_REL_BOUND and
+          trajectory <= DDP_TRAJECTORY_BOUND and launches_ok and
+          backends == {backend} and len(first['grads']) == 82):
+    failures.append(f'{label}: backends {backends}, loss rel {loss_rel:.2e}, '
+                    f'grad rel {worst[1]:.2e} ({worst[0]}), trajectory '
+                    f'{trajectory:.2e}, launches {first["launches"]}')
+  return {'loss_rel': loss_rel, 'grad_rel': worst[1], 'grad_worst': worst[0],
+          'trajectory_rel': trajectory, 'backends': sorted(backends),
+          'steps_per_s': [r['steps_per_s'] for r in ranks],
+          'losses': [r['losses'] for r in ranks]}
+
+
+def check_ddp(card, failures):
+  """Data-parallel training (parallel/distributed.py): two ranks sharing
+  cuda:0 over gloo against one process on the global batch, world size 1
+  over NCCL against the step without a group, and one rank a card over
+  NCCL where there are several."""
+  single = ddp_steps(torch.device('cuda'), data_parallel=False)
+  report = {'single_steps_per_s': single['steps_per_s']}
+  with tempfile.TemporaryDirectory() as out_dir:
+    report['shared'] = compare_ranks('two ranks on cuda:0',
+                                     run_ranks(2, out_dir), single, 'gloo',
+                                     failures)
+    nccl, = run_ranks(1, out_dir)
+    alone = nccl['alone']
+    grad_rel = max(((g - alone['grads'][n]).abs().max() /
+                    alone['grads'][n].abs().max()).item()
+                   for n, g in nccl['grads'].items())
+    bit_equal = all(torch.equal(g, alone['grads'][n])
+                    for n, g in nccl['grads'].items())
+    if not (nccl['backend'] == 'nccl' and alone['all_reduce_identity'] and
+            nccl['losses'][0] == alone['loss'] and
+            grad_rel <= GRAD_REL_BOUND):
+      failures.append(f'world size 1 over {nccl["backend"]}: loss '
+                      f'{nccl["losses"][0]} vs {alone["loss"]}, all-reduce '
+                      f'identity {alone["all_reduce_identity"]}, grad rel '
+                      f'{grad_rel:.2e}')
+    report['nccl_world1'] = {'backend': nccl['backend'], 'grad_rel': grad_rel,
+                             'grads_bit_equal': bit_equal}
+    cards = torch.cuda.device_count()
+    if cards > 1:
+      report['per_card'] = compare_ranks(f'{cards} ranks, one a card',
+                                         run_ranks(cards, out_dir), single,
+                                         'nccl', failures)
+  shared = report['shared']
+  print(f'data-parallel: two ranks sharing cuda:0 over '
+        f'{shared["backends"]} (global batch {TRAIN_BATCH}, 4 a rank, '
+        f'released config, f32, TF32 and cuDNN off, the augmentations) vs '
+        f'one process at batch {TRAIN_BATCH}: first loss rel '
+        f'{shared["loss_rel"]:.2e} (bound {LOSS_REL_BOUND:.0e}), worst '
+        f'averaged grad rel {shared["grad_rel"]:.2e} '
+        f'({shared["grad_worst"]}, bound {GRAD_REL_BOUND:.0e}), '
+        f'{DDP_STEPS}-step losses rel {shared["trajectory_rel"]:.2e} (bound '
+        f'{DDP_TRAJECTORY_BOUND:.0e}); launches a step and rank '
+        f'{STEP_LAUNCHES}; steps/s (TF32 allowed, {DDP_TIMED} after '
+        f'{DDP_WARMUP}) two ranks {shared["steps_per_s"]}, one process '
+        f'{single["steps_per_s"]:.3f}; on {card}')
+  print(f'data-parallel: world size 1 over {nccl["backend"]}: the loss '
+        f'equals the step without a group bit for bit '
+        f'{nccl["losses"][0] == alone["loss"]}, the NCCL all-reduce returns '
+        f'the gradients\' bits {alone["all_reduce_identity"]}; gradients '
+        f'bit-equal {bit_equal}, worst rel {grad_rel:.2e} (the splat sums '
+        f'in no fixed order; bound {GRAD_REL_BOUND:.0e}); '
+        + (f'one rank a card over {report["per_card"]["backends"]}: '
+           f'{report["per_card"]}' if 'per_card' in report else
+           f'one rank a card: not run, {torch.cuda.device_count()} GPU')
+        + f'; on {card}')
+  return report
+
+
 def main() -> int:
   parser = argparse.ArgumentParser(description='GPU smoke test of the port.')
   parser.add_argument('--out', default=None,
                       help='Directory for the nvcc report and a JSON of '
                       'every measurement (optional).')
+  # One rank of the data-parallel phase, which this script starts itself.
+  for flag in ('--ddp_rank', '--ddp_world'):
+    parser.add_argument(flag, type=int, default=None, help=argparse.SUPPRESS)
+  for flag in ('--ddp_url', '--ddp_out'):
+    parser.add_argument(flag, default=None, help=argparse.SUPPRESS)
   args = parser.parse_args()
+  if args.ddp_rank is not None:
+    return ddp_rank_main(args)
   failures = []
 
   # Phase 1: the card.
@@ -1501,6 +2007,9 @@ def main() -> int:
                                                   failures)
   spatial_launches = spatial_report[
       repr(parallel_mesh.Mesh(['cuda:0'] * SHARDS))]['launches']
+
+  # Phase 6a: the split-concat convs against the concat form.
+  split_report = check_split(model.state_dict(), frames, dt, card, failures)
   del interpolator, model
 
   # Phase 7: the training path: film_net-L1, then film_net-Style with
@@ -1514,6 +2023,14 @@ def main() -> int:
 
   # Phase 8: the eval loop.
   eval_report = check_eval(card, failures)
+
+  # Phase 9: the host's data plane: the native CRC, the dataset builders
+  # (read back and evaluated on the card).
+  crc_report = check_native_crc(card, failures)
+  builders_report = check_builders(card, failures)
+
+  # Phase 10: data-parallel training across processes.
+  ddp_report = check_ddp(card, failures)
 
   # Launches: the serving run's for the forward kernels, the 20-step
   # training run's for the backward ones, the row-sharded pair's over 4
@@ -1555,11 +2072,19 @@ def main() -> int:
                  'tiled_tree': tiled_report, 'spatial': spatial_report,
                  'sharded': sharded_report, 'training': train_report,
                  'style': style_report, 'gin_loop': gin_report,
-                 'eval': eval_report, 'failures': failures}, f, indent=1)
+                 'eval': eval_report, 'split': split_report,
+                 'native_crc': crc_report, 'builders': builders_report,
+                 'ddp': ddp_report, 'failures': failures}, f, indent=1,
+                default=str)
 
   if failures:
     print('chip_smoke: FAILED: ' + '; '.join(failures), file=sys.stderr)
     return 1
+  print(json.dumps({'native_crc': {
+      'route': 'c', 'source': 'frame_interpolation_tpu_torch/native/fi_native.c',
+      'replaces': 'frame_interpolation_tpu/native/_fi_native.c',
+      'mb_s': crc_report['native_mb_s'],
+      'python_mb_s': crc_report['python_mb_s']}}))
   print(json.dumps(record))
   print(json.dumps({'ok': True, 'device': {
       'platform': 'gpu', 'kind': kind, 'count': torch.cuda.device_count()}}))

@@ -1,9 +1,10 @@
 """Helpers shared by the port's CLIs (JAX cli/_common.py's counterparts)."""
 from __future__ import annotations
 
+import argparse
 import dataclasses
 import logging
-from typing import Optional, Sequence
+from typing import Mapping, Optional, Sequence
 
 import torch
 
@@ -82,3 +83,35 @@ def to_mesh_interpolator(interpolator, mode: Optional[str],
                     mesh.size)
   return sharded.ShardedInterpolator(model, options, mesh, block_shape,
                                      align=align)
+
+
+def triplet_record_parser(description: str, num_shards: int
+                          ) -> argparse.ArgumentParser:
+  """The flags every dataset builder shares (JAX cli/create_*_tfrecord's
+  names and defaults)."""
+  parser = argparse.ArgumentParser(description=description)
+  parser.add_argument('--output_tfrecord_filepath', required=True,
+                      help='Output TFRecord filepath; shards are written '
+                      'as <path>-0000i-of-0000N.')
+  parser.add_argument('--num_shards', type=int, default=num_shards,
+                      help='Output shards.')
+  parser.add_argument('--num_workers', type=int, default=8,
+                      help='Builder threads.')
+  return parser
+
+
+def write_triplet_records(args: argparse.Namespace,
+                          triplet_dicts: Sequence[Mapping[str, str]],
+                          scale_factor: int = 1,
+                          center_crop_factor: int = 1) -> int:
+  """Runs the triplet pipeline (data/builders/triplets.py) into the
+  builder's shards; returns the number of examples written."""
+  from ..data.builders import triplets
+  written = triplets.run_pipeline(
+      triplet_dicts, args.output_tfrecord_filepath, args.num_shards,
+      scale_factor=scale_factor, center_crop_factor=center_crop_factor,
+      num_workers=args.num_workers)
+  logging.info("Succeeded in creating the output TFRecord file: '%s@%s' "
+               '(%d examples).', args.output_tfrecord_filepath,
+               args.num_shards, written)
+  return written

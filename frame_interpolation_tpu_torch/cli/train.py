@@ -20,8 +20,23 @@ when no GPU is visible; `--device cpu` runs the plain versions of the
 kernels on the host. `--eval_files` with as many `--eval_names` evaluates
 those datasets at each save interval (training/eval_lib.py; summaries
 under `<run>/eval`). `--profile_dir` writes a torch.profiler trace of
-steps [10, 15) there. Multi-host training waits for a later slice
-(ROADMAP A10); its flags are not accepted.
+steps [10, 15) there.
+
+Data-parallel training over several processes (parallel/distributed.py):
+start one process per rank with the same flags plus
+`--coordinator_address host:port` (rank 0's; or a URL such as
+file:///shared/rendezvous), `--num_processes N` and `--process_id i`.
+`--batch_size` stays the global batch, which N must divide. Each rank
+trains on `cuda:{LOCAL_RANK or process_id} % device_count` (or the CPU);
+the ranks of a host that each have a card talk over NCCL, ranks that share
+one (or the CPU) over gloo. Rank 0 alone writes the run directory.
+
+  python3 -m frame_interpolation_tpu_torch.cli.train --train_file t@200 \
+    --base_folder runs --coordinator_address localhost:29500 \
+    --num_processes 2 --process_id 0 &
+  python3 -m frame_interpolation_tpu_torch.cli.train --train_file t@200 \
+    --base_folder runs --coordinator_address localhost:29500 \
+    --num_processes 2 --process_id 1
 """
 from __future__ import annotations
 
@@ -85,6 +100,14 @@ def _parser() -> argparse.ArgumentParser:
                       'steps here.')
   parser.add_argument('--device', default='cuda',
                       help="Torch device: 'cuda' (default) or 'cpu'.")
+  parser.add_argument('--coordinator_address', default=None,
+                      help='host:port of process 0 for data-parallel '
+                      'training over several processes (or an init URL '
+                      'such as file:///path); leave unset for one process.')
+  parser.add_argument('--num_processes', type=int, default=None,
+                      help='Total processes (data-parallel).')
+  parser.add_argument('--process_id', type=int, default=None,
+                      help='This process index (data-parallel).')
   return parser
 
 
@@ -96,10 +119,27 @@ def main(argv: Optional[Sequence[str]] = None) -> None:
                  f'--eval_names {len(args.eval_names)}; give one name per '
                  'file.')
   device = device_from_flag(args.device)
+  from ..parallel import distributed
+  backend = distributed.initialize_multihost(
+      args.coordinator_address, args.num_processes, args.process_id,
+      device_type=device.type)
+  if backend is None:
+    _train(args, device)
+    return
+  try:
+    device = distributed.rank_device(device.type)
+    if device.type == 'cuda':
+      torch.cuda.set_device(device)
+    _train(args, device)
+  finally:
+    distributed.shutdown()
 
+
+def _train(args: argparse.Namespace, device: torch.device) -> None:
   from .. import losses as losses_lib
   from ..data import dataset as dataset_lib
   from ..models.film_net import FilmNet
+  from ..parallel import distributed
   from ..training import configs, eval_lib, metrics_lib, sources, train_lib
   from ..utils import tensorboard
 
@@ -111,10 +151,12 @@ def main(argv: Optional[Sequence[str]] = None) -> None:
     config = configs.get_experiment(args.experiment,
                                     vgg_model_file=args.vgg_model_file)
   run_dir = os.path.join(args.base_folder, args.label)
-  os.makedirs(run_dir, exist_ok=True)
-  # The effective config, for reproducibility (train.py:85-87).
-  with open(os.path.join(run_dir, 'config.json'), 'w') as f:
-    json.dump(dataclasses.asdict(config), f, indent=2, default=str)
+  lead = distributed.rank() == 0
+  if lead:
+    os.makedirs(run_dir, exist_ok=True)
+    # The effective config, for reproducibility (train.py:85-87).
+    with open(os.path.join(run_dir, 'config.json'), 'w') as f:
+      json.dump(dataclasses.asdict(config), f, indent=2, default=str)
 
   batch_size = args.batch_size or config.dataset.batch_size
   crop_size = (args.crop_size if args.crop_size is not None
@@ -137,7 +179,7 @@ def main(argv: Optional[Sequence[str]] = None) -> None:
       source_list, batch_size=batch_size, weights=weights)
 
   eval_fn = None
-  if args.eval_files:
+  if args.eval_files and lead:
     test_losses = losses_lib.test_losses(
         list(config.test_losses.names),
         loss_weight_schedules=list(config.test_losses.weight_schedules),

@@ -1,7 +1,7 @@
 """Self-contained TFRecord reader/writer (no TensorFlow dependency).
 
-Port of frame_interpolation_tpu/data/tfrecord.py without its optional C
-extension: the on-disk format of the reference's datasets
+Port of frame_interpolation_tpu/data/tfrecord.py: the on-disk format of
+the reference's datasets
 (training/data_lib.py:170-209 in google-research/frame-interpolation),
 
   record := uint64 length (LE) | uint32 masked_crc32c(length) |
@@ -10,15 +10,23 @@ extension: the on-disk format of the reference's datasets
 
 with crc the CRC32C (Castagnoli).
 
-The CRC is a table-driven Python loop; readers skip it with
-`validate=False` (the training and eval pipelines do). Sharded names follow
-the reference: '<name>@N' expands to '<name>-0000i-of-0000N'.
+The CRC is the native library's slicing-by-8 loop (native/, built with
+the host's C compiler at first use) where it builds, else a table-driven
+Python loop, as the JAX package falls back; `crc_backend()` says which.
+The writer checksums every record with it, and `read_records` with
+`validate=True` scans a memory map of the file in C. Readers skip the CRC
+with `validate=False` (the training and eval pipelines do), which reads in
+Python and never builds the library. Sharded names follow the reference:
+'<name>@N' expands to '<name>-0000i-of-0000N'.
 """
 from __future__ import annotations
 
+import mmap
 import os
 import struct
 from typing import Iterator, List, Optional
+
+from .. import native
 
 _CRC_POLY = 0x82F63B78  # reversed Castagnoli polynomial
 _MASK_DELTA = 0xA282EAD8
@@ -37,8 +45,14 @@ def _make_table() -> List[int]:
 _TABLE = _make_table()
 
 
-def crc32c(data: bytes) -> int:
-  """CRC32C (Castagnoli) of `data`."""
+def crc_backend() -> str:
+  """'native' where the C library builds or is built here, else 'python'
+  (the first call may build it)."""
+  return 'native' if native.available() else 'python'
+
+
+def python_crc32c(data: bytes) -> int:
+  """CRC32C (Castagnoli) of `data`, a byte at a time in Python."""
   crc = 0xFFFFFFFF
   table = _TABLE
   for byte in data:
@@ -46,9 +60,22 @@ def crc32c(data: bytes) -> int:
   return crc ^ 0xFFFFFFFF
 
 
-def _masked_crc(data: bytes) -> int:
-  crc = crc32c(data)
+def python_masked_crc32c(data: bytes) -> int:
+  crc = python_crc32c(data)
   return ((crc >> 15 | crc << 17) + _MASK_DELTA) & 0xFFFFFFFF
+
+
+def crc32c(data: bytes) -> int:
+  """CRC32C (Castagnoli) of `data`."""
+  if native.available():
+    return native.crc32c(data)
+  return python_crc32c(data)
+
+
+def _masked_crc(data: bytes) -> int:
+  if native.available():
+    return native.masked_crc32c(data)
+  return python_masked_crc32c(data)
 
 
 class TFRecordWriter:
@@ -82,6 +109,9 @@ class TFRecordWriter:
 
 def read_records(path: str, validate: bool = True) -> Iterator[bytes]:
   """Yields raw record payloads from a TFRecord file."""
+  if validate and native.available():
+    yield from _read_records_native(path)
+    return
   with open(path, 'rb') as f:
     while True:
       header = f.read(12)
@@ -103,6 +133,21 @@ def read_records(path: str, validate: bool = True) -> Iterator[bytes]:
       if validate and _masked_crc(data) != data_crc:
         raise IOError(f'{path}: corrupted record data CRC')
       yield data
+
+
+def _read_records_native(path: str) -> Iterator[bytes]:
+  """read_records(validate=True) by one C pass over a memory map of the
+  file, which checks every CRC before the first record is yielded."""
+  with open(path, 'rb') as f:
+    if os.fstat(f.fileno()).st_size == 0:
+      return
+    with mmap.mmap(f.fileno(), 0, access=mmap.ACCESS_READ) as mapped:
+      try:
+        frames = native.scan_tfrecord(mapped, validate=True)
+      except IOError as e:
+        raise IOError(f'{path}: {e}') from None
+      for offset, length in frames:
+        yield mapped[offset:offset + length]
 
 
 def sharded_filenames(spec: str) -> List[str]:

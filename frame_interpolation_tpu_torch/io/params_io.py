@@ -33,12 +33,10 @@ from . import msgpack_lite
 OPTIONS_FILE = 'options.json'
 STATE_FILE = 'state_dict.pt'
 PARAMS_FILE = 'params.msgpack'
-# Fields of the JAX package's Options that the port does not have: the
-# first three choose between TPU execution layouts. split_convs is a layout
-# the port has not ported yet (ROADMAP A13); until it does, a bundle's value
-# is dropped and the port runs the literal concat form, which computes the
-# same function up to accumulation order.
-_JAX_ONLY_FIELDS = ('warp_impl', 'fold_convs', 'conv_stack', 'split_convs')
+# Fields of the JAX package's Options that the port does not have: they
+# choose between TPU execution layouts, and a bundle's values are dropped.
+# (split_convs is a field of both and loads.)
+_JAX_ONLY_FIELDS = ('warp_impl', 'fold_convs', 'conv_stack')
 
 
 def _leaves(tree: Mapping[str, Any], prefix=()):

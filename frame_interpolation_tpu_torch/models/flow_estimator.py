@@ -8,8 +8,9 @@ features with it, and predicts a residual from (A, warped B). The
 levels share one.
 
 Flow values and the warp's coordinate math stay f32 under the bf16 policy.
-The convs are plain convs on the (A, warped B) concat: the split-concat and
-folded forms of the JAX package are TPU layouts and are not ported.
+The first conv takes (A, warped B) as two pieces or as their concat, as
+`Options.split_convs` says (models/layers.py); the folded forms of the JAX
+package are TPU layouts and are not ported.
 """
 from __future__ import annotations
 
@@ -21,7 +22,7 @@ from torch import nn
 from ..ops import resize
 from ..ops import warp as warp_ops
 from ..options import Options
-from .layers import Conv, leaky_relu
+from .layers import Conv, conv_input, leaky_relu
 
 
 class FlowEstimator(nn.Module):
@@ -31,6 +32,7 @@ class FlowEstimator(nn.Module):
                options: Options):
     super().__init__()
     self.num_convs = num_convs
+    self.split_convs = options.split_convs
     cin = in_channels
     for i in range(num_convs):
       self.add_module(f'conv_{i}',
@@ -45,7 +47,7 @@ class FlowEstimator(nn.Module):
 
   def forward(self, features_a: torch.Tensor,
               features_b: torch.Tensor) -> torch.Tensor:
-    net = torch.cat([features_a, features_b], dim=-1)
+    net = conv_input([features_a, features_b], self.split_convs)
     for i in range(self.num_convs + 1):
       net = leaky_relu(getattr(self, f'conv_{i}')(net))
     return getattr(self, f'conv_{self.num_convs + 1}')(net.float())

@@ -3,7 +3,9 @@
 Port of frame_interpolation_tpu/models/fusion.py: from the coarsest
 aligned-feature level, each finer level does nearest x2 upsampling, a 2x2
 conv (TF-asymmetric SAME padding), a concat with the skip connection and
-two 3x3 convs with leaky-relu; a final f32 1x1 conv produces RGB. The
+two 3x3 convs with leaky-relu (the first of them takes the skip and the
+upsampled features as two pieces where `Options.split_convs` splits, and
+the concat is not built); a final f32 1x1 conv produces RGB. The
 coarsest level has no convs. Filter counts double per finer level up to
 `specialized_levels`.
 """
@@ -16,7 +18,7 @@ from torch import nn
 
 from ..ops import resize
 from ..options import Options
-from .layers import Conv, leaky_relu
+from .layers import Conv, conv_input, leaky_relu
 
 _NUMBER_OF_COLOR_CHANNELS = 3
 
@@ -27,6 +29,7 @@ class Fusion(nn.Module):
   def __init__(self, options: Options):
     super().__init__()
     self.levels = options.fusion_pyramid_levels
+    self.split_convs = options.split_convs
     k, m = options.filters, options.specialized_levels
     dtype = options.compute_dtype
 
@@ -58,7 +61,7 @@ class Fusion(nn.Module):
       entry = pyramid[i]
       net = resize.resize_nearest(net, (entry.shape[1], entry.shape[2]))
       net = getattr(self, f'conv_{i}_0')(net)  # 2x2 conv, no activation
-      net = torch.cat([entry, net], dim=-1)
+      net = conv_input([entry, net], self.split_convs)
       net = leaky_relu(getattr(self, f'conv_{i}_1')(net))
       net = leaky_relu(getattr(self, f'conv_{i}_2')(net))
     return self.output_conv(net.float())

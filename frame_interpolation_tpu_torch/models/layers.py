@@ -9,10 +9,18 @@ Inside a shard of a row-sharded forward (ops/rows.py) a conv on a slab
 takes the rows its window reaches from the neighbouring slabs, the halo
 GSPMD adds in JAX: 3x3 SAME one row on each side, the fusion's 2x2
 TF-SAME one row below, 1x1 none.
+
+A conv whose input is a channel concat may take the pieces instead, as a
+list (the split form of the JAX package's ops/folded_conv.FoldableConv):
+it convolves each piece with its slice of the weight's input channels,
+sums the partial outputs in the compute dtype and adds the bias once, so
+the concat is never written. `should_split` says which form a call site
+takes.
 """
 from __future__ import annotations
 
 import math
+from typing import List, Sequence, Union
 
 import torch
 import torch.nn.functional as F
@@ -44,6 +52,32 @@ def leaky_relu(x: torch.Tensor) -> torch.Tensor:
   return _LeakyRelu.apply(x)
 
 
+# Options.split_convs='auto' by device type: the JAX package's split form
+# on the CPU; on CUDA the form the H100 ran faster (tools/split_convs.py,
+# NVIDIA H100 80GB HBM3 at 700 W): the split form, at 54.9 ms a 1080p bf16
+# pair against 58.8 for the concat (torch.cat 10.6 ms against 15.0), with
+# the film_net-L1 step within noise (7.80 against 7.91 steps/s, runs
+# spread 6.2-8.8). A device type not listed splits, as JAX does.
+AUTO_SPLIT = {'cpu': True, 'cuda': True}
+
+Pieces = Union[torch.Tensor, Sequence[torch.Tensor]]
+
+
+def should_split(mode: str, device: torch.device) -> bool:
+  """Whether a concat conv on `device` runs split (Options.split_convs)."""
+  if mode == 'auto':
+    return AUTO_SPLIT.get(torch.device(device).type, True)
+  return mode == 'on'
+
+
+def conv_input(pieces: List[torch.Tensor], mode: str) -> Pieces:
+  """The input of a conv on the channel concat of NHWC `pieces`: the list
+  itself in the split form, else the concat."""
+  if should_split(mode, pieces[0].device):
+    return pieces
+  return torch.cat(pieces, dim=-1)
+
+
 class Conv(nn.Module):
   """A kernel_size x kernel_size 'SAME' conv on NHWC tensors.
 
@@ -59,26 +93,48 @@ class Conv(nn.Module):
     self.bias = nn.Parameter(torch.zeros(out_channels))
     self.compute_dtype = compute_dtype
 
-  def forward(self, x: torch.Tensor) -> torch.Tensor:
+  def forward(self, x: Pieces) -> torch.Tensor:
+    """The conv of NHWC `x`, or of the channel concat of a list of NHWC
+    pieces (the split form)."""
     shard = rows.current()
     k = self.weight.shape[-1]
-    if k == 1 or shard is None or not shard.split(x):
+    first = x if isinstance(x, torch.Tensor) else x[0]
+    if k == 1 or shard is None or not shard.split(first):
       return self.conv(x)
-    # TF's SAME: (k - 1) // 2 rows before, the rest after.
+    # TF's SAME: (k - 1) // 2 rows before, the rest after. The pieces of a
+    # split conv take their halos in one exchange.
     above = (k - 1) // 2
     ext = shard.halo(x, above, k - 1 - above)
-    return self.conv(ext)[:, above:above + x.shape[1]]
+    return self.conv(ext)[:, above:above + first.shape[1]]
 
-  def conv(self, x: torch.Tensor) -> torch.Tensor:
-    """The conv of `x` alone, as if it were the whole frame."""
+  def conv(self, x: Pieces) -> torch.Tensor:
+    """The conv of `x` (or of its pieces) alone, as if it were the whole
+    frame."""
+    if isinstance(x, torch.Tensor):
+      return self._conv(x, self.weight, self.bias)
+    # JAX's order: the partial outputs summed in the compute dtype, then
+    # the bias (ops/folded_conv.FoldableConv's split branch).
+    y, offset = None, 0
+    for piece in x:
+      c = piece.shape[-1]
+      part = self._conv(piece, self.weight[:, offset:offset + c], None)
+      y = part if y is None else y + part
+      offset += c
+    if offset != self.weight.shape[1]:
+      raise ValueError(f'pieces of {offset} channels for a conv of '
+                       f'{self.weight.shape[1]} input channels')
+    return y + self.bias.to(self.compute_dtype)
+
+  def _conv(self, x: torch.Tensor, weight: torch.Tensor,
+            bias: torch.Tensor = None) -> torch.Tensor:
     dtype = self.compute_dtype
-    k = self.weight.shape[-1]
+    k = weight.shape[-1]
     x = x.to(dtype).permute(0, 3, 1, 2)
     if k % 2 == 0:
       # TF's SAME for an even kernel pads less before than after.
       lo = (k - 1) // 2
       x = F.pad(x, (lo, k - 1 - lo, lo, k - 1 - lo))
-    y = F.conv2d(x, self.weight.to(dtype), self.bias.to(dtype),
+    y = F.conv2d(x, weight.to(dtype), None if bias is None else bias.to(dtype),
                  padding=k // 2 if k % 2 else 0)
     return y.permute(0, 2, 3, 1).contiguous()
 

@@ -10,7 +10,8 @@ per thread, each on its slab of the frame's rows, with that shard's
 across rows read it through `current()`:
 
   * models/layers.Conv: a k x k SAME conv takes its missing rows from the
-    neighbouring slabs (zeros beyond the frame, as SAME pads);
+    neighbouring slabs (zeros beyond the frame, as SAME pads); a split
+    conv's pieces take theirs in one exchange;
   * ops/resize: a 2x upsample takes one row on each side (the edge row
     again beyond the frame, as the resize clamps);
   * ops/pyramid.avg_pool_2x and the extractor's fused pool stay local on
@@ -124,13 +125,22 @@ class RowShard:
     values = self.exchange(float(value))
     return float('nan') if any(v != v for v in values) else max(values)
 
-  def halo(self, x: torch.Tensor, above: int, below: int,
-           edge: str = 'zeros') -> torch.Tensor:
+  def halo(self, x, above: int, below: int, edge: str = 'zeros'):
     """This shard's slab with `above` rows before it and `below` after it
     from the other shards' slabs, in one exchange. Rows beyond the frame
     are zeros (`edge='zeros'`, SAME padding) or the frame's edge row
-    (`edge='clamp'`)."""
-    slabs = self.exchange(x)
+    (`edge='clamp'`). `x` may be a list of slabs of one level (a split
+    conv's pieces): they share the one exchange, and the list of their
+    extended slabs comes back."""
+    if isinstance(x, torch.Tensor):
+      return self._extend(x, self.exchange(x), above, below, edge)
+    pieces = list(x)
+    slabs = self.exchange(pieces)
+    return [self._extend(p, [s[j] for s in slabs], above, below, edge)
+            for j, p in enumerate(pieces)]
+
+  def _extend(self, x: torch.Tensor, slabs: List[torch.Tensor], above: int,
+              below: int, edge: str) -> torch.Tensor:
     slab = x.shape[1]
     height = slab * self.n
     lo = self.index * slab - above

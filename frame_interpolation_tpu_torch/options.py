@@ -2,10 +2,11 @@
 
 Mirrors frame_interpolation_tpu/options.py field for field and value for
 value, minus the knobs that choose between TPU execution layouts
-(`warp_impl`, `fold_convs`, `conv_stack`, `split_convs`). The port has one
-route per device instead: a CUDA tensor always goes through the
+(`warp_impl`, `fold_convs`, `conv_stack`). The port has one route per
+device for those instead: a CUDA tensor always goes through the
 hand-written kernels, a CPU tensor always through their plain PyTorch
-versions.
+versions. `split_convs` is kept: it chooses between two forms of the same
+convs on every device (models/layers.py).
 
 The maximum motion the model resolves is 2^(pyramid_levels-1) *
 flow_convs[-1] pixels; inputs must be divisible by 2^(pyramid_levels-1).
@@ -37,6 +38,18 @@ class Options:
     dtype_policy: 'float32', or 'bfloat16' for bf16 conv compute with f32
       accumulation (parameters stay f32; flow values, warp coordinates and
       weights, the last flow conv and the output conv stay f32).
+    split_convs: how a conv whose input is a channel concat runs (the flow
+      predictors' (features, warped features) and the fusion decoder's
+      (skip, upsampled) inputs). 'on': one conv per piece with the
+      weight's slice of input channels, the partial outputs summed in the
+      compute dtype and the bias added once, so the concat is never
+      written (the JAX package's split form). 'off': the conv of the
+      concat. 'auto': the split form on the CPU, as the JAX package's
+      default; on CUDA the form that the H100 ran faster at the 1080p
+      bf16 pair and the train step (models/layers.AUTO_SPLIT, with the
+      numbers in PERF.md). The two forms compute the same function up to
+      accumulation order (and, under bf16, one more rounding of each
+      partial output).
   """
   pyramid_levels: int = 5
   fusion_pyramid_levels: int = 5
@@ -47,6 +60,7 @@ class Options:
   filters: int = 16
   use_aux_outputs: bool = True
   dtype_policy: str = 'float32'
+  split_convs: str = 'auto'
 
   def __post_init__(self):
     if self.pyramid_levels < self.fusion_pyramid_levels:
@@ -55,6 +69,8 @@ class Options:
           'fusion_pyramid_levels.')
     if self.dtype_policy not in ('float32', 'bfloat16'):
       raise ValueError(f'Unknown dtype_policy: {self.dtype_policy}')
+    if self.split_convs not in ('auto', 'on', 'off'):
+      raise ValueError(f'Unknown split_convs: {self.split_convs}')
 
   @property
   def compute_dtype(self) -> torch.dtype:

@@ -23,8 +23,21 @@ reference's training/train.py and train_lib.py):
 
 The model, the batch and the augmentations live on one device; on CUDA the
 warp and the extractor's conv stacks run the hand-written kernels forward
-and backward (ops/warp.py, ops/conv_stack.py). The multi-host path waits
-for a later slice (ROADMAP A10).
+and backward (ops/warp.py, ops/conv_stack.py).
+
+Data-parallel across processes (parallel/distributed.py): where a process
+group is initialized, every rank reads the same global batch from the
+same seeded iterator, augments all of it with the step's generator (so
+its examples get the draws one process would give them), keeps its slice
+(`process_batch_slice`) and runs the forward and backward on it. Then one
+all-reduce of the flattened gradients and losses averages them over the
+ranks, before Adam: an all-reduce by hand rather than
+DistributedDataParallel, because the step is then the single-process step
+plus one collective (the model, its state_dict names and its checkpoints
+stay as they are, and no bucketing hook reorders the sums), at the cost
+of not overlapping the exchange with the backward. Rank 0 alone writes
+the summaries, checkpoints, export and eval; every rank restores, and the
+ranks meet at a barrier after each save.
 """
 from __future__ import annotations
 
@@ -43,6 +56,7 @@ from ..data import augmentations as augmentations_lib
 from ..io import params_io
 from ..models.film_net import FilmNet, init_params
 from ..options import Options
+from ..parallel import distributed
 from ..utils import profiling, tensorboard
 
 
@@ -114,6 +128,7 @@ def make_train_step(
     opts: TrainingOptions,
     augmentation_names: Sequence[str] = (),
     with_summaries: bool = True,
+    data_parallel: bool = False,
 ) -> Callable[[TrainState, Batch, torch.Generator],
               Tuple[Dict[str, torch.Tensor], Dict[str, torch.Tensor]]]:
   """Builds the train step.
@@ -125,7 +140,10 @@ def make_train_step(
   `batch` holds (B, H, W, 3) tensors 'x0', 'x1', 'y' and a (B, 1) 'time'
   on the model's device. `metrics` holds every loss and 'training_loss'
   (detached 0-d tensors). `with_summaries=False` is the lean variant,
-  which keeps no images: `summaries` is then empty.
+  which keeps no images: `summaries` is then empty. With
+  `data_parallel`, `batch` is the global batch: the step augments all of
+  it, trains on this rank's slice, and averages the gradients and the
+  metrics over the ranks (the module docstring says how).
   """
   augmentation_fns = augmentations_lib.data_augmentations(augmentation_names)
   schedule = learning_rate_schedule(opts)
@@ -133,6 +151,9 @@ def make_train_step(
   def step_fn(state: TrainState, batch: Batch, generator: torch.Generator):
     batch = augmentations_lib.apply_data_augmentation(
         augmentation_fns, generator, batch)
+    if data_parallel:
+      start, size = distributed.process_batch_slice(batch['y'].shape[0])
+      batch = {k: v[start:start + size] for k, v in batch.items()}
     model, optimizer = state.model, state.optimizer
     predictions = model(batch['x0'], batch['x1'], batch['time'])
     per_loss = {}
@@ -143,6 +164,8 @@ def make_train_step(
       total = total + weight_fn(state.step) * value
     optimizer.zero_grad(set_to_none=True)
     total.backward()
+    if data_parallel:
+      total = _average_over_ranks(model, per_loss, total)
     set_learning_rate(optimizer, schedule(state.step))
     optimizer.step()
     state.step += 1
@@ -163,6 +186,22 @@ def make_train_step(
   return step_fn
 
 
+def _average_over_ranks(model: FilmNet, per_loss: Dict[str, torch.Tensor],
+                        total: torch.Tensor) -> torch.Tensor:
+  """Replaces every gradient and every entry of `per_loss` by its mean over
+  the ranks (one all-reduce); returns the mean training loss."""
+  params = list(model.parameters())
+  grads = [torch.zeros_like(p) if p.grad is None else p.grad
+           for p in params]
+  losses = torch.stack([*per_loss.values(), total.detach()])
+  *grads, losses = distributed.all_reduce_mean(grads + [losses])
+  for p, g in zip(params, grads):
+    p.grad = g
+  for i, name in enumerate(per_loss):
+    per_loss[name] = losses[i]
+  return losses[-1]
+
+
 # ---- checkpointing ----------------------------------------------------------
 
 
@@ -172,20 +211,25 @@ class CheckpointManager:
   Checkpoints live under `<run>/train`, as the reference's
   tf.train.CheckpointManager keeps them (train_lib.py:202-206): one
   `ckpt-<step>.pt` per save, `torch.save` of the step, the model's
-  state_dict and the optimizer's.
+  state_dict and the optimizer's. `create=False` only reads: the
+  directory is not made (a rank other than 0 restores, rank 0 saves).
   """
 
   _NAME = re.compile(r'^ckpt-(\d+)\.pt$')
 
-  def __init__(self, directory: str, max_to_keep: int = 10):
+  def __init__(self, directory: str, max_to_keep: int = 10,
+               create: bool = True):
     self._directory = os.path.abspath(directory)
     self._max_to_keep = max_to_keep
-    os.makedirs(self._directory, exist_ok=True)
+    if create:
+      os.makedirs(self._directory, exist_ok=True)
 
   def _path(self, step: int) -> str:
     return os.path.join(self._directory, f'ckpt-{step}.pt')
 
   def steps(self) -> Sequence[int]:
+    if not os.path.isdir(self._directory):
+      return []
     found = (self._NAME.match(name) for name in os.listdir(self._directory))
     return sorted(int(m.group(1)) for m in found if m)
 
@@ -254,26 +298,36 @@ def train_loop(
   given, runs after each checkpoint with the state and its step. With
   `profile_dir`, the steps from `profile_start_step` (counted in updates
   made, as state.step is) for `profile_num_steps` are traced there.
+
+  In a process group every rank runs the loop on the same global batches
+  (data-parallel, see the module docstring); only rank 0 logs, traces and
+  writes anything under `run_dir`.
   """
+  data_parallel = distributed.is_initialized()
+  lead = distributed.rank() == 0
+  if not lead:
+    log_fn = _silent
   step_fn = make_train_step(losses, opts, augmentation_names,
-                            with_summaries=False)
+                            with_summaries=False, data_parallel=data_parallel)
   summary_step_fn = make_train_step(losses, opts, augmentation_names,
-                                    with_summaries=True)
+                                    with_summaries=True,
+                                    data_parallel=data_parallel)
   ckpt = CheckpointManager(os.path.join(run_dir, 'train'),
-                           max_to_keep=opts.max_to_keep)
+                           max_to_keep=opts.max_to_keep, create=lead)
   if ckpt.restore(state):
     log_fn(f'Restored checkpoint at step {state.step}')
   device = next(state.model.parameters()).device
   state.model.train()
   schedule = learning_rate_schedule(opts)
 
-  writer = tensorboard.create_writer(os.path.join(run_dir, 'train'))
+  writer = tensorboard.create_writer(
+      os.path.join(run_dir, 'train') if lead else None)
   timer = profiling.StepTimer(opts.timing_interval, start_step=state.step,
                               device=device)
   trace = None
   try:
     while state.step < opts.num_steps:
-      if profile_dir and state.step == profile_start_step:
+      if profile_dir and lead and state.step == profile_start_step:
         trace = profiling.Trace(profile_dir)
       batch = batch_to_device(next(train_iterator), device)
       next_step = state.step + 1
@@ -290,7 +344,7 @@ def train_loop(
       if steps_per_sec is not None:
         writer.scalar('steps/sec', steps_per_sec, next_step)
 
-      if will_log:
+      if will_log and lead:
         host_metrics = {k: float(v) for k, v in metrics.items()}
         for name, value in host_metrics.items():
           writer.scalar(f'losses/{name}', value, next_step)
@@ -308,12 +362,18 @@ def train_loop(
         if eval_fn is not None:
           eval_fn(state, next_step)
         writer.flush()
+      if will_log:
+        distributed.barrier()  # every rank waits for rank 0's save
   finally:
     # A run that ends or fails inside the window closes it there.
     if trace is not None:
       _close_trace(trace, profile_start_step, state.step, log_fn)
   writer.close()
   return state
+
+
+def _silent(message: str) -> None:
+  del message
 
 
 def _close_trace(trace: profiling.Trace, first: int, end: int,
@@ -343,22 +403,28 @@ def train(model: FilmNet,
   The weights are drawn on the CPU from `init_generator` (seed 0 when
   None), then the model moves to `device`. The trained weights go to
   `<run_dir>/saved_model` (io/params_io.save_state_bundle), which the
-  port's Interpolator loads.
+  port's Interpolator loads. In a process group each rank passes its own
+  device (parallel/distributed.rank_device); every rank draws the same
+  weights, and rank 0 alone writes.
   """
   if init_generator is None:
     init_generator = torch.Generator().manual_seed(0)
   model = init_params(model, init_generator).to(device)
   state = create_train_state(model, opts)
+  lead = distributed.rank() == 0
   # The model's hyperparameters beside its checkpoints, so that a
   # checkpoint converts into a bundle (cli/build_params) on its own.
-  params_io.write_options(os.path.join(run_dir, 'train'), model_options)
+  if lead:
+    params_io.write_options(os.path.join(run_dir, 'train'), model_options)
   state = train_loop(state, losses, train_iterator, opts, run_dir,
                      augmentation_names=augmentation_names, seed=seed,
                      log_fn=log_fn, eval_fn=eval_fn, profile_dir=profile_dir,
                      profile_start_step=profile_start_step,
                      profile_num_steps=profile_num_steps)
-  bundle_dir = os.path.join(run_dir, 'saved_model')
-  params_io.save_state_bundle(bundle_dir, state.model.state_dict(),
-                              model_options)
-  log_fn(f'Exported the trained weights to {bundle_dir}')
+  if lead:
+    bundle_dir = os.path.join(run_dir, 'saved_model')
+    params_io.save_state_bundle(bundle_dir, state.model.state_dict(),
+                                model_options)
+    log_fn(f'Exported the trained weights to {bundle_dir}')
+  distributed.barrier()
   return state

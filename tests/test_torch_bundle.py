@@ -147,6 +147,14 @@ def test_jax_options_with_tpu_fields_load(tiny_bundle, tmp_path):
       fields)
   loaded, options = params_io.load_params(path)
   assert options == Options.tiny()
+  # split_convs is ported: a bundle's value reaches Options.
+  fields['split_convs'] = 'off'
+  off = tmp_path / 'off'
+  off.mkdir()
+  (off / 'options.json').write_text(json.dumps(fields))
+  (off / params_io.PARAMS_FILE).write_bytes(
+      open(os.path.join(path, params_io.PARAMS_FILE), 'rb').read())
+  assert params_io.load_params(str(off))[1] == Options.tiny(split_convs='off')
   fields['pyramid_depth'] = 3
   bad = tmp_path / 'bad'
   bad.mkdir()

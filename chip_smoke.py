@@ -34,6 +34,18 @@ the port's two paths:
     params.msgpack (io/params_io.save_params), decoded on the host
     (io/msgpack_lite) and served through load_interpolator, held against
     the direct Interpolator;
+  * a TF release of the reference: the serving model written in TF's
+    layout by write_tf_checkpoint (the released files are not in the
+    repository) as a tf.train.Checkpoint directory (with save_counter and
+    an Adam slot, which the import skips) and as a SavedModel's variables
+    (with a placeholder saved_model.pb that nothing parses), each read
+    back without TensorFlow (io/tf_import, io/tf_bundle) to a state_dict
+    bit-equal to the model's, served through load_interpolator against
+    the direct Interpolator with the pair's launch counts, and converted
+    by cli.build_params --tf_model; the host's write and read seconds
+    and MB/s beside the JAX bundle's decode; cli.verify_released on the
+    checkpoint form with two seeded 1080p frames must pass, its TF checks
+    skipped (no SavedModel there, and this host has no TensorFlow);
   * training film_net-Style (the same step with l1 + vgg + style at step
     1,500,001, where vgg weighs 0.25 and style 40; VGG-19 to conv5_2 at its
     true widths, seeded random weights written as a MatConvNet .mat, since
@@ -110,9 +122,11 @@ from __future__ import annotations
 import argparse
 import contextlib
 import dataclasses
+import io
 import json
 import os
 import re
+import struct
 import subprocess
 import sys
 import tempfile
@@ -124,16 +138,18 @@ import torch
 from frame_interpolation_tpu_torch import losses as losses_lib
 from frame_interpolation_tpu_torch import native
 from frame_interpolation_tpu_torch.cli import (build_params,
-                                               create_middlebury_tfrecord)
+                                               create_middlebury_tfrecord,
+                                               verify_released)
 from frame_interpolation_tpu_torch.data import dataset as dataset_lib
-from frame_interpolation_tpu_torch.data import tfrecord
+from frame_interpolation_tpu_torch.data import records, tfrecord
 from frame_interpolation_tpu_torch.inference import (Interpolator,
                                                      cached_tree,
                                                      interpolator as
                                                      interpolator_lib,
                                                      load_interpolator,
                                                      recursion)
-from frame_interpolation_tpu_torch.io import images, params_io
+from frame_interpolation_tpu_torch.io import (images, params_io, tf_bundle,
+                                             tf_import)
 from frame_interpolation_tpu_torch.losses import vgg19
 from frame_interpolation_tpu_torch.models import (create_model, init_params,
                                                   layers)
@@ -860,6 +876,210 @@ def write_vgg_mat(path: str, seed: int = 0) -> None:
   vgg19.save_vgg_weights(path, kernels)
 
 
+# The TF release's layout (io/tf_bundle.py reads it): TF's table options
+# (256 KiB blocks, a restart every 16 keys) and attribute-path suffix.
+TF_BLOCK_SIZE, TF_RESTART_INTERVAL = 262144, 16
+TF_ATTRIBUTE = '/.ATTRIBUTES/VARIABLE_VALUE'
+TF_DTYPES = {np.dtype(np.float32): tf_bundle.DT_FLOAT,
+             np.dtype(np.int64): tf_bundle.DT_INT64}
+
+
+def proto_varint(value: int) -> bytes:
+  out = bytearray()
+  while True:
+    byte = value & 0x7F
+    value >>= 7
+    if not value:
+      out.append(byte)
+      return bytes(out)
+    out.append(byte | 0x80)
+
+
+def proto_message(*fields) -> bytes:
+  """A protobuf message of (field, value) pairs: an int is a varint, bytes
+  or str length-delimited, ('fixed32', n) a fixed32."""
+  out = bytearray()
+  for field, value in fields:
+    if isinstance(value, tuple):
+      out += proto_varint(field << 3 | 5) + struct.pack('<I', value[1])
+    elif isinstance(value, int):
+      out += proto_varint(field << 3) + proto_varint(value)
+    else:
+      data = value.encode() if isinstance(value, str) else value
+      out += proto_varint(field << 3 | 2) + proto_varint(len(data)) + data
+  return bytes(out)
+
+
+def tf_table(entries) -> bytes:
+  """A LevelDB-style table of sorted (key, value) bytes pairs as TF's
+  table builder writes it: prefix-compressed data blocks with restarts,
+  each with a trailer (type 0, masked CRC32C), an index block of each
+  data block's last key, an empty metaindex block and the footer."""
+  out, index = bytearray(), []
+
+  def finish(block: bytearray, restarts) -> tuple:
+    block += b''.join(struct.pack('<I', r) for r in restarts)
+    block += struct.pack('<I', len(restarts))
+    handle = (len(out), len(block))
+    out.extend(block)
+    out.extend(b'\0' + struct.pack(
+        '<I', tfrecord.masked_crc32c(bytes(block) + b'\0')))
+    return handle
+
+  def build(pairs) -> tuple:
+    block, restarts, last = bytearray(), [], b''
+    for i, (key, value) in enumerate(pairs):
+      shared = 0
+      if i % TF_RESTART_INTERVAL == 0:
+        restarts.append(len(block))
+      else:
+        while (shared < min(len(key), len(last)) and
+               key[shared] == last[shared]):
+          shared += 1
+      block += (proto_varint(shared) + proto_varint(len(key) - shared) +
+                proto_varint(len(value)) + key[shared:] + value)
+      last = key
+    return finish(block, restarts or [0])
+
+  pending = []
+  for key, value in entries:
+    pending.append((key, value))
+    if sum(len(k) + len(v) for k, v in pending) >= TF_BLOCK_SIZE:
+      index.append((pending[-1][0], build(pending)))
+      pending = []
+  if pending:
+    index.append((pending[-1][0], build(pending)))
+  metaindex = build([])
+  index_handle = build([(key, proto_varint(offset) + proto_varint(size))
+                        for key, (offset, size) in index])
+  handles = b''.join(proto_varint(v) for v in metaindex + index_handle)
+  out += handles.ljust(40, b'\0') + struct.pack('<Q', tf_bundle.MAGIC)
+  return bytes(out)
+
+
+def tf_string_scalar(data: bytes) -> tuple:
+  """A string scalar's bundle bytes and their entry CRC."""
+  size = struct.pack('<I', len(data))
+  checksum = struct.pack('<I', tfrecord.masked_crc32c(size))
+  return (proto_varint(len(data)) + checksum + data,
+          tfrecord.masked_crc32c(size + checksum + data))
+
+
+def tf_object_graph(entries) -> bytes:
+  """A TrackableObjectGraph whose nodes are the checkpoint keys' path
+  components (children by local name) and whose attributes name each
+  entry's variable."""
+  children, attributes = [[]], [[]]
+  for key, full_name, _ in entries:
+    node = 0
+    for part in key[:-len(TF_ATTRIBUTE)].split('/'):
+      found = [child for name, child in children[node] if name == part]
+      if not found:
+        children.append([])
+        attributes.append([])
+        children[node].append((part, len(children) - 1))
+        found = [len(children) - 1]
+      node = found[0]
+    attributes[node].append(proto_message(
+        (1, 'VARIABLE_VALUE'), (2, full_name), (3, key)))
+  nodes = [proto_message(
+      *[(1, proto_message((1, child), (2, name))) for name, child in kids],
+      *[(2, attribute) for attribute in attrs])
+           for kids, attrs in zip(children, attributes)]
+  return proto_message(*[(1, node) for node in nodes])
+
+
+def tf_release_entries(state, options: Options, prefix: str):
+  """(checkpoint key, variable name, HWIO/bias array) of every weight, as
+  the reference's Keras model saves them: attribute paths by tracked
+  layer (feat_net 0, predict_flow 1, fusion 2), and its names, the
+  fusion's Keras auto-names in creation order."""
+  tree = params_io.to_flax_params(state)
+  entries = []
+  for k in range(2 * options.sub_levels):
+    entries.append((f'layer_with_weights-0/extract_sublevels/convs/{k}',
+                    f'feat_net/sub_extractor/cfeat_conv_{k}',
+                    tree['feat_net']['sub_extractor'][f'cfeat_conv_{k}']))
+  for i in range(options.specialized_levels + 1):
+    name = (f'flow_predictor_{i}' if i < options.specialized_levels else
+            'flow_predictor_shared')
+    for j in range(options.flow_convs[i] + 2):
+      entries.append((f'layer_with_weights-1/_predictors/{i}/_convs/{j}',
+                      f'predict_flow/{name}/conv_{j}',
+                      tree['predict_flow'][name][f'conv_{j}']))
+  levels = options.fusion_pyramid_levels
+  scopes = [f'convs/{i}/{s}' for i in range(levels - 1) for s in range(3)]
+  modules = [f'conv_{i}_{s}' for i in range(levels - 1) for s in range(3)]
+  for n, (scope, module) in enumerate(zip(scopes + ['output_conv'],
+                                          modules + ['output_conv'])):
+    entries.append((f'layer_with_weights-2/{scope}',
+                    'fusion/conv2d' + (f'_{n}' if n else ''),
+                    tree['fusion'][module]))
+  return [(f'{prefix}{path}/{leaf}{TF_ATTRIBUTE}', f'{name}/{leaf}',
+           np.ascontiguousarray(conv[leaf], np.float32))
+          for path, name, conv in entries for leaf in ('kernel', 'bias')]
+
+
+def write_tf_bundle(prefix: str, entries) -> None:
+  """`<prefix>.index` and `<prefix>.data-00000-of-00001` holding the
+  (key, variable name, array) entries and their object graph."""
+  graph, graph_crc = tf_string_scalar(tf_object_graph(entries))
+  tensors = {tf_bundle.OBJECT_GRAPH_KEY: (tf_bundle.DT_STRING, (), graph,
+                                           graph_crc)}
+  for key, _, array in entries:
+    data = array.tobytes()
+    tensors[key] = (TF_DTYPES[array.dtype], array.shape, data,
+                    tfrecord.masked_crc32c(data))
+  table = [(b'', proto_message((1, 1), (3, proto_message((1, 1)))))]
+  offset = 0
+  with open(tf_bundle.data_path(prefix, 0, 1), 'wb') as f:
+    for key in sorted(tensors):
+      dtype, shape, data, crc = tensors[key]
+      f.write(data)
+      shape_proto = proto_message(
+          *[(2, proto_message((1, size))) for size in shape])
+      table.append((key.encode(), proto_message(
+          (1, dtype), (2, shape_proto), (4, offset), (5, len(data)),
+          (6, ('fixed32', crc)))))
+      offset += len(data)
+  with open(prefix + '.index', 'wb') as f:
+    f.write(tf_table(sorted(table)))
+
+
+def write_tf_checkpoint(path: str, state, options: Options,
+                        form: str = 'checkpoint') -> None:
+  """The weights `state` as a TF release of the reference lays them out
+  (the released files are not in the repository), in one of two forms:
+
+    * 'checkpoint': tf.train.Checkpoint(model=...).save's directory:
+      `checkpoint`, `ckpt-1.index`, `ckpt-1.data-00000-of-00001`, keys
+      under `model/`, with `save_counter` and an Adam slot of the first
+      kernel, which an import must skip;
+    * 'saved_model': `variables/variables.{index,data-00000-of-00001}`,
+      keys from the model's root, and a `saved_model.pb` placeholder that
+      nothing parses (the weights' import never reads it).
+  """
+  os.makedirs(path, exist_ok=True)
+  if form == 'saved_model':
+    os.makedirs(os.path.join(path, 'variables'), exist_ok=True)
+    write_tf_bundle(os.path.join(path, 'variables', 'variables'),
+                    tf_release_entries(state, options, ''))
+    with open(os.path.join(path, 'saved_model.pb'), 'wb'):
+      pass
+    return
+  entries = tf_release_entries(state, options, 'model/')
+  kernel_key, kernel_name, kernel = entries[0]
+  slot = kernel_key.replace(TF_ATTRIBUTE,
+                            '/.OPTIMIZER_SLOT/optimizer/m' + TF_ATTRIBUTE)
+  entries += [(slot, f'Adam/{kernel_name}/m', np.zeros_like(kernel)),
+              ('save_counter' + TF_ATTRIBUTE, 'save_counter',
+               np.array(1, np.int64))]
+  write_tf_bundle(os.path.join(path, 'ckpt-1'), entries)
+  with open(os.path.join(path, 'checkpoint'), 'w') as f:
+    f.write('model_checkpoint_path: "ckpt-1"\n'
+            'all_model_checkpoint_paths: "ckpt-1"\n')
+
+
 def loss_ms(loss_fn, batch, image) -> float:
   """One loss's forward and its backward to the image, by CUDA events."""
   def run():
@@ -1021,6 +1241,107 @@ def check_jax_bundle(model, options, want, frames, dt, card, failures):
         f'{launches}; on {card}')
   return {'bytes': size, 'write_s': write_s, 'decode_s': decode_s,
           'max_abs_err': err, 'launches': launches}
+
+
+def check_tf_release(model, options, want, frames, dt, card, bundle_report,
+                     failures):
+  """The serving model written as a TF release of the reference (both
+  forms of write_tf_checkpoint), read back without TensorFlow
+  (io/tf_import), served through load_interpolator, converted by
+  cli.build_params --tf_model, and gated by cli.verify_released."""
+  state = {k: v.detach().cpu() for k, v in model.state_dict().items()}
+  jax_mb_s = bundle_report['bytes'] / 1e6 / bundle_report['decode_s']
+  native.available()  # the first CRC of the run builds it: before the timings
+  report = {}
+  with tempfile.TemporaryDirectory() as work:
+    for form in ('checkpoint', 'saved_model'):
+      path = os.path.join(work, form)
+      start = time.perf_counter()
+      write_tf_checkpoint(path, state, options, form)
+      write_s = time.perf_counter() - start
+      size = sum(os.path.getsize(os.path.join(root, name))
+                 for root, _, names in os.walk(path) for name in names)
+      start = time.perf_counter()
+      loaded, loaded_options = tf_import.load_tf_params(path)
+      read_s = time.perf_counter() - start
+      same = loaded.keys() == state.keys() and all(
+          torch.equal(loaded[k], v) for k, v in state.items())
+      interpolator = load_interpolator(path, align=64,
+                                       dtype_policy=options.dtype_policy,
+                                       device='cuda')
+      _kernels.reset_launch_counts()
+      got = interpolator(frames[0], frames[1], dt)
+      launches = _kernels.launch_counts()
+      err = float(np.abs(got - want).max())
+      bundle = os.path.join(work, f'{form}_bundle')
+      build_params.main(['--tf_model', path, '--output', bundle])
+      built, built_options = params_io.load_state_bundle(bundle)
+      built_same = built_options == loaded_options and all(
+          torch.equal(built[k], v) for k, v in state.items())
+      if not (same and loaded_options == dataclasses.replace(
+          options, dtype_policy='float32')):
+        failures.append(f'TF {form}: the import does not hold the serving '
+                        'weights')
+      if launches != PAIR_LAUNCHES:
+        failures.append(f'TF {form} pair launches {launches}')
+      if got.shape != want.shape or err > REPEAT_BOUND:
+        failures.append(f'TF {form} pair {got.shape}, max-abs {err:.3e}')
+      if not built_same:
+        failures.append(f'TF {form}: build_params --tf_model differs')
+      mb_s = size / 1e6 / read_s
+      note = ('; its saved_model.pb is a placeholder that nothing parses'
+              if form == 'saved_model' else '')
+      print(f'TF release, {form} form (released config, {size / 1e6:.1f} MB'
+            f'{note}): written in {write_s:.2f} s, read by io/tf_import in '
+            f'{read_s:.2f} s on the host ({mb_s:.1f} MB/s; the JAX bundle '
+            f'decoded at {jax_mb_s:.1f} MB/s in this run); state_dict '
+            f'bit-equal: {same}; a 1080p pair served from it (bf16 policy) '
+            f'max-abs {err:.1e} from the direct Interpolator (bound '
+            f'{REPEAT_BOUND:.0e}); launches {launches}; build_params '
+            f'--tf_model equal: {built_same}; on {card}')
+      report[form] = {'bytes': size, 'write_s': write_s, 'read_s': read_s,
+                      'mb_s': mb_s, 'max_abs_err': err,
+                      'launches': launches, 'build_params_equal': built_same}
+
+    # The release gate on the checkpoint form: the import and the smoke on
+    # two seeded frames run on the card; the TF checks skip (no
+    # SavedModel here, and this host has no TensorFlow).
+    argv = ['--model_path', os.path.join(work, 'checkpoint'),
+            '--device', 'cuda']
+    try:
+      rng = np.random.RandomState(9)
+      pair = [rng.rand(1080, 1920, 3).astype(np.float32) for _ in range(2)]
+      for i, frame in enumerate(pair):
+        images.write_image(os.path.join(work, f'frame{i}.png'), frame)
+      record = os.path.join(work, 'gate.tfrecord')
+      with tfrecord.TFRecordWriter(record) as writer:
+        writer.write(records.make_triplet_example(
+            [pair[0], pair[0], pair[1]], path='gate'))
+      argv += ['--frame1', os.path.join(work, 'frame0.png'),
+               '--frame2', os.path.join(work, 'frame1.png'),
+               '--tfrecord', record]
+    except ImportError as e:
+      print(f'verify_released: frames not written: PIL does not import on '
+            f'this host ({e}); the gate runs its import check alone')
+    out = io.StringIO()
+    start = time.perf_counter()
+    with contextlib.redirect_stdout(out):
+      status = verify_released.main(argv)
+    gate_s = time.perf_counter() - start
+    line = out.getvalue().strip().splitlines()[-1]
+    result = json.loads(line)
+  skipped = {name: check['skipped']
+             for name, check in result['checks'].items()
+             if 'skipped' in check}
+  if status != 0 or not result['pass']:
+    failures.append(f'verify_released: {line}')
+  print(f'verify_released on the checkpoint form in {gate_s:.1f} s: exit '
+        f'{status}, pass {result["pass"]}, {result["checks_run"]} checks run, '
+        f'skipped {skipped}; on {card}')
+  print(line)
+  report['verify_released'] = {'status': status, 'result': result,
+                               'seconds': gate_s}
+  return report
 
 
 def psnr_db(a: np.ndarray, b: np.ndarray) -> float:
@@ -1487,7 +1808,7 @@ def check_native_crc(card, failures):
   64 MiB of seeded bytes and on a TFRecord of them the port's writer
   wrote; MB/s of both."""
   native.library()  # raises if cc is absent or the build fails
-  # The first TFRecord the run wrote (the trainer's event files) built it.
+  # The first CRC the run took (the TF release phase) built it.
   build_s = native.BUILD_INFO['seconds']
   data = np.random.RandomState(7).bytes(CRC_BYTES)
   mb = CRC_BYTES / 2**20
@@ -1992,6 +2313,8 @@ def main() -> int:
         f'{repeat_err:.1e}; PSNR kernels vs plain {psnr:.2f} dB; on {card}')
   bundle_report = check_jax_bundle(model, options, out, frames, dt, card,
                                    failures)
+  tf_report = check_tf_release(model, options, out, frames, dt, card,
+                               bundle_report, failures)
 
   # Phase 5: the video slice: the exact uint8 rules, the frame tree by both
   # routes, the tiled tree.
@@ -2068,7 +2391,8 @@ def main() -> int:
                  'device_ms': device_ms, 'plain_device_ms': plain_device_ms,
                  'launches': launches, 'psnr_db': psnr,
                  'repeat_err': repeat_err, 'uint8': uint8_report,
-                 'jax_bundle': bundle_report, 'video': video_report,
+                 'jax_bundle': bundle_report, 'tf_release': tf_report,
+                 'video': video_report,
                  'tiled_tree': tiled_report, 'spatial': spatial_report,
                  'sharded': sharded_report, 'training': train_report,
                  'style': style_report, 'gin_loop': gin_report,

@@ -23,8 +23,8 @@ def load_interpolator_from_flag(params: str, align: Optional[int],
                                 block_shape: Optional[Sequence[int]],
                                 device, dtype_policy: Optional[str] = None):
   """An Interpolator from `--params`: 'random' (the released config,
-  weights from seed 0) or a bundle, the port's or the JAX package's
-  (inference.load_interpolator). `dtype_policy`, when given, overrides the
+  weights from seed 0), a bundle, the port's or the JAX package's, or a TF
+  release (inference.load_interpolator). `dtype_policy`, when given, overrides the
   config's or the bundle's own."""
   from ..inference import Interpolator, load_interpolator
   if params != 'random':

@@ -1,7 +1,7 @@
 r"""Checkpoint -> deployable bundle converter (PyTorch port).
 
 Port of frame_interpolation_tpu/cli/build_params.py (the reference's
-training/build_saved_model_cli.py), with two routes to the port's bundle
+training/build_saved_model_cli.py), with three routes to the port's bundle
 (options.json + state_dict.pt), which every inference entry point loads:
 
   * a training run of the port: the newest `<base>/<label>/train/
@@ -10,7 +10,10 @@ training/build_saved_model_cli.py), with two routes to the port's bundle
     trainer writes beside the checkpoints (the released configuration for
     a run that has none);
   * a bundle of the JAX package (options.json + params.msgpack) becomes a
-    bundle of the port at --output.
+    bundle of the port at --output;
+  * a TF release of the reference (a SavedModel or checkpoint directory,
+    or a checkpoint prefix; the released configuration) becomes a bundle
+    of the port at --output, read by io/tf_import without TensorFlow.
 
   python3 -m frame_interpolation_tpu_torch.cli.build_params \
     --base_folder runs --label run0
@@ -18,10 +21,12 @@ training/build_saved_model_cli.py), with two routes to the port's bundle
   python3 -m frame_interpolation_tpu_torch.cli.build_params \
     --jax_bundle style_bundle --output style_bundle_torch
 
-A TF SavedModel or checkpoint of the reference needs TensorFlow: the JAX
-package's build_params converts it (--tf_model) into a JAX bundle, which
-the second route, or any entry point of the port, then reads; so does a
-JAX training run (orbax). Everything stays on the CPU.
+  python3 -m frame_interpolation_tpu_torch.cli.build_params \
+    --tf_model pretrained_models/film_net/Style/saved_model \
+    --output style_bundle_torch
+
+A JAX training run (orbax) converts with the JAX package's build_params
+first. Everything stays on the CPU.
 """
 from __future__ import annotations
 
@@ -38,6 +43,9 @@ def _parser() -> argparse.ArgumentParser:
                       help='Run label under base_folder.')
   parser.add_argument('--jax_bundle', default=None,
                       help='A bundle of the JAX package to convert instead.')
+  parser.add_argument('--tf_model', default=None,
+                      help='A TF SavedModel or checkpoint of the reference '
+                      'to convert instead.')
   parser.add_argument('--output', default=None,
                       help='Output bundle directory (default: '
                       '<base>/<label>/saved_model).')
@@ -75,7 +83,14 @@ def main(argv: Optional[Sequence[str]] = None) -> str:
   parser = _parser()
   args = parser.parse_args(argv)
   from ..io import params_io
-  if args.jax_bundle:
+  if args.tf_model:
+    if not args.output:
+      parser.error('--output is required with --tf_model')
+    from ..io import tf_import
+    state, options = tf_import.load_tf_params(args.tf_model)
+    output = args.output
+    source = args.tf_model
+  elif args.jax_bundle:
     if not args.output:
       parser.error('--output is required with --jax_bundle')
     if not params_io.is_jax_bundle(args.jax_bundle):
@@ -86,7 +101,8 @@ def main(argv: Optional[Sequence[str]] = None) -> str:
     source = args.jax_bundle
   else:
     if not (args.base_folder and args.label):
-      parser.error('Provide --base_folder and --label, or --jax_bundle.')
+      parser.error('Provide --base_folder and --label, --jax_bundle '
+                   'or --tf_model.')
     run_dir = os.path.join(args.base_folder, args.label)
     state, options, step = _latest_checkpoint(run_dir)
     output = args.output or os.path.join(run_dir, 'saved_model')

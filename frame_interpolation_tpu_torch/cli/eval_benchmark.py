@@ -113,8 +113,9 @@ def _list(value: str):
 def _parser() -> argparse.ArgumentParser:
   parser = argparse.ArgumentParser(description=__doc__.splitlines()[0])
   parser.add_argument('--params', required=True,
-                      help="A bundle (the port's or the JAX package's), or "
-                      "'random': released config, weights from seed 0.")
+                      help="A bundle (the port's or the JAX package's), a TF "
+                      "release of the reference, or 'random': released "
+                      'config, weights from seed 0.')
   parser.add_argument('--tfrecord', default=None,
                       help="Eval TFRecord spec ('file' or 'file@N').")
   parser.add_argument('--gin_config', default=None,

@@ -46,8 +46,9 @@ def _parser() -> argparse.ArgumentParser:
   parser.add_argument('--pattern', required=True,
                       help='Glob pattern of directories with input frames.')
   parser.add_argument('--params', required=True,
-                      help="A bundle (the port's or the JAX package's), "
-                      "or 'random': released config, weights from seed 0.")
+                      help="A bundle (the port's or the JAX package's), a TF "
+                      "release of the reference, or 'random': released "
+                      'config, weights from seed 0.')
   parser.add_argument('--times_to_interpolate', type=int, default=5,
                       help='Recursive midpoint depth: 2^T - 1 frames '
                       'between each input pair.')

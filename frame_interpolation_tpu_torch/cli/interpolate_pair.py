@@ -5,12 +5,13 @@ r"""One mid-frame interpolation CLI (PyTorch port).
     --params <bundle or random> --output_frame photos/middle.png
 
 `--params` is a bundle, the port's (options.json + state_dict.pt, what the
-trainer exports) or the JAX package's (options.json + params.msgpack), or
-'random': the released configuration with weights drawn from seed 0 (a
-smoke test on machines without a checkpoint). A bundle keeps its own dtype
-policy unless `--dtype_policy` is given. `--time` is the JAX CLI's flag;
-film_net predicts the midpoint only, so it takes 0.5 alone. A TF release
-converts into a JAX bundle with the JAX package's cli/build_params first.
+trainer exports) or the JAX package's (options.json + params.msgpack), a
+TF release of the reference (SavedModel or checkpoint, the released
+configuration; io/tf_import reads it without TensorFlow), or 'random':
+the released configuration with weights drawn from seed 0 (a smoke test on
+machines without a checkpoint). A bundle keeps its own dtype policy unless
+`--dtype_policy` is given. `--time` is the JAX CLI's flag; film_net
+predicts the midpoint only, so it takes 0.5 alone.
 `--device` defaults to cuda and raises when no GPU is visible.
 
 `--mesh data` splits the --block_height x --block_width patches over every
@@ -37,8 +38,9 @@ def _parser() -> argparse.ArgumentParser:
   parser.add_argument('--frame2', required=True,
                       help='Filepath of the second frame.')
   parser.add_argument('--params', required=True,
-                      help="A bundle (the port's or the JAX package's), or "
-                      "'random': released config, weights from seed 0.")
+                      help="A bundle (the port's or the JAX package's), a TF "
+                      "release of the reference, or 'random': released "
+                      'config, weights from seed 0.')
   parser.add_argument('--output_frame', required=True,
                       help='Filepath of the output mid-frame.')
   parser.add_argument('--align', type=int, default=64,

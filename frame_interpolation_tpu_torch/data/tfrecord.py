@@ -72,7 +72,9 @@ def crc32c(data: bytes) -> int:
   return python_crc32c(data)
 
 
-def _masked_crc(data: bytes) -> int:
+def masked_crc32c(data: bytes) -> int:
+  """The TFRecord-masked CRC32C of `data` (also TF's checkpoint
+  checksum), natively where the library builds."""
   if native.available():
     return native.masked_crc32c(data)
   return python_masked_crc32c(data)
@@ -90,9 +92,9 @@ class TFRecordWriter:
   def write(self, record: bytes) -> None:
     length = struct.pack('<Q', len(record))
     self._file.write(length)
-    self._file.write(struct.pack('<I', _masked_crc(length)))
+    self._file.write(struct.pack('<I', masked_crc32c(length)))
     self._file.write(record)
-    self._file.write(struct.pack('<I', _masked_crc(record)))
+    self._file.write(struct.pack('<I', masked_crc32c(record)))
 
   def flush(self) -> None:
     self._file.flush()
@@ -121,7 +123,7 @@ def read_records(path: str, validate: bool = True) -> Iterator[bytes]:
         raise IOError(f'{path}: truncated record header')
       (length,) = struct.unpack('<Q', header[:8])
       (length_crc,) = struct.unpack('<I', header[8:12])
-      if validate and _masked_crc(header[:8]) != length_crc:
+      if validate and masked_crc32c(header[:8]) != length_crc:
         raise IOError(f'{path}: corrupted record length CRC')
       data = f.read(length)
       if len(data) < length:
@@ -130,7 +132,7 @@ def read_records(path: str, validate: bool = True) -> Iterator[bytes]:
       if len(footer) < 4:
         raise IOError(f'{path}: truncated record CRC')
       (data_crc,) = struct.unpack('<I', footer)
-      if validate and _masked_crc(data) != data_crc:
+      if validate and masked_crc32c(data) != data_crc:
         raise IOError(f'{path}: corrupted record data CRC')
       yield data
 

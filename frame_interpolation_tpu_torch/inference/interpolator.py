@@ -35,7 +35,7 @@ import numpy as np
 import torch
 from torch import nn
 
-from ..io import params_io
+from ..io import params_io, tf_import
 from ..models.film_net import FilmNet, Features
 from ..ops import tiling
 from ..options import Options
@@ -285,36 +285,29 @@ def expand_tree_chunked(frames: torch.Tensor, times: int, max_batch: int,
   return cached_tree.quantize_u8(seq) if as_uint8 else seq.contiguous()
 
 
-_TF_RELEASE_FILES = ('saved_model.pb', 'saved_model.pbtxt', 'checkpoint')
-
-
 def load_interpolator(model_path: str,
                       align: Optional[int] = 64,
                       block_shape: Optional[Sequence[int]] = None,
                       dtype_policy: Optional[str] = None,
                       device: Any = 'cuda') -> Interpolator:
-  """An Interpolator from a bundle: the port's own (`options.json` +
+  """An Interpolator from a bundle, the port's own (`options.json` +
   `state_dict.pt`, which the trainer exports) or the JAX package's
-  (`options.json` + `params.msgpack`). `dtype_policy` overrides the
-  bundle's."""
+  (`options.json` + `params.msgpack`), or from a TF release of the
+  reference: a SavedModel or checkpoint directory, or a checkpoint prefix,
+  in the released configuration (io/tf_import, no TensorFlow needed).
+  `dtype_policy` overrides the bundle's or the release's."""
   if os.path.isfile(os.path.join(model_path, params_io.STATE_FILE)):
     state, options = params_io.load_state_bundle(model_path)
   elif params_io.is_jax_bundle(model_path):
     state, options = params_io.load_params(model_path)
+  elif (params_io.is_tf_saved_model(model_path) or
+        params_io.is_tf_checkpoint_dir(model_path)):
+    state, options = tf_import.load_tf_params(model_path)
   else:
-    found = [name for name in _TF_RELEASE_FILES
-             if os.path.exists(os.path.join(model_path, name))]
-    if found:
-      raise NotImplementedError(
-          f'{model_path} is a TF SavedModel or checkpoint '
-          f'({", ".join(found)}), which needs TensorFlow to read: convert '
-          'it with the JAX package (python3 -m '
-          'frame_interpolation_tpu.cli.build_params --tf_model '
-          f'{model_path} --output <bundle>), then load that bundle.')
     raise FileNotFoundError(
         f'{model_path}: neither a bundle of the port (options.json + '
-        f'{params_io.STATE_FILE}) nor of the JAX package (options.json + '
-        f'{params_io.PARAMS_FILE})')
+        f'{params_io.STATE_FILE}) or of the JAX package (options.json + '
+        f'{params_io.PARAMS_FILE}) nor a TF2 SavedModel or checkpoint')
   if dtype_policy is not None and dtype_policy != options.dtype_policy:
     options = dataclasses.replace(options, dtype_policy=dtype_policy)
   return Interpolator(state, options, align=align, block_shape=block_shape,

@@ -16,6 +16,10 @@ Two bundles, each a directory with `options.json` (the Options fields):
     `flax.serialization.to_bytes` writes it (`save_params` / `load_params`,
     through io/msgpack_lite, so neither needs flax or msgpack). JAX's
     `io.params_io.load_params` reads what `save_params` writes.
+
+A TF release (a SavedModel or a checkpoint of the reference, told apart
+by `is_tf_saved_model` / `is_tf_checkpoint_dir`) is read by
+io/tf_import.load_tf_params.
 """
 from __future__ import annotations
 
@@ -134,6 +138,23 @@ def is_jax_bundle(path: str) -> bool:
   params.msgpack)."""
   return (os.path.isfile(os.path.join(path, OPTIONS_FILE)) and
           os.path.isfile(os.path.join(path, PARAMS_FILE)))
+
+
+def is_tf_saved_model(path: str) -> bool:
+  """Whether `path` is a TF2 SavedModel directory (io/tf_import reads its
+  variables)."""
+  return (os.path.isfile(os.path.join(path, 'saved_model.pb')) or
+          os.path.isfile(os.path.join(path, 'saved_model.pbtxt')))
+
+
+def is_tf_checkpoint_dir(path: str) -> bool:
+  """Whether `path` is a TF checkpoint directory or prefix."""
+  if os.path.isfile(os.path.join(path, 'checkpoint')):
+    return True
+  if os.path.isdir(path):
+    return any(name.endswith('.index') for name in os.listdir(path))
+  # A checkpoint prefix like /dir/ckpt-183 (no extension).
+  return os.path.isfile(path + '.index')
 
 
 def save_params(path: str, state_dict: Mapping[str, torch.Tensor],

@@ -8,9 +8,9 @@ video of 2^T + 1 frames. Inputs of different sizes are cropped to their
 common top-left region, as the reference does.
 
 The model path is a bundle, the port's (options.json + state_dict.pt) or
-the JAX package's (options.json + params.msgpack); a TF release converts
-into the latter with the JAX package's cli/build_params. The device
-defaults to cuda and raises without a GPU.
+the JAX package's (options.json + params.msgpack), or a TF release of the
+reference (SavedModel or checkpoint; inference.load_interpolator). The
+device defaults to cuda and raises without a GPU.
 """
 from __future__ import annotations
 

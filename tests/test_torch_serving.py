@@ -149,11 +149,12 @@ def test_load_interpolator_reads_the_port_bundle(bundle, tiny_state,
   assert interp.options == Options.tiny(dtype_policy='bfloat16')
   for name, value in interp.model.state_dict().items():
     np.testing.assert_array_equal(value.numpy(), tiny_state[name].numpy())
-  # A TF release needs TensorFlow: the message names the converter.
+  # A TF SavedModel goes to io/tf_import (tests/test_torch_tf_import.py
+  # loads real ones); one without its variables bundle raises.
   tf_dir = tmp_path / 'tf'
   tf_dir.mkdir()
   (tf_dir / 'saved_model.pb').write_bytes(b'')
-  with pytest.raises(NotImplementedError, match='build_params --tf_model'):
+  with pytest.raises(FileNotFoundError, match='variables.index'):
     load_interpolator(str(tf_dir), device='cpu')
   with pytest.raises(FileNotFoundError):
     load_interpolator(str(tmp_path), device='cpu')

@@ -112,6 +112,34 @@ it) is held bit for bit against the whole-frame warp's rows, and against
 its plain version, at 1088x1920x67 and x64 bf16 and 544x960x195 f32 over
 2 and 4 slabs, on both branches.
 
+Every path above takes the port's default on the card: its entry points
+run as captured CUDA graphs (utils/programs.py), so the serving, video,
+sharded, split and training phases count their launches through the
+replays; a check that swaps in the plain versions runs an eager
+(graphs=False) Interpolator or step of the same model, as the plain
+versions replace the kernels only where Python launches them. After the
+gin loop, the graph phase holds each captured entry point against
+graphs=False on the same weights and inputs:
+
+  * the 1080p bf16 pair (released config): max-abs and PSNR of the replay
+    against eager, launches through the replay accounting, ms a pair of
+    each in turns, idle shares under torch.profiler, the first call's
+    seconds, the capture's and the pool's bytes;
+  * one default Interpolator serving pairs of mixed frame and batch sizes:
+    each against eager, and the device memory its graphs hold, bounded by
+    the pool's budget;
+  * the 17-frame cached tree (3 uint8 1080p frames, T = 3): PSNR, ms per
+    output frame, peak memory and the programs' pools;
+  * the film_net-L1 and film_net-Style steps (f32, batch 8 of 256x256,
+    the augmentations, TF32 allowed): from one state, the replayed step's
+    loss and gradients against the eager step's, Adam's update given the
+    replay's gradients against the eager update and a plain
+    (non-capturable) Adam's; steps/s, peak memory and
+    idle share of each; train_lib.train for 10 steps (logging at 5) with
+    and without graphs, losses tracked;
+  * the patch-sharded pair on [cuda:0] * 4 with and without graphs (the
+    row-sharded class stays eager).
+
 Each phase prints its lines; the second-to-last line is the per-kernel JSON
 record and the last line is {"ok": true, "device": {...}}. Any failed check
 exits non-zero before that line. Needs a GPU: without one it exits non-zero
@@ -121,7 +149,9 @@ from __future__ import annotations
 
 import argparse
 import contextlib
+import copy
 import dataclasses
+import gc
 import io
 import json
 import os
@@ -161,7 +191,7 @@ from frame_interpolation_tpu_torch.parallel import mesh as parallel_mesh
 from frame_interpolation_tpu_torch.training import (configs, eval_lib,
                                                     metrics_lib, train_lib)
 from frame_interpolation_tpu_torch.training.configs import gin_compat
-from frame_interpolation_tpu_torch.utils import measure
+from frame_interpolation_tpu_torch.utils import measure, programs
 
 WARP_BF16_BOUND = 2 * 2.0**-8  # max-abs, images in [0, 1)
 WARP_F32_BOUND = 1e-5          # max-abs
@@ -309,6 +339,33 @@ BUILDER_CLIPS, BUILDER_SHARDS, BUILDER_BOUND = 4, 2, 1e-4
 DDP_STEPS, DDP_WARMUP, DDP_TIMED = 3, 2, 5
 DDP_TRAJECTORY_BOUND = 1e-4
 DDP_TIMEOUT_S = 600
+# The graph phase: the port's entry points captured as CUDA graphs
+# (utils/programs.py) against graphs=False on the same weights and
+# inputs. The same kernels run in the same order, so the pair and the
+# tree should agree bit for bit; the gates are the trees' and sharding's.
+# A train step runs the splat's atomics in another order each run. From
+# one state, copied into both sides after the capture, the replayed
+# step's loss is held to the step-parity loss bound, its gradients to the
+# step-parity gradient bound, and each side's parameters after its own
+# step to 1e-5 relative of the other's; so is Adam's update given the
+# replay's gradients. (From two states that differ by one step's noise,
+# Adam's first, normalized updates make parameters whose gradient is near
+# 0 differ by up to 1e-2 relative: the states must be one.) 10 steps of
+# train_lib.train (a logging step, eager, at step 5 and the last) are
+# held to 1e-3 of the all-eager run's losses.
+GRAPH_PSNR_DB = 50.0
+GRAPH_STEP_REL_BOUND = 1e-5
+# (H, W, batch) of the pairs one Interpolator serves in turn: frame sizes
+# and batch sizes whose graphs together outgrow the pool's budget.
+MIXED_KEYS = ((1080, 1920, 1), (1080, 1920, 2), (1440, 2560, 1),
+              (720, 1280, 1), (720, 1280, 3), (1080, 1920, 3),
+              (2160, 3840, 1), (1080, 1920, 1), (720, 1280, 1))
+# Device memory beyond the pool's: the graphs' static inputs and the
+# allocator's rounding.
+MIXED_SLACK_BYTES = 2**30
+GRAPH_TRACK_REL_BOUND = 1e-3
+GRAPH_LOOP_STEPS, GRAPH_LOG_INTERVAL = 10, 5
+GRAPH_PAIR_ITERS, GRAPH_IDLE_PAIRS, GRAPH_IDLE_STEPS = 10, 5, 5
 REPLACES = {
     'warp': 'frame_interpolation_tpu/ops/warp_window.py:134',
     'warp_planes': 'frame_interpolation_tpu/ops/warp_window.py:134',
@@ -741,10 +798,15 @@ def train_speed(label, model, losses, step, card):
   """Steps/s with the kernels and plain, and peak memory: the trainer's
   lean step (Adam, staircase schedule) from `step`, batches made in
   memory, no augmentation; PyTorch's default precision (cuDNN convs may
-  use TF32, and so does the conv kernel: its TF32 wgmma route)."""
+  use TF32, and so does the conv kernel: its TF32 wgmma route). The
+  kernels' step is the default, a captured graph; the plain one runs
+  eagerly (the plain versions replace the kernels where Python launches
+  them)."""
   torch.backends.cudnn.allow_tf32 = True
   opts = train_lib.TrainingOptions()
   step_fn = train_lib.make_train_step(losses, opts, with_summaries=False)
+  eager_fn = train_lib.make_train_step(losses, opts, with_summaries=False,
+                                       graphs=False)
   batches = (train_lib.batch_to_device(b, torch.device('cuda'))
              for b in square_batches(2))
   state = train_lib.create_train_state(model, opts)
@@ -752,15 +814,18 @@ def train_speed(label, model, losses, step, card):
   torch.cuda.reset_peak_memory_stats()
   rate_k = steps_per_second(state, step_fn, batches)
   peak_k = torch.cuda.max_memory_allocated()
+  for program in step_fn.programs():
+    program.release()
   torch.cuda.reset_peak_memory_stats()
   with plain_versions():
-    rate_p = steps_per_second(state, step_fn, batches)
+    rate_p = steps_per_second(state, eager_fn, batches)
   peak_p = torch.cuda.max_memory_allocated()
-  print(f'train speed ({label}): {rate_k:.3f} steps/s with the kernels, '
-        f'{rate_p:.3f} plain (mean of {TIMED_STEPS} steps after '
-        f'{WARMUP_STEPS}, batch {TRAIN_BATCH}x{TRAIN_CROP}x{TRAIN_CROP}, f32, '
-        f'TF32 allowed); peak memory {peak_k / 2**30:.2f} GiB kernels, '
-        f'{peak_p / 2**30:.2f} GiB plain; on {card}')
+  print(f'train speed ({label}): {rate_k:.3f} steps/s with the kernels '
+        f'(captured), {rate_p:.3f} plain (eager; mean of {TIMED_STEPS} '
+        f'steps after {WARMUP_STEPS}, batch {TRAIN_BATCH}x{TRAIN_CROP}x'
+        f'{TRAIN_CROP}, f32, TF32 allowed); peak memory '
+        f'{peak_k / 2**30:.2f} GiB kernels, {peak_p / 2**30:.2f} GiB plain; '
+        f'on {card}')
   return {'steps_per_s': rate_k, 'plain_steps_per_s': rate_p,
           'peak_bytes': peak_k, 'plain_peak_bytes': peak_p}
 
@@ -1139,6 +1204,31 @@ def check_style(mat_path, card, l1_report, failures):
   return report
 
 
+def adam_kernels_by_step(events, kernels):
+  """Adam's update on the device in each traced step: the foreach kernels
+  (multi_tensor_apply) launched under the step's host annotation, matched
+  to their launch by its correlation id. A replayed graph's kernels carry
+  the correlation of its cudaGraphLaunch, so a captured step counts as an
+  eager one does."""
+  spans = sorted((e['ts'], e['ts'] + e['dur']) for e in events
+                 if e.get('name') == 'train_step' and
+                 e.get('cat') == 'user_annotation')
+  step_of = {}
+  for e in events:
+    correlation = e.get('args', {}).get('correlation')
+    if e.get('cat') in ('cuda_runtime', 'cuda_driver') and (
+        correlation is not None):
+      for i, (begin, end) in enumerate(spans):
+        if begin <= e['ts'] <= end:
+          step_of[correlation] = i
+  counts = [0] * len(spans)
+  for k in kernels:
+    i = step_of.get(k.get('args', {}).get('correlation'))
+    if i is not None and 'multi_tensor_apply' in k['name']:
+      counts[i] += 1
+  return counts
+
+
 def check_gin_loop(mat_path, card, failures):
   """train_lib.train of an inline film_net-Style gin, loaded by the port's
   gin_compat, for GIN_STEPS steps with the trace window."""
@@ -1177,11 +1267,17 @@ def check_gin_loop(mat_path, card, failures):
     trace_mb = os.path.getsize(trace_path) / 2**20
     del state
   kernels = [e for e in events if e.get('cat') == 'kernel']
-  # The host's annotation of each update (the device's copy of it has the
-  # category gpu_user_annotation).
-  adam_steps = sum(1 for e in events
-                   if e.get('name') == 'Optimizer.step#Adam.step' and
-                   e.get('cat') == 'user_annotation')
+  # The host's annotation of each step (the device's copy of it has the
+  # category gpu_user_annotation): the trainer's own, since a replayed
+  # step never calls Adam.step from Python; Adam's annotation counts the
+  # eager updates.
+  def annotations(name):
+    return sum(1 for e in events
+               if e.get('name') == name and e.get('cat') == 'user_annotation')
+
+  traced_steps = annotations('train_step')
+  adam_steps = annotations('Optimizer.step#Adam.step')
+  adam_kernels = adam_kernels_by_step(events, kernels)
   ours = {}
   for pattern in TRACE_KERNELS:
     hits = [e for e in kernels if pattern in e['name']]
@@ -1192,19 +1288,25 @@ def check_gin_loop(mat_path, card, failures):
             f'{trace_path}')
   if launches != {k: GIN_STEPS * v for k, v in STEP_LAUNCHES.items()}:
     failures.append(f'gin loop launches {launches}')
-  if logged not in lines or adam_steps != PROFILE_STEPS or not all(
-      v['launches'] for v in ours.values()):
-    failures.append(f'trace window: logged {logged in lines}, {adam_steps} '
-                    f'Adam steps, our kernels {ours}')
+  if logged not in lines or traced_steps != PROFILE_STEPS or not all(
+      v['launches'] for v in ours.values()) or len(adam_kernels) != (
+          PROFILE_STEPS) or len(set(adam_kernels)) != 1 or not adam_kernels[0]:
+    failures.append(f'trace window: logged {logged in lines}, '
+                    f'{traced_steps} steps, Adam\'s kernels by step '
+                    f'{adam_kernels}, our kernels {ours}')
   print(f'gin loop (film_net-Style from an inline gin through gin_compat, '
         f'{GIN_STEPS} steps of batch {TRAIN_BATCH} with '
         f'{list(config.augmentations)}) in {seconds:.1f} s; launches '
         f'{launches}; trace of steps [{PROFILE_START}, {end}): '
-        f'{trace_mb:.1f} MB, {adam_steps} Adam steps, {len(kernels)} kernels '
+        f'{trace_mb:.1f} MB, {traced_steps} steps ({adam_steps} eager Adam '
+        f'updates; Adam\'s foreach kernels by step {adam_kernels}), '
+        f'{len(kernels)} kernels '
         f'busy {busy_ms:.3f} ms ({busy_ms / PROFILE_STEPS:.3f} ms a step, '
         f'under the profiler), ours {ours}; on {card}')
   return {'launches': launches, 'seconds': seconds, 'trace_mb': trace_mb,
-          'adam_steps': adam_steps, 'kernel_busy_ms': busy_ms,
+          'traced_steps': traced_steps, 'adam_steps': adam_steps,
+          'adam_kernels_by_step': adam_kernels,
+          'kernel_busy_ms': busy_ms,
           'trace_kernels': ours}
 
 
@@ -1381,6 +1483,13 @@ def check_uint8_rules(failures):
           'quantize_wrong': q_wrong}
 
 
+def release_memory() -> None:
+  """Returns what dropped objects held (captured graphs' pools among them)
+  to the device before the next phase."""
+  gc.collect()
+  torch.cuda.empty_cache()
+
+
 def run_counted(fn):
   """fn() with the launch counts set to 0 before it; its result, the
   counts just after, and the peak device memory it took."""
@@ -1392,8 +1501,10 @@ def run_counted(fn):
   return out, _kernels.launch_counts(), torch.cuda.max_memory_allocated()
 
 
-def check_video(interpolator, card, failures):
-  """The frame tree of 3 1080p frames at T = 3, by both routes."""
+def check_video(interpolator, eager, card, failures):
+  """The frame tree of 3 1080p frames at T = 3, by both routes (through
+  `interpolator`'s programs; `eager`, the same model without graphs,
+  runs the plain versions)."""
   frames = np.random.RandomState(0).randint(
       0, 256, (VIDEO_FRAMES, VIDEO_H, VIDEO_W, 3)).astype(np.uint8)
   frames_dev = torch.from_numpy(frames).cuda()
@@ -1434,8 +1545,8 @@ def check_video(interpolator, card, failures):
 
   with plain_versions():
     plain, plain_launches, _ = run_counted(
-        lambda: interpolator.expand_tree_device(frames_dev, VIDEO_TIMES,
-                                                cached=True))
+        lambda: eager.expand_tree_device(frames_dev, VIDEO_TIMES,
+                                         cached=True))
   plain_psnr = min_frame_psnr(cached, plain.cpu().numpy())
   if sum(plain_launches.values()):
     failures.append(f'plain tree launched {plain_launches}')
@@ -1479,8 +1590,16 @@ def check_video(interpolator, card, failures):
         f'max-abs {stream_err:.1e} (bound {REPEAT_BOUND:.0e}), '
         f'{stream_ms / VIDEO_OUTPUTS:.3f} ms per frame on the host clock, '
         f'{stream_u8_ms / VIDEO_OUTPUTS:.3f} as uint8; on {card}')
+  pool_bytes = sum(p.pool_bytes for p in interpolator.programs.values())
+  clears = interpolator.programs['pair'].pool.clears
+  print(f'video tree graphs: {len(interpolator.programs)} programs, '
+        f'{sum(len(p.captures) for p in interpolator.programs.values())} '
+        f'live graphs, which grew their pool by {pool_bytes / 2**30:.2f} GiB,'
+        f' the pool emptied {clears} times by its budget, '
+        f'{torch.cuda.memory_reserved() / 2**30:.2f} GiB reserved; on {card}')
   report.update(chunked_psnr=chunked_psnr, uint8_levels=levels,
-                plain_psnr=plain_psnr, stream_err=stream_err,
+                plain_psnr=plain_psnr, stream_err=stream_err, pool_bytes=
+                pool_bytes, pool_clears=clears,
                 stream_ms_per_frame=stream_ms / VIDEO_OUTPUTS,
                 stream_uint8_ms_per_frame=stream_u8_ms / VIDEO_OUTPUTS)
   return report
@@ -1550,7 +1669,8 @@ def check_spatial(model, options, frames, dt, want, card, failures):
 def check_sharded_patches_and_tree(model, options, interpolator, card,
                                    failures):
   """The 2x2 patches of a 1080p pair over 4 shards against the tiled pair,
-  and the 17-frame tree over 4 shards against the chunked tree."""
+  and the 17-frame tree over 4 shards against the chunked tree of
+  `interpolator`."""
   mesh = parallel_mesh.Mesh(['cuda:0'] * SHARDS)
   frames = np.random.RandomState(1).rand(2, 1, VIDEO_H, VIDEO_W, 3).astype(
       np.float32)
@@ -1945,9 +2065,11 @@ def ddp_steps(device, data_parallel: bool, steps: int = DDP_STEPS,
   model = init_params(create_model(config.model),
                       torch.Generator().manual_seed(0)).to(device)
   opts = train_lib.TrainingOptions()
+  # Eager in both: the data-parallel step is, and the graph phase holds
+  # the captured step against the eager one.
   step_fn = train_lib.make_train_step(
       losses_lib.training_losses(['l1']), opts, tuple(config.augmentations),
-      with_summaries=False, data_parallel=data_parallel)
+      with_summaries=False, data_parallel=data_parallel, graphs=False)
   state = train_lib.create_train_state(model, opts)
   batches = square_batches(5)
   result = {'losses': [], 'launches': []}
@@ -2110,6 +2232,506 @@ def check_ddp(card, failures):
   return report
 
 
+def graph_pair(card, failures):
+  """The 1080p bf16 pair (released config, seed-0 weights and frames)
+  through the pair program against graphs=False: agreement, launches
+  through replays, ms a pair in turns, idle shares, the first call's
+  seconds, capture seconds and the pool's bytes."""
+  options = Options.film_net_released(dtype_policy='bfloat16')
+  model = init_params(create_model(options), torch.Generator().manual_seed(0))
+  graphs = Interpolator(model, options, align=64, device='cuda')
+  eager = Interpolator(graphs.model, options, align=64, device='cuda',
+                       graphs=False)
+  frames = np.random.RandomState(0).rand(2, 1, 1080, 1920, 3).astype(
+      np.float32)
+  x0, x1 = (torch.from_numpy(f).cuda() for f in frames)
+  dtd = torch.full((1,), 0.5, device='cuda')
+  torch.cuda.synchronize()
+  start = time.perf_counter()
+  first = graphs.call_device(x0, x1, dtd)
+  torch.cuda.synchronize()
+  first_s = time.perf_counter() - start
+  program = graphs.programs['pair']
+  capture = next(iter(program.captures.values()))
+  replayed, launches, _ = run_counted(lambda: graphs.call_device(x0, x1,
+                                                                 dtd))
+  want = eager.call_device(x0, x1, dtd)
+  max_abs = float((replayed - want).abs().max())
+  first_abs = float((first - want).abs().max())
+  psnr = psnr_db(replayed.cpu().numpy(), want.cpu().numpy())
+  if launches != PAIR_LAUNCHES or capture.launches != PAIR_LAUNCHES:
+    failures.append(f'graph pair launches {launches}, recorded '
+                    f'{capture.launches} != {PAIR_LAUNCHES}')
+  if not psnr >= GRAPH_PSNR_DB or not torch.isfinite(replayed).all():
+    failures.append(f'graph pair vs eager {psnr:.2f} dB')
+  ms = {'graphs': [], 'eager': []}
+  for label in ('graphs', 'eager', 'eager', 'graphs'):
+    interp = graphs if label == 'graphs' else eager
+    ms[label].append(measure.time_ms(lambda: interp.call_device(x0, x1, dtd),
+                                     iters=GRAPH_PAIR_ITERS, queued=False))
+  idle = {label: measure.idle_share(lambda: interp.call_device(x0, x1, dtd),
+                                    GRAPH_IDLE_PAIRS)
+          for label, interp in (('graphs', graphs), ('eager', eager))}
+  report = {'max_abs': max_abs, 'first_call_max_abs': first_abs,
+            'psnr': psnr, 'launches': launches, 'ms': ms, 'idle': idle,
+            'first_call_s': first_s,
+            'capture_s': capture.capture_seconds,
+            'pool_bytes': program.pool_bytes}
+  print(f'graphs: 1080p bf16 pair (released config): replay vs eager '
+        f'max-abs {max_abs:.3e} (first call, the warm-up, {first_abs:.1e}), '
+        f'{psnr:.2f} dB (bound {GRAPH_PSNR_DB}); launches a replay '
+        f'{launches}; ms a pair {mean(ms["graphs"]):.3f} with graphs, '
+        f'{mean(ms["eager"]):.3f} eager (CUDA events, {GRAPH_PAIR_ITERS} '
+        f'pairs, turns g/e/e/g: {ms}); idle share {idle_text(idle)}; first '
+        f'call {first_s:.3f} s of which capture {capture.capture_seconds:.3f}'
+        f' s, pool {program.pool_bytes / 2**30:.2f} GiB; on {card}')
+  return report
+
+
+def graph_mixed(card, failures):
+  """One default Interpolator (released config, bf16) serving the pairs
+  of MIXED_KEYS in turn, as a server meets frame sizes and batch sizes:
+  each against graphs=False, and the device memory its graphs hold. The
+  pool's budget bounds it: after each call the memory reserved beyond
+  the start stays under the budget plus the largest graph plus
+  MIXED_SLACK_BYTES, and at any time under the budget plus the larger of
+  the largest graph and the largest eager call, plus the slack."""
+  options = Options.film_net_released(dtype_policy='bfloat16')
+  model = init_params(create_model(options), torch.Generator().manual_seed(0))
+  eager = Interpolator(model, options, align=64, device='cuda', graphs=False)
+  rng = np.random.RandomState(3)
+  inputs, wants, eager_peak = {}, {}, 0
+  for key in dict.fromkeys(MIXED_KEYS):
+    height, width, batch = key
+    x0, x1 = (torch.from_numpy(rng.rand(batch, height, width, 3).astype(
+        np.float32)).cuda() for _ in range(2))
+    inputs[key] = (x0, x1, torch.full((batch,), 0.5, device='cuda'))
+    release_memory()
+    torch.cuda.reset_peak_memory_stats()
+    start = torch.cuda.memory_reserved()
+    wants[key] = eager.interpolate_device(*inputs[key]).cpu()
+    eager_peak = max(eager_peak, torch.cuda.max_memory_reserved() - start)
+  graphs = Interpolator(eager.model, options, align=64, device='cuda')
+  del eager
+  pool = graphs.programs['pair'].pool
+  budget = int(programs.POOL_BUDGET_SHARE *
+               torch.cuda.get_device_properties(0).total_memory)
+  release_memory()
+  base = torch.cuda.memory_reserved()
+  torch.cuda.reset_peak_memory_stats()
+  calls, largest, grown, worst_abs, worst_db = [], 0, 0, 0.0, float('inf')
+  for key in MIXED_KEYS:
+    before = list(graphs.programs['pair'].captures.values())
+    out = graphs.interpolate_device(*inputs[key])
+    torch.cuda.synchronize()
+    out = out.cpu()
+    worst_abs = max(worst_abs, float((out - wants[key]).abs().max()))
+    worst_db = min(worst_db, psnr_db(out.numpy(), wants[key].numpy()))
+    del out
+    for c in graphs.programs['pair'].captures.values():
+      if not any(c is old for old in before):
+        largest = max(largest, c.pool_bytes)
+        grown += c.pool_bytes
+    held = torch.cuda.memory_reserved() - base
+    calls.append({'key': key, 'held_bytes': held, 'pool_bytes': pool.bytes,
+                  'graphs': len(graphs.programs['pair'].captures),
+                  'clears': pool.clears})
+  peak = torch.cuda.max_memory_reserved() - base
+  held_bound = budget + largest + MIXED_SLACK_BYTES
+  peak_bound = budget + max(largest, eager_peak) + MIXED_SLACK_BYTES
+  held = max(c['held_bytes'] for c in calls)
+  if not worst_db >= GRAPH_PSNR_DB or held > held_bound or (
+      peak > peak_bound) or not pool.clears:
+    failures.append(f'mixed serving: {worst_db:.2f} dB vs eager, held '
+                    f'{held / 2**30:.2f} GiB (bound {held_bound / 2**30:.2f}'
+                    f'), peak {peak / 2**30:.2f} GiB (bound '
+                    f'{peak_bound / 2**30:.2f}), {pool.clears} clears')
+  gib = lambda n: round(n / 2**30, 2)
+  print(f'graphs: mixed serving through one default Interpolator (released '
+        f'config, bf16; (H, W, batch) {list(MIXED_KEYS)}): vs eager max-abs '
+        f'{worst_abs:.1e}, {worst_db:.2f} dB (bound {GRAPH_PSNR_DB}); memory held beyond the start after each call '
+        f'{[gib(c["held_bytes"]) for c in calls]} GiB, the pool '
+        f'{[gib(c["pool_bytes"]) for c in calls]}, graphs '
+        f'{[c["graphs"] for c in calls]}, emptied {pool.clears} times by its '
+        f'budget of {gib(budget)} GiB; most held {gib(held)} GiB (bound '
+        f'{gib(held_bound)}: budget + largest graph {gib(largest)} + '
+        f'{gib(MIXED_SLACK_BYTES)}), peak {gib(peak)} (bound '
+        f'{gib(peak_bound)}, largest eager call {gib(eager_peak)}); the '
+        f'graphs captured grew pools by {gib(grown)} GiB in all; on {card}')
+  return {'calls': calls, 'max_abs': worst_abs, 'psnr': worst_db,
+          'budget_bytes': budget,
+          'largest_graph_bytes': largest, 'eager_peak_bytes': eager_peak,
+          'held_bytes': held, 'peak_bytes': peak, 'grown_bytes': grown,
+          'clears': pool.clears}
+
+
+def mean(values) -> float:
+  return sum(values) / len(values)
+
+
+def idle_text(idle) -> str:
+  return ', '.join(
+      f'{label} ' + ('not measured (no kernel in the trace)'
+                     if r['idle'] is None else
+                     f'{r["idle"]:.3f} ({r["busy_ms"]:.3f} ms busy of '
+                     f'{r["wall_ms"]:.3f})')
+      for label, r in idle.items())
+
+
+def graph_tree(card, failures):
+  """The 17-frame cached tree (3 uint8 1080p frames, T = 3) through the
+  tree program against graphs=False: agreement, launches through
+  replays, ms per output frame and peak memory of each."""
+  options = Options.film_net_released(dtype_policy='bfloat16')
+  model = init_params(create_model(options), torch.Generator().manual_seed(0))
+  interps = {'graphs': Interpolator(model, options, align=64,
+                                    device='cuda')}
+  interps['eager'] = Interpolator(interps['graphs'].model, options, align=64,
+                                  device='cuda', graphs=False)
+  frames = torch.from_numpy(np.random.RandomState(0).randint(
+      0, 256, (VIDEO_FRAMES, VIDEO_H, VIDEO_W, 3)).astype(np.uint8)).cuda()
+  report, outs = {}, {}
+
+  def tree(label):
+    return interps[label].expand_tree_device(frames, VIDEO_TIMES,
+                                             cached=True)
+
+  for label in ('graphs', 'eager'):
+    torch.cuda.synchronize()
+    start = time.perf_counter()
+    _, first_launches, first_peak = run_counted(lambda: tree(label))
+    first_s = time.perf_counter() - start
+    out, launches, peak = run_counted(lambda: tree(label))
+    outs[label] = out.cpu().numpy()
+    if launches != CACHED_TREE_LAUNCHES or (
+        first_launches != CACHED_TREE_LAUNCHES):
+      failures.append(f'{label} tree launches {first_launches} then '
+                      f'{launches} != {CACHED_TREE_LAUNCHES}')
+    report[label] = {'first_s': first_s, 'first_peak_bytes': first_peak,
+                     'peak_bytes': peak, 'launches': launches}
+  for label in ('graphs', 'eager', 'eager', 'graphs'):
+    report[label].setdefault('ms', []).append(measure.time_ms(
+        lambda: tree(label), iters=2, queued=False))
+  programs_ = interps['graphs'].programs
+  report['pool_bytes'] = {name: p.pool_bytes for name, p in programs_.items()}
+  report['capture_s'] = {
+      name: sum(c.capture_seconds for c in p.captures.values())
+      for name, p in programs_.items()}
+  psnr = min_frame_psnr(outs['graphs'], outs['eager'])
+  max_abs = float(np.abs(outs['graphs'] - outs['eager']).max())
+  report.update(psnr=psnr, max_abs=max_abs)
+  if outs['graphs'].shape != (VIDEO_OUTPUTS, VIDEO_H, VIDEO_W, 3) or not (
+      psnr >= GRAPH_PSNR_DB):
+    failures.append(f'graph tree {outs["graphs"].shape}, {psnr:.2f} dB vs '
+                    'eager')
+  per_frame = {label: mean(report[label]['ms']) / VIDEO_OUTPUTS
+               for label in ('graphs', 'eager')}
+  print(f'graphs: {VIDEO_OUTPUTS}-frame cached tree (3 uint8 1080p frames, '
+        f'T = {VIDEO_TIMES}, bf16): replay vs eager min frame {psnr:.2f} dB, '
+        f'max-abs {max_abs:.3e} (bound {GRAPH_PSNR_DB} dB); ms per output '
+        f'frame {per_frame["graphs"]:.3f} with graphs, {per_frame["eager"]:.3f}'
+        f' eager (turns g/e/e/g, ms a tree {report["graphs"]["ms"]}, '
+        f'{report["eager"]["ms"]}); peak memory '
+        f'{report["graphs"]["peak_bytes"] / 2**30:.2f} GiB a replay '
+        f'({report["graphs"]["first_peak_bytes"] / 2**30:.2f} at the capture),'
+        f' {report["eager"]["peak_bytes"] / 2**30:.2f} eager; first call '
+        f'{report["graphs"]["first_s"]:.2f} s, capture s '
+        f'{ {k: round(v, 3) for k, v in report["capture_s"].items()} }, pools '
+        f'{ {k: round(v / 2**30, 2) for k, v in report["pool_bytes"].items()} }'
+        f' GiB; launches a replayed tree {report["graphs"]["launches"]}; on '
+        f'{card}')
+  return report
+
+
+def train_state_tensors(state):
+  """A TrainState's parameters and its optimizer's state tensors, in one
+  order."""
+  out = []
+  for p in state.model.parameters():
+    out.append(p)
+    out.extend(v for _, v in sorted(state.optimizer.state[p].items()))
+  return out
+
+
+def copy_tensors(dst, src):
+  with torch.no_grad():
+    for d, t in zip(dst, src):
+      d.copy_(t)
+
+
+def max_rel(model, reference):
+  """The largest max|p - q| / max|q| over the two models' parameter
+  tensors, and its tensor's name."""
+  worst, name = 0.0, ''
+  ref = dict(reference.named_parameters())
+  for n, p in model.named_parameters():
+    rel = ((p - ref[n]).abs().max() / ref[n].abs().max().clamp_min(
+        1e-30)).item()
+    if rel > worst:
+      worst, name = rel, n
+  return worst, name
+
+
+def graph_step(label, config, losses, step0, card, failures):
+  """film_net-L1 or -Style (released config, f32, batch 8 of 256x256,
+  the augmentations, TF32 allowed): the captured lean step against the
+  eager one from the same state, steps/s and peak memory of each, and
+  train_lib.train for GRAPH_LOOP_STEPS steps in both."""
+  options = config.model
+  augs = tuple(config.augmentations)
+  opts = train_lib.TrainingOptions()
+  model = init_params(create_model(options),
+                      torch.Generator().manual_seed(0)).cuda()
+  states = {'graphs': train_lib.create_train_state(model, opts),
+            'eager': train_lib.create_train_state(copy.deepcopy(model), opts)}
+  step_fns = {'graphs': train_lib.make_train_step(losses, opts, augs,
+                                                  with_summaries=False),
+              'eager': train_lib.make_train_step(losses, opts, augs,
+                                                 with_summaries=False,
+                                                 graphs=False)}
+  rng = np.random.RandomState(7)
+  batches = [train_lib.batch_to_device(square_batch(rng),
+                                       torch.device('cuda'))
+             for _ in range(2)]
+  metrics, grads, launches, first_s = {}, {}, {}, 0.0
+  with tf32_allowed(True):
+    for turn, state in states.items():
+      state.step = step0
+      torch.cuda.synchronize()
+      start = time.perf_counter()
+      # The first step: the graphs' warm-up (eager) and capture; the
+      # eager side's makes its Adam state.
+      step_fns[turn](state, batches[0],
+                     train_lib.step_generator(0, state.step))
+      torch.cuda.synchronize()
+      if turn == 'graphs':
+        first_s = time.perf_counter() - start
+    # Both sides from the graphs side's state, bit for bit (copied in
+    # place: the graph reads these buffers), then one step each: the
+    # graph's replay and the eager step.
+    copy_tensors(train_state_tensors(states['eager']),
+                 train_state_tensors(states['graphs']))
+    before = [t.clone() for t in train_state_tensors(states['graphs'])]
+    step = states['graphs'].step
+    for turn, state in states.items():
+      (metrics[turn], _), launches[turn], _ = run_counted(
+          lambda: step_fns[turn](state, batches[1],
+                                 train_lib.step_generator(0, step)))
+      grads[turn] = [p.grad.detach().clone()
+                     for p in state.model.parameters()]
+      if launches[turn] != STEP_LAUNCHES:
+        failures.append(f'{label} {turn} step launches {launches[turn]}')
+    # Each side's parameters after its own step.
+    free_rel, free_worst = max_rel(states['graphs'].model,
+                                   states['eager'].model)
+    # The update alone: the eager side back at the step's start, given the
+    # replay's gradients, one eager Adam step at the same rate.
+    copy_tensors(train_state_tensors(states['eager']), before)
+    for p, g in zip(states['eager'].model.parameters(), grads['graphs']):
+      p.grad = g.clone()
+    # The same update by a plain Adam (not capturable, a float rate, the
+    # trainer's eps), the form the capturable one replaced on the card. They
+    # differ by f32 rounding: the capturable form computes 1 - beta2^t in
+    # f32 on the device (3e-5 relative at t = 2), and a bias near 0 is the
+    # small sum of two updates, so its relative difference is larger.
+    lr = train_lib.learning_rate_schedule(opts)(step)
+    plain_model = copy.deepcopy(states['eager'].model)
+    plain = torch.optim.Adam(plain_model.parameters(), lr=lr, eps=1e-7)
+    for p, q in zip(states['eager'].model.parameters(),
+                    plain_model.parameters()):
+      kept = states['eager'].optimizer.state[p]
+      plain.state[q] = {'step': kept['step'].detach().float().cpu(),
+                        'exp_avg': kept['exp_avg'].clone(),
+                        'exp_avg_sq': kept['exp_avg_sq'].clone()}
+      q.grad = p.grad.clone()
+    plain.step()
+    train_lib.set_learning_rate(states['eager'].optimizer, lr)
+    states['eager'].optimizer.step()
+    del before
+  program = step_fns['graphs'].programs()[0]
+  capture = next(iter(program.captures.values()))
+  loss = {k: float(m['training_loss']) for k, m in metrics.items()}
+  loss_rel = abs(loss['graphs'] - loss['eager']) / abs(loss['eager'])
+  grad_rel, grad_worst = 0.0, ''
+  for (name, _), g, e in zip(model.named_parameters(), grads['graphs'],
+                             grads['eager']):
+    rel = ((g - e).abs().max() / e.abs().max().clamp_min(1e-30)).item()
+    if rel > grad_rel:
+      grad_rel, grad_worst = rel, name
+  del grads
+  param_rel, worst = max_rel(states['graphs'].model, states['eager'].model)
+  plain_rel, plain_worst = max_rel(states['graphs'].model, plain_model)
+  del plain_model, plain
+  if not plain_rel <= GRAPH_STEP_REL_BOUND:
+    failures.append(f'{label} captured step vs a plain Adam given the same '
+                    f'gradients: parameters rel {plain_rel:.3e} '
+                    f'({plain_worst})')
+  if not loss_rel <= GRAPH_STEP_REL_BOUND or not (
+      grad_rel <= GRAD_REL_BOUND) or not param_rel <= GRAPH_STEP_REL_BOUND or (
+          not free_rel <= GRAPH_STEP_REL_BOUND):
+    failures.append(f'{label} captured step vs eager: loss rel '
+                    f'{loss_rel:.3e}, gradients rel {grad_rel:.3e} '
+                    f'({grad_worst}), parameters rel {param_rel:.3e} '
+                    f'({worst}) given the same gradients, {free_rel:.3e} '
+                    f'({free_worst}) from their own')
+  rates, peaks = {'graphs': [], 'eager': []}, {}
+  batch_iter = (train_lib.batch_to_device(b, torch.device('cuda'))
+                for b in square_batches(8))
+  with tf32_allowed(True):
+    for turn in ('graphs', 'eager', 'eager', 'graphs'):
+      torch.cuda.reset_peak_memory_stats()
+      rates[turn].append(steps_per_second(states[turn], step_fns[turn],
+                                          batch_iter))
+      peaks[turn] = torch.cuda.max_memory_allocated()
+    fixed = batches[1]
+    idle = {turn: measure.idle_share(
+        lambda: step_fns[turn](states[turn], fixed, torch.Generator()),
+        GRAPH_IDLE_STEPS) for turn in ('graphs', 'eager')}
+  pool_bytes = program.pool_bytes
+  del states, step_fns, program, model
+  release_memory()
+
+  # The loop: a logging step (eager) at GRAPH_LOG_INTERVAL and the last.
+  runs = {}
+  with tempfile.TemporaryDirectory() as work:
+    for turn in ('graphs', 'eager'):
+      lines = []
+      loop_opts = train_lib.TrainingOptions(
+          num_steps=GRAPH_LOOP_STEPS, save_interval=GRAPH_LOG_INTERVAL,
+          timing_interval=GRAPH_LOG_INTERVAL)
+      _kernels.reset_launch_counts()
+      start = time.perf_counter()
+      state = train_lib.train(
+          create_model(options), options, losses, square_batches(9),
+          loop_opts, os.path.join(work, turn), device='cuda',
+          augmentation_names=augs, log_fn=lines.append,
+          graphs=None if turn == 'graphs' else False)
+      torch.cuda.synchronize()
+      runs[turn] = {
+          'seconds': time.perf_counter() - start,
+          'launches': _kernels.launch_counts(),
+          'losses': [float(v) for line in lines for v in re.findall(
+              r'training_loss=([-+.\deE]+|nan|inf)', line)],
+          'params': {n: p.detach().clone()
+                     for n, p in state.model.named_parameters()}}
+      del state
+  track_rel = max(abs(a - b) / abs(b) for a, b in zip(
+      runs['graphs']['losses'], runs['eager']['losses']))
+  loop_param_rel = max(
+      ((p - runs['eager']['params'][n]).abs().max() /
+       runs['eager']['params'][n].abs().max().clamp_min(1e-30)).item()
+      for n, p in runs['graphs']['params'].items())
+  want_launches = {k: GRAPH_LOOP_STEPS * v for k, v in STEP_LAUNCHES.items()}
+  if len(runs['graphs']['losses']) != 2 or not (
+      track_rel <= GRAPH_TRACK_REL_BOUND):
+    failures.append(f'{label} loop losses {runs["graphs"]["losses"]} vs '
+                    f'eager {runs["eager"]["losses"]}')
+  if runs['graphs']['launches'] != want_launches:
+    failures.append(f'{label} captured loop launches '
+                    f'{runs["graphs"]["launches"]}')
+  for run in runs.values():
+    del run['params']
+  report = {'loss_rel': loss_rel, 'grad_rel': grad_rel,
+            'worst_grad': grad_worst, 'param_rel': param_rel,
+            'worst_param': worst, 'plain_adam_rel': plain_rel,
+            'plain_adam_worst': plain_worst, 'free_param_rel': free_rel,
+            'free_worst_param': free_worst, 'loss': loss,
+            'launches': launches, 'steps_per_s': rates,
+            'peak_bytes': peaks, 'idle': idle, 'first_step_s': first_s,
+            'capture_s': capture.capture_seconds, 'pool_bytes': pool_bytes,
+            'loop': runs, 'loop_loss_rel': track_rel,
+            'loop_param_rel': loop_param_rel}
+  print(f'graphs: {label} step (released config, f32, batch {TRAIN_BATCH}x'
+        f'{TRAIN_CROP}x{TRAIN_CROP}, {list(augs)}, TF32 allowed, from step '
+        f'{step0}): the replayed step vs the eager step from the same state'
+        f', loss rel {loss_rel:.2e} (bound {GRAPH_STEP_REL_BOUND:.0e}), '
+        f'gradients rel {grad_rel:.2e} ({grad_worst}; bound '
+        f'{GRAD_REL_BOUND:.0e}), parameters rel {param_rel:.2e} given the '
+        f'same gradients ({worst}), {free_rel:.2e} from their own '
+        f'({free_worst}; bound {GRAPH_STEP_REL_BOUND:.0e}), {plain_rel:.2e} '
+        f'against a plain Adam given the same gradients ({plain_worst}; '
+        f'bound {GRAPH_STEP_REL_BOUND:.0e}); launches '
+        f'{launches["graphs"]}; steps/s {mean(rates["graphs"]):.3f} '
+        f'with graphs, {mean(rates["eager"]):.3f} eager (turns g/e/e/g: '
+        f'{rates}); peak memory {peaks["graphs"] / 2**30:.2f} GiB with '
+        f'graphs beside its pool, {peaks["eager"] / 2**30:.2f} eager; idle '
+        f'share '
+        f'{idle_text(idle)}; first step {first_s:.2f} s, capture '
+        f'{capture.capture_seconds:.3f} s, pool {pool_bytes / 2**30:.2f} GiB;'
+        f' train_lib.train {GRAPH_LOOP_STEPS} steps (logging at '
+        f'{GRAPH_LOG_INTERVAL}): losses {runs["graphs"]["losses"]} vs eager '
+        f'{runs["eager"]["losses"]}, rel {track_rel:.2e} (bound '
+        f'{GRAPH_TRACK_REL_BOUND:.0e}), final parameters rel '
+        f'{loop_param_rel:.2e}, {runs["graphs"]["seconds"]:.1f} s vs '
+        f'{runs["eager"]["seconds"]:.1f} s, launches '
+        f'{runs["graphs"]["launches"]}; on {card}')
+  return report
+
+
+def graph_sharded(card, failures):
+  """The 2x2 patches of a 1080p pair over [cuda:0] * 4 with and without
+  graphs (each shard replays its own pair program from its thread): ms a
+  pair. The row-sharded class stays eager: its halo exchanges meet at a
+  host barrier inside the forward, and its warp reads the flow's reach on
+  the host (ops/warp.py backward_warp_rows)."""
+  options = Options.film_net_released(dtype_policy='bfloat16')
+  model = init_params(create_model(options), torch.Generator().manual_seed(0))
+  mesh = parallel_mesh.Mesh(['cuda:0'] * SHARDS)
+  frames = np.random.RandomState(1).rand(2, 1, VIDEO_H, VIDEO_W, 3).astype(
+      np.float32)
+  x0, x1 = (torch.from_numpy(f).cuda() for f in frames)
+  dtd = torch.full((1,), 0.5, device='cuda')
+  interps = {label: sharded.ShardedInterpolator(
+      model, options, mesh, (2, 2), align=64, graphs=label == 'graphs')
+             for label in ('graphs', 'eager')}
+  outs, launches = {}, {}
+  for label, interp in interps.items():
+    interp.call_device(x0, x1, dtd)
+    out, launches[label], _ = run_counted(
+        lambda: interp.call_device(x0, x1, dtd))
+    outs[label] = out.cpu().numpy()
+  psnr = psnr_db(outs['graphs'], outs['eager'])
+  if not psnr >= GRAPH_PSNR_DB or any(
+      v != SHARDED_PATCH_LAUNCHES for v in launches.values()):
+    failures.append(f'sharded patches with graphs {psnr:.2f} dB vs eager, '
+                    f'launches {launches}')
+  ms = {'graphs': [], 'eager': []}
+  for label in ('graphs', 'eager', 'eager', 'graphs'):
+    ms[label].append(measure.time_ms(
+        lambda: interps[label].call_device(x0, x1, dtd), iters=3,
+        queued=False))
+  print(f'graphs: sharded patches {mesh!r} (1080p pair, 2x2 patches): '
+        f'{mean(ms["graphs"]):.3f} ms a pair with graphs, '
+        f'{mean(ms["eager"]):.3f} eager (turns g/e/e/g: {ms}); with graphs '
+        f'vs eager {psnr:.2f} dB; launches {launches["graphs"]}; the '
+        f'row-sharded class stays eager; on {card}')
+  return {'ms': ms, 'psnr': psnr, 'launches': launches}
+
+
+def check_graphs(mat_path, card, failures):
+  """The graph phase: each captured entry point against graphs=False."""
+  report = {'pair': graph_pair(card, failures)}
+  release_memory()
+  report['mixed'] = graph_mixed(card, failures)
+  release_memory()
+  report['tree'] = graph_tree(card, failures)
+  release_memory()
+  l1 = configs.get_experiment('film_net-L1')
+  report['film_net-L1'] = graph_step(
+      'film_net-L1', l1, losses_lib.training_losses(['l1']), 0, card,
+      failures)
+  style = configs.get_experiment('film_net-Style', mat_path)
+  report['film_net-Style'] = graph_step(
+      'film_net-Style', style, losses_lib.training_losses(
+          list(style.training_losses.names),
+          loss_weight_schedules=list(style.training_losses.weight_schedules),
+          vgg_model_file=style.vgg_model_file), STYLE_STEP, card, failures)
+  release_memory()
+  report['sharded'] = graph_sharded(card, failures)
+  release_memory()
+  return report
+
+
 def main() -> int:
   parser = argparse.ArgumentParser(description='GPU smoke test of the port.')
   parser.add_argument('--out', default=None,
@@ -2262,6 +2884,9 @@ def main() -> int:
   options = Options.film_net_released(dtype_policy='bfloat16')
   model = init_params(create_model(options), torch.Generator().manual_seed(0))
   interpolator = Interpolator(model, options, align=64, device='cuda')
+  # The same model eagerly: the plain versions replace the kernels only
+  # where Python issues the launches, never inside a captured graph.
+  eager = Interpolator(model, options, align=64, device='cuda', graphs=False)
   frames = np.random.RandomState(0).rand(2, 1, 1080, 1920, 3).astype(
       np.float32)
   dt = np.full((1,), 0.5, np.float32)
@@ -2294,10 +2919,10 @@ def main() -> int:
                               iters=3, queued=False)
   with plain_versions():
     _kernels.reset_launch_counts()
-    plain_out = interpolator(frames[0], frames[1], dt)
+    plain_out = eager(frames[0], frames[1], dt)
     plain_launches = sum(_kernels.launch_counts().values())
     plain_device_ms = measure.time_ms(
-        lambda: interpolator.call_device(x0, x1, dtd), iters=3, queued=False)
+        lambda: eager.call_device(x0, x1, dtd), iters=3, queued=False)
   if plain_launches:
     failures.append(f'plain forward launched {plain_launches} kernels')
   mse = float(np.mean((out.astype(np.float64) - plain_out)**2))
@@ -2318,22 +2943,30 @@ def main() -> int:
 
   # Phase 5: the video slice: the exact uint8 rules, the frame tree by both
   # routes, the tiled tree.
+  release_memory()
   uint8_report = check_uint8_rules(failures)
-  video_report = check_video(interpolator, card, failures)
+  video_report = check_video(interpolator, eager, card, failures)
+  # The serving interpolator lives on through the next phases: its graphs
+  # (up to its pool's budget) go back first.
+  interpolator.release_graphs()
+  release_memory()
   tiled_report = check_tiled_tree(model, options, card, failures)
+  release_memory()
 
   # Phase 6: sharded serving on meshes of the card.
   spatial_report = check_spatial(model, options, frames, dt, out, card,
                                  failures)
-  sharded_report = check_sharded_patches_and_tree(model, options,
-                                                  interpolator, card,
-                                                  failures)
+  release_memory()
+  sharded_report = check_sharded_patches_and_tree(model, options, eager,
+                                                  card, failures)
+  release_memory()
   spatial_launches = spatial_report[
       repr(parallel_mesh.Mesh(['cuda:0'] * SHARDS))]['launches']
 
   # Phase 6a: the split-concat convs against the concat form.
   split_report = check_split(model.state_dict(), frames, dt, card, failures)
-  del interpolator, model
+  del interpolator, eager, model
+  release_memory()
 
   # Phase 7: the training path: film_net-L1, then film_net-Style with
   # VGG-19 at its true widths, by the preset and by a gin file.
@@ -2343,6 +2976,10 @@ def main() -> int:
     write_vgg_mat(mat_path)
     style_report = check_style(mat_path, card, train_report, failures)
     gin_report = check_gin_loop(mat_path, card, failures)
+    # Phase 7a: the captured entry points against the eager ones.
+    release_memory()
+    graphs_report = check_graphs(mat_path, card, failures)
+  release_memory()
 
   # Phase 8: the eval loop.
   eval_report = check_eval(card, failures)
@@ -2398,7 +3035,8 @@ def main() -> int:
                  'style': style_report, 'gin_loop': gin_report,
                  'eval': eval_report, 'split': split_report,
                  'native_crc': crc_report, 'builders': builders_report,
-                 'ddp': ddp_report, 'failures': failures}, f, indent=1,
+                 'ddp': ddp_report, 'graphs': graphs_report,
+                 'failures': failures}, f, indent=1,
                 default=str)
 
   if failures:

@@ -8,16 +8,21 @@ flow_flip) that counter-rotate the (u, v) vectors.
 
 The deterministic transforms keep the JAX signatures ((H, W, C) images;
 `rotate_image` also takes a (B, H, W, C) batch with one angle per example).
-The random ones take a batch dict and a `torch.Generator`, and draw one
-value per example from it, so every example is augmented independently and
-one seed gives one sequence of batches. The draws are made where the
-generator lives (the host for a CPU generator) and moved to the batch's
-device; the image math runs on the batch's device.
+The random ones draw one value per example from a `torch.Generator`, so
+every example is augmented independently and one seed gives one sequence
+of batches. Each is two steps: `draw_augmentations` makes every draw of a
+step where the generator lives (the host for a CPU generator), in a fixed
+order, as one (rows, B) f32 tensor; `apply_drawn` applies them on the
+batch's device with tensor ops alone, reading the draws from that tensor
+(rot90 selects among the four rotations of the square crop by example).
+So the application needs no host sync and runs inside a captured train
+step (training/train_lib.py), the draws crossing to the card as one small
+copy. `apply_data_augmentation` does both.
 """
 from __future__ import annotations
 
 import math
-from typing import Callable, Dict, List, Sequence
+from typing import Callable, Dict, List, NamedTuple, Sequence
 
 import torch
 
@@ -153,60 +158,87 @@ def flow_flip(flow: torch.Tensor) -> torch.Tensor:
 # ---- random augmentations: one draw per example -----------------------------
 
 
+class Augmentation(NamedTuple):
+  """A random augmentation: `draw(generator, batch)` returns its `rows`
+  rows of draws, each (batch,), in order; `apply(images, rows)` applies
+  them."""
+  rows: int
+  draw: Callable[[torch.Generator, int], List[torch.Tensor]]
+  apply: Callable[[Batch, torch.Tensor], Batch]
+
+
 def _coin(generator: torch.Generator, batch: int) -> torch.Tensor:
   return torch.randint(0, 2, (batch,), generator=generator,
-                       device=generator.device).bool()
+                       device=generator.device)
 
 
 def _where_examples(choice: torch.Tensor, a: torch.Tensor,
                     b: torch.Tensor) -> torch.Tensor:
-  return torch.where(choice.to(a.device)[:, None, None, None], a, b)
+  return torch.where((choice != 0)[:, None, None, None], a, b)
 
 
-def _random_image_rot90(generator: torch.Generator, images: Batch) -> Batch:
-  first = next(iter(images.values()))
-  ks = torch.randint(0, 4, (first.shape[0],), generator=generator,
-                     device=generator.device).tolist()
-  if first.shape[1] != first.shape[2]:
-    raise ValueError('random rot90 needs square images (apply the training '
-                     f'crop first); got {tuple(first.shape)}')
-  return {name: torch.stack([_rot90_single(x, k) for x, k in zip(img, ks)])
-          for name, img in images.items()}
-
-
-def _random_flip(generator: torch.Generator, images: Batch) -> Batch:
-  flip = _coin(generator, next(iter(images.values())).shape[0])
-  return {name: _where_examples(flip, img.flip(2), img)
-          for name, img in images.items()}
-
-
-def _random_rotate(generator: torch.Generator, images: Batch) -> Batch:
-  batch = next(iter(images.values())).shape[0]
-  prob = _coin(generator, batch).float()
-  angle = (torch.rand((batch,), generator=generator, device=generator.device)
-           * 0.5 - 0.25) * math.pi
-  return {name: rotate_image(img, angle * prob)
-          for name, img in images.items()}
-
-
-def _random_reverse(generator: torch.Generator, images: Batch) -> Batch:
-  swap = _coin(generator, next(iter(images.values())).shape[0])
-  out = dict(images)
-  if 'x0' in images and 'x1' in images:
-    out['x0'] = _where_examples(swap, images['x1'], images['x0'])
-    out['x1'] = _where_examples(swap, images['x0'], images['x1'])
+def _rot90_batch(images: torch.Tensor, k: torch.Tensor) -> torch.Tensor:
+  """Rotates each square example of (B, H, H, C) counter-clockwise k[b]
+  times: the four rotations of the batch, selected by example."""
+  rotations = (images, images.transpose(1, 2).flip(1),
+               images.flip(1).flip(2), images.transpose(1, 2).flip(2))
+  out = rotations[0]
+  for turns in (1, 2, 3):
+    out = _where_examples(k == turns, rotations[turns], out)
   return out
 
 
-_REGISTRY: Dict[str, Callable] = {
-    'random_image_rot90': _random_image_rot90,
-    'random_flip': _random_flip,
-    'random_rotate': _random_rotate,
-    'random_reverse': _random_reverse,
+def _draw_rot90(generator: torch.Generator, batch: int):
+  return [torch.randint(0, 4, (batch,), generator=generator,
+                        device=generator.device)]
+
+
+def _apply_rot90(images: Batch, rows: torch.Tensor) -> Batch:
+  first = next(iter(images.values()))
+  if first.shape[1] != first.shape[2]:
+    raise ValueError('random rot90 needs square images (apply the training '
+                     f'crop first); got {tuple(first.shape)}')
+  return {name: _rot90_batch(img, rows[0]) for name, img in images.items()}
+
+
+def _apply_flip(images: Batch, rows: torch.Tensor) -> Batch:
+  return {name: _where_examples(rows[0], img.flip(2), img)
+          for name, img in images.items()}
+
+
+def _draw_rotate(generator: torch.Generator, batch: int):
+  # The coin, then the angle's uniform draw.
+  return [_coin(generator, batch),
+          torch.rand((batch,), generator=generator, device=generator.device)]
+
+
+def _apply_rotate(images: Batch, rows: torch.Tensor) -> Batch:
+  angle = (rows[1] * 0.5 - 0.25) * math.pi
+  return {name: rotate_image(img, angle * rows[0])
+          for name, img in images.items()}
+
+
+def _apply_reverse(images: Batch, rows: torch.Tensor) -> Batch:
+  out = dict(images)
+  if 'x0' in images and 'x1' in images:
+    out['x0'] = _where_examples(rows[0], images['x1'], images['x0'])
+    out['x1'] = _where_examples(rows[0], images['x0'], images['x1'])
+  return out
+
+
+def _draw_coin(generator: torch.Generator, batch: int):
+  return [_coin(generator, batch)]
+
+
+_REGISTRY: Dict[str, Augmentation] = {
+    'random_image_rot90': Augmentation(1, _draw_rot90, _apply_rot90),
+    'random_flip': Augmentation(1, _draw_coin, _apply_flip),
+    'random_rotate': Augmentation(2, _draw_rotate, _apply_rotate),
+    'random_reverse': Augmentation(1, _draw_coin, _apply_reverse),
 }
 
 
-def data_augmentations(names: Sequence[str]) -> List[Callable]:
+def data_augmentations(names: Sequence[str]) -> List[Augmentation]:
   """Name registry parity (reference augmentation_lib.py:197-220)."""
   fns = []
   for name in names:
@@ -216,13 +248,44 @@ def data_augmentations(names: Sequence[str]) -> List[Callable]:
   return fns
 
 
-def apply_data_augmentation(augmentation_fns: Sequence[Callable],
+def draw_augmentations(augmentations: Sequence[Augmentation],
+                       generator: torch.Generator,
+                       batch_size: int) -> torch.Tensor:
+  """Every draw of one step, in the augmentations' order, as one
+  (rows, batch_size) f32 tensor where the generator lives (each draw is
+  an integer below 4 or an f32 uniform, so f32 holds it exactly)."""
+  rows = [row.float() for aug in augmentations
+          for row in aug.draw(generator, batch_size)]
+  if not rows:
+    return torch.zeros((0, batch_size), device=generator.device)
+  return torch.stack(rows)
+
+
+def apply_drawn(augmentations: Sequence[Augmentation], draws: torch.Tensor,
+                batch: Batch) -> Batch:
+  """Applies the augmentations with `draws` (from `draw_augmentations`,
+  on the batch's device) to the (B, H, W, C) 'x0', 'x1' and 'y' of
+  `batch`; other keys pass through untouched. Tensor ops alone, on the
+  device: no host sync."""
+  if not augmentations:
+    return batch
+  images = {k: batch[k] for k in _IMAGE_KEYS if k in batch}
+  row = 0
+  for aug in augmentations:
+    images = aug.apply(images, draws[row:row + aug.rows])
+    row += aug.rows
+  out = dict(batch)
+  out.update(images)
+  return out
+
+
+def apply_data_augmentation(augmentations: Sequence[Augmentation],
                             generator: torch.Generator,
                             batch: Batch) -> Batch:
   """Applies augmentations to a batch, independently per example.
 
   Args:
-    augmentation_fns: from `data_augmentations`.
+    augmentations: from `data_augmentations`.
     generator: the source of every random draw (advanced in place).
     batch: dict with (B, H, W, C) tensors under 'x0', 'x1', 'y' (other keys
       pass through untouched).
@@ -230,11 +293,8 @@ def apply_data_augmentation(augmentation_fns: Sequence[Callable],
   Returns:
     The augmented batch, same shapes.
   """
-  if not augmentation_fns:
+  if not augmentations:
     return batch
-  images = {k: batch[k] for k in _IMAGE_KEYS if k in batch}
-  for fn in augmentation_fns:
-    images = fn(generator, images)
-  out = dict(batch)
-  out.update(images)
-  return out
+  first = next(batch[k] for k in _IMAGE_KEYS if k in batch)
+  draws = draw_augmentations(augmentations, generator, first.shape[0])
+  return apply_drawn(augmentations, draws.to(first.device), batch)

@@ -10,20 +10,27 @@ extracted once, at batch 1, every midpoint reads its parents' features
 from the stack, and midpoints at the final depth skip extraction (their
 features feed nothing).
 
-The JAX package runs this as one XLA program (lax.scan over the schedule,
-lax.cond for the leaves); here it is a plain loop under inference mode,
-launching the same kernels. Cropping a midpoint and padding it again with
-zeros reproduces the uncached path's input exactly, so on the CPU the
-cached DFS equals the uncached DFS bit for bit; against the chunked tree,
-which runs at other batch sizes, it agrees to float noise.
+The JAX package runs each pair as one XLA program (`pair_body`: the
+right frame's extraction, then the schedule under lax.scan with lax.cond
+for the leaves), carrying the right endpoint's features to the next pair.
+Here `expand_pair` is that body: the schedule is static given `times`, so
+its Python stack is a fixed set of slots, and on a CUDA device the
+Interpolator captures the whole body as one graph a pair shape
+(`Interpolator.tree_pair_device`), replayed once per input pair. Cropping
+a midpoint and padding it again with zeros reproduces the uncached path's
+input exactly, so on the CPU the cached DFS equals the uncached DFS bit
+for bit; against the chunked tree, which runs at other batch sizes, it
+agrees to float noise.
 
 Memory: the stack holds `times + 2` frames' features (about 0.7 GB a
 1080p frame in bf16 by the JAX package's estimate), whatever the tree's
-size; the finished frames are written into one output tensor.
+size; the finished frames are written into one output tensor. One graph
+holds a whole pair's tree, so its pool holds that stack and one
+midpoint's forward.
 """
 from __future__ import annotations
 
-from typing import Dict, List, Sequence
+from typing import Callable, Dict, List, Sequence
 
 import numpy as np
 import torch
@@ -83,13 +90,41 @@ def quantize_u8(x: torch.Tensor) -> torch.Tensor:
   return (torch.clamp(x.float() * 255.0, 0.0, 255.0) + 0.5).to(torch.uint8)
 
 
+def expand_pair(features_fn: Callable, midpoint_fn: Callable, left,
+                right_frame: torch.Tensor, times: int):
+  """One input pair's tree: the `pair_body` of the JAX package's
+  expand_tree_cached_program.
+
+  `left` holds the left frame's features; `features_fn(frame)` extracts
+  `right_frame`'s (1, H, W, 3), and `midpoint_fn(f0, f1, with_features)`
+  makes a midpoint (1, H, W, 3), cropped, and its features or None.
+  Walks `dfs_schedule(times)` over `times + 2` feature slots and returns
+  (the 2^times - 1 midpoints in time order, the right frame's features).
+  """
+  sched = dfs_schedule(times)
+  steps = zip(*(sched[k].tolist() for k in
+                ('a_slot', 'b_slot', 'm_slot', 'out_pos', 'extract')))
+  right = features_fn(right_frame)
+  slots = [left, right] + [None] * times
+  mids = [None] * (2**times - 1)
+  for a_slot, b_slot, m_slot, pos, needs_features in steps:
+    mid, features = midpoint_fn(slots[a_slot], slots[b_slot],
+                                with_features=needs_features)
+    mids[pos - 1] = mid
+    if needs_features:
+      slots[m_slot] = features
+  return torch.cat(mids), right
+
+
 def expand_tree_cached(interpolator, frames: torch.Tensor, times: int,
                        as_uint8: bool) -> torch.Tensor:
   """Expands (N, H, W, 3) f32 `frames` on the interpolator's device to
   ((N-1)*2^T + 1, H, W, 3) in time order (uint8 when `as_uint8`).
 
-  `interpolator` provides `features_device` and
-  `midpoint_from_features_device` (inference/interpolator.py).
+  `interpolator` provides `features_device` and `tree_pair_device`
+  (inference/interpolator.py): each input frame is extracted once, one
+  frame at a time, and the right endpoint's features carry over to the
+  next pair.
   """
   n = int(frames.shape[0])
 
@@ -98,29 +133,16 @@ def expand_tree_cached(interpolator, frames: torch.Tensor, times: int,
 
   if times <= 0 or n < 2:
     return quantize(frames).contiguous()
-  orig_hw = (int(frames.shape[1]), int(frames.shape[2]))
-  sched = dfs_schedule(times)
-  steps = list(zip(*(sched[k].tolist() for k in
-                     ('a_slot', 'b_slot', 'm_slot', 'out_pos', 'extract'))))
   per_pair = 2**times
   out = torch.empty(((n - 1) * per_pair + 1,) + tuple(frames.shape[1:]),
                     dtype=torch.uint8 if as_uint8 else frames.dtype,
                     device=frames.device)
   out[::per_pair] = quantize(frames)
-  # Each input frame is extracted once, one frame at a time; the right
-  # endpoint's features carry over to the next pair.
   right = interpolator.features_device(frames[:1])
   for i in range(n - 1):
-    stack = [right, interpolator.features_device(frames[i + 1:i + 2])]
-    stack += [None] * times
-    for a_slot, b_slot, m_slot, pos, needs_features in steps:
-      mid, features = interpolator.midpoint_from_features_device(
-          stack[a_slot], stack[b_slot], orig_hw, as_uint8=as_uint8,
-          with_features=needs_features)
-      out[i * per_pair + pos] = mid[0]
-      if needs_features:
-        stack[m_slot] = features
-    right = stack[1]
+    mids, right = interpolator.tree_pair_device(
+        right, frames[i + 1:i + 2], times, as_uint8=as_uint8)
+    out[i * per_pair + 1:(i + 1) * per_pair] = mids
   return out
 
 

@@ -24,6 +24,18 @@ values); outputs quantize with io.images.to_uint8's rule,
 
 The model ignores the time value and predicts the midpoint; other
 timestamps come from recursive invocation.
+
+On a CUDA device each of these is one captured program (utils/programs.py),
+as each is one jitted program in the JAX package: the pair (pad -> model
+-> crop), the features of a frame, a midpoint from two frames' features,
+and one input pair's whole cached tree. A call then replays a CUDA graph
+per key (shapes, dtypes, the static arguments) instead of issuing every
+launch from Python; the tiled pair, the chunked tree, the recursion drivers
+and the sharded classes reach them through these methods. `graphs=False`
+is the eager path, the one the CPU always takes. The graphs hold their
+memory in one pool, bounded as utils/programs.py says (a new shape past
+the pool's budget drops the others); a capture or replay that fails
+raises.
 """
 from __future__ import annotations
 
@@ -39,6 +51,7 @@ from ..io import params_io, tf_import
 from ..models.film_net import FilmNet, Features
 from ..ops import tiling
 from ..options import Options
+from ..utils import programs
 from . import cached_tree
 
 # The correctly rounded v / 255 of every byte value: numpy's f32 division,
@@ -76,13 +89,18 @@ class Interpolator:
 
   `params_or_model` is a FilmNet, its state_dict, or the JAX package's
   flax parameter tree. A 'cuda' device needs a visible GPU; there is no
-  fallback to the CPU.
+  fallback to the CPU. `graphs`: run the entry points as captured CUDA
+  graphs (None: on a CUDA device); True on the CPU raises. `pool`: the
+  graphs' memory pool, to share with other Interpolators on the device
+  (the sharded classes give the shards on one device one pool); a pool
+  of its own by default.
   """
 
   def __init__(self, params_or_model: Any, options: Options,
                align: Optional[int] = 64,
                block_shape: Optional[Sequence[int]] = None,
-               device: Any = 'cuda') -> None:
+               device: Any = 'cuda', graphs: Optional[bool] = None,
+               pool: Optional[programs.Pool] = None) -> None:
     self._device = torch.device(device)
     if self._device.type == 'cuda' and not torch.cuda.is_available():
       raise RuntimeError('Interpolator: device cuda requested but no GPU is '
@@ -91,6 +109,18 @@ class Interpolator:
     self._align = align or None
     self._block_shape = tuple(block_shape) if block_shape else None
     self._model = as_model(params_or_model, options).to(self._device).eval()
+    self._programs: Dict[str, programs.Program] = {}
+    if programs.resolve(graphs, self._device, 'Interpolator'):
+      # One pool for the four, bounded as a whole.
+      self._pool = pool or programs.Pool()
+      self._programs = {
+          name: programs.Program(programs.weak_method(fn), self._device,
+                                 name, pool=self._pool)
+          for name, fn in (('pair', self._pair_eager),
+                           ('features', self._features_eager),
+                           ('midpoint', self._midpoint_eager),
+                           ('tree_pair', self._tree_pair_eager))}
+    self._weights_version = self._version()
 
   @property
   def options(self) -> Options:
@@ -103,6 +133,39 @@ class Interpolator:
   @property
   def device(self) -> torch.device:
     return self._device
+
+  @property
+  def graphs(self) -> bool:
+    """Whether the entry points run as captured programs."""
+    return bool(self._programs)
+
+  @property
+  def programs(self) -> Dict[str, programs.Program]:
+    """The captured programs by name (empty on the eager path)."""
+    return dict(self._programs)
+
+  def release_graphs(self) -> None:
+    """Destroys the captured graphs, those of other Interpolators given the
+    same pool too; their memory goes back to the device. Later calls
+    capture again."""
+    if self._programs:
+      self._pool.clear()
+
+  def _version(self) -> int:
+    return sum(p._version for p in self._model.parameters())
+
+  def _run(self, name: str, eager_fn, *args, **static):
+    """`eager_fn(*args, **static)` under inference mode, through its
+    program where there are programs. A weight written in place since the
+    graphs were captured (training the model further) drops them."""
+    with torch.inference_mode():
+      if not self._programs:
+        return eager_fn(*args, **static)
+      version = self._version()
+      if version != self._weights_version:
+        self.release_graphs()
+        self._weights_version = version
+      return self._programs[name](*args, **static)
 
   def tiled(self) -> bool:
     """Whether `block_shape` spans more than one patch."""
@@ -124,17 +187,21 @@ class Interpolator:
     """Pads to alignment, runs the model, crops back. Stays on device.
 
     x0, x1: (B, H, W, 3) float32 in [0, 1]; dt: (B,). Returns (B, H, W, 3).
+    The pair program: one replay a call on the graphs' path.
     """
+    return self._run('pair', self._pair_eager, x0, x1, dt)
+
+  def _pair_eager(self, x0: torch.Tensor, x1: torch.Tensor,
+                  dt: torch.Tensor) -> torch.Tensor:
     time = dt.reshape(-1, 1).float()
-    with torch.inference_mode():
-      bbox = None
-      if self._align is not None:
-        x0, bbox = tiling.pad_to_align(x0, self._align)
-        x1, _ = tiling.pad_to_align(x1, self._align)
-      image = self._model(x0, x1, time)['image']
-      if bbox is not None:
-        image = tiling.crop_to_bounding_box(image, **bbox)
-      return image.contiguous()
+    bbox = None
+    if self._align is not None:
+      x0, bbox = tiling.pad_to_align(x0, self._align)
+      x1, _ = tiling.pad_to_align(x1, self._align)
+    image = self._model(x0, x1, time)['image']
+    if bbox is not None:
+      image = tiling.crop_to_bounding_box(image, **bbox)
+    return image.contiguous()
 
   def interpolate_all_outputs(self, x0: Any, x1: Any,
                               dt: Any) -> Dict[str, Any]:
@@ -181,11 +248,12 @@ class Interpolator:
   def features_device(self, x: Any) -> Features:
     """(image_pyramid, feature_pyramid) of frames (B, H, W, 3), padded to
     the alignment grid first; reusable across every pair they are in."""
-    x = self.to_device(x)
-    with torch.inference_mode():
-      if self._align is not None:
-        x, _ = tiling.pad_to_align(x, self._align)
-      return self._model.extract_features(x)
+    return self._run('features', self._features_eager, self.to_device(x))
+
+  def _features_eager(self, x: torch.Tensor) -> Features:
+    if self._align is not None:
+      x, _ = tiling.pad_to_align(x, self._align)
+    return self._model.extract_features(x)
 
   def midpoint_from_features_device(
       self, f0: Features, f1: Features, orig_hw: Sequence[int],
@@ -199,25 +267,54 @@ class Interpolator:
     with the writers' rule (the features come from the f32 frame);
     `with_features=False` skips the extraction and returns None for them.
     """
+    return self._run('midpoint', self._midpoint_eager, f0, f1,
+                     orig_hw=tuple(int(s) for s in orig_hw),
+                     as_uint8=bool(as_uint8),
+                     with_features=bool(with_features))
+
+  def _midpoint_eager(self, f0: Features, f1: Features,
+                      orig_hw: Tuple[int, int], as_uint8: bool,
+                      with_features: bool
+                      ) -> Tuple[torch.Tensor, Optional[Features]]:
     batch = f0[0][0].shape[0]
     time = torch.full((batch, 1), 0.5, dtype=torch.float32,
                       device=self._device)
-    with torch.inference_mode():
-      image = self._model.interpolate_from_features(f0, f1, time)['image']
+    image = self._model.interpolate_from_features(f0, f1, time)['image']
+    if self._align is not None:
+      height, width = orig_hw
+      image = tiling.crop_to_bounding_box(
+          image, offset_height=(image.shape[1] - height) // 2,
+          offset_width=(image.shape[2] - width) // 2,
+          target_height=height, target_width=width)
+    features = None
+    if with_features:
+      repadded = image
       if self._align is not None:
-        height, width = orig_hw
-        image = tiling.crop_to_bounding_box(
-            image, offset_height=(image.shape[1] - height) // 2,
-            offset_width=(image.shape[2] - width) // 2,
-            target_height=height, target_width=width)
-      features = None
-      if with_features:
-        repadded = image
-        if self._align is not None:
-          repadded, _ = tiling.pad_to_align(image, self._align)
-        features = self._model.extract_features(repadded)
-      image = cached_tree.quantize_u8(image) if as_uint8 else image
-      return image.contiguous(), features
+        repadded, _ = tiling.pad_to_align(image, self._align)
+      features = self._model.extract_features(repadded)
+    image = cached_tree.quantize_u8(image) if as_uint8 else image
+    return image.contiguous(), features
+
+  def tree_pair_device(self, left: Features, right_frame: torch.Tensor,
+                       times: int, as_uint8: bool = False
+                       ) -> Tuple[torch.Tensor, Features]:
+    """One input pair's whole cached tree (inference/cached_tree.py
+    `expand_pair`): the 2^times - 1 midpoints between the frame whose
+    features are `left` and `right_frame` (1, H, W, 3) f32, in time
+    order, and `right_frame`'s features, which the next pair takes as its
+    `left`. One replay a pair on the graphs' path."""
+    return self._run('tree_pair', self._tree_pair_eager, left, right_frame,
+                     times=int(times), as_uint8=bool(as_uint8))
+
+  def _tree_pair_eager(self, left: Features, right_frame: torch.Tensor,
+                       times: int, as_uint8: bool
+                       ) -> Tuple[torch.Tensor, Features]:
+    orig_hw = (int(right_frame.shape[1]), int(right_frame.shape[2]))
+    return cached_tree.expand_pair(
+        self._features_eager,
+        lambda f0, f1, with_features: self._midpoint_eager(
+            f0, f1, orig_hw, as_uint8, with_features),
+        left, right_frame, times)
 
   # ---- the frame tree ----------------------------------------------------------
 

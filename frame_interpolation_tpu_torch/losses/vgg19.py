@@ -113,6 +113,14 @@ def _tower_weights(model_filepath: str, device: torch.device) -> Weights:
       for k, b in load_vgg_weights(model_filepath))
 
 
+@functools.lru_cache(maxsize=None)
+def _imagenet_mean(device: torch.device) -> torch.Tensor:
+  """The (1, 3, 1, 1) mean on `device`, made once: a captured train step
+  (utils/programs.py) reads it by address and cannot copy from the host."""
+  return torch.tensor(_IMAGENET_MEAN, dtype=torch.float32,
+                      device=device).reshape(1, 3, 1, 1)
+
+
 def avg_pool_same(x: torch.Tensor) -> torch.Tensor:
   """2x2 stride-2 SAME average pooling of NCHW `x` (tf.nn.avg_pool): a
   window cut by an odd edge divides by the elements it holds."""
@@ -124,8 +132,7 @@ def vgg_features(image: torch.Tensor,
   """The tower's conv outputs by layer name, NCHW; `image` is NHWC RGB in
   [0, 255]."""
   weights = _tower_weights(model_filepath, image.device)
-  mean = torch.tensor(_IMAGENET_MEAN, dtype=torch.float32,
-                      device=image.device).reshape(1, 3, 1, 1)
+  mean = _imagenet_mean(image.device)
   net = image.float().permute(0, 3, 1, 2) - mean
   feats: Dict[str, torch.Tensor] = {}
   for (weight, bias), name in zip(weights, _CONV_NAMES):

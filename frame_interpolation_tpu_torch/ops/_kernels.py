@@ -14,9 +14,19 @@ nowhere else, so a run can show that its main path went through the
 kernels. The shards of the sharded paths (parallel/) launch from threads
 of their own: the build and the counts each take a lock, so shards
 neither build twice nor lose counts.
+
+A CUDA graph (utils/programs.py) launches its kernels without calling the
+wrappers again. So while a graph is captured, the launches made onto its
+capturing stream go into a record (`recording`) and not into `LAUNCHES`,
+since a capture launches nothing; each replay then adds the record once
+(`add_replay`). The record is keyed by the stream rather than the thread,
+because autograd runs a captured backward from a thread of its own, on
+the forward's stream. `launch_counts()` thus reads the same for a
+replayed call as for an eager one.
 """
 from __future__ import annotations
 
+import contextlib
 import ctypes
 import hashlib
 import os
@@ -25,7 +35,7 @@ import subprocess
 import threading
 import time
 from pathlib import Path
-from typing import Dict
+from typing import Dict, Iterator, Mapping, Optional
 
 import torch
 
@@ -54,12 +64,40 @@ BUILD_INFO: Dict[str, object] = {}
 _lib = None
 _LIB_LOCK = threading.Lock()
 _COUNT_LOCK = threading.Lock()
+# Capturing stream (its handle) -> the launches its capture records.
+_RECORDS: Dict[int, Dict[str, int]] = {}
 
 
-def count_launch(name: str) -> None:
-  """Adds one launch of `name`; safe from several threads."""
+def count_launch(name: str, stream: Optional[int] = None) -> None:
+  """Adds one launch of `name`, made onto `stream` (a handle, as
+  `stream_of` gives it): to the record of that stream's capture while
+  one is recorded, else to `LAUNCHES`. Safe from several threads."""
   with _COUNT_LOCK:
-    LAUNCHES[name] += 1
+    counts = _RECORDS.get(stream, LAUNCHES) if _RECORDS else LAUNCHES
+    counts[name] += 1
+
+
+@contextlib.contextmanager
+def recording(stream: int) -> Iterator[Dict[str, int]]:
+  """Records the launches made onto `stream` (a capturing stream's
+  handle) while the context is open; yields the record."""
+  record = dict.fromkeys(LAUNCHES, 0)
+  with _COUNT_LOCK:
+    if stream in _RECORDS:
+      raise RuntimeError(f'stream {stream:#x} is already being recorded')
+    _RECORDS[stream] = record
+  try:
+    yield record
+  finally:
+    with _COUNT_LOCK:
+      del _RECORDS[stream]
+
+
+def add_replay(record: Mapping[str, int]) -> None:
+  """Adds a recorded capture's launches once: one replay of its graph."""
+  with _COUNT_LOCK:
+    for name, count in record.items():
+      LAUNCHES[name] += count
 
 
 def reset_launch_counts() -> None:

@@ -41,10 +41,12 @@ from . import _kernels
 # The kernel's tile width along both channel axes.
 _CHANNEL_MULTIPLE = 64
 
-# weight -> (key, packed): the (Cout, 3, 3, Cin) copy the kernel reads,
-# rebuilt when the weight is written to in place, moved, or another dtype
-# is asked for. Shards on one device share their replica's weights, from
-# threads of their own: the lock packs each weight once.
+# weight -> {dtype: (key, packed)}: the (Cout, 3, 3, Cin) copy the kernel
+# reads in each dtype asked for, rebuilt when the weight is written to in
+# place or moved. A copy stays while its weight is unchanged, as a captured
+# graph (utils/programs.py) reads it by address: a forward in another
+# dtype does not replace it. Shards on one device share their replica's
+# weights, from threads of their own: the lock packs each weight once.
 _PACKED = WeakTensorKeyDictionary()
 _PACKED_LOCK = threading.Lock()
 
@@ -76,12 +78,13 @@ def _packed_weight(weight: torch.Tensor, dtype: torch.dtype) -> torch.Tensor:
   if weight.is_inference():
     # Inference tensors keep no version counter: nothing to key a cache on.
     return _pack(weight, dtype)
-  key = (weight._version, weight.data_ptr(), weight.device, dtype)
+  key = (weight._version, weight.data_ptr(), weight.device)
   with _PACKED_LOCK:
-    cached = _PACKED.get(weight)
+    by_dtype = _PACKED.setdefault(weight, {})
+    cached = by_dtype.get(dtype)
     if cached is None or cached[0] != key:
       cached = (key, _pack(weight, dtype))
-      _PACKED[weight] = cached
+      by_dtype[dtype] = cached
     return cached[1]
 
 
@@ -151,12 +154,13 @@ def conv3x3_leaky_kernel(x: torch.Tensor, weight: torch.Tensor,
   if features.numel() == 0:
     return features, pooled
   fn = getattr(_kernels.library(), symbol)
+  stream = _kernels.stream_of(x)
   code = fn(x.data_ptr(), packed.data_ptr(), bias32.data_ptr(),
             features.data_ptr(), pooled.data_ptr() if pool else None,
-            n, h, w, cin, cout, negative_slope, _kernels.stream_of(x))
+            n, h, w, cin, cout, negative_slope, stream)
   _kernels.check('conv3x3_leaky', code)
   wide = not (cin == _CHANNEL_MULTIPLE and cout == _CHANNEL_MULTIPLE)
-  _kernels.count_launch('conv3x3_wide' if wide else 'conv3x3_c64')
+  _kernels.count_launch('conv3x3_wide' if wide else 'conv3x3_c64', stream)
   return features, pooled
 
 

@@ -26,6 +26,23 @@ def _gaussian_kernel(size: int, sigma: float) -> np.ndarray:
   return k2d.astype(np.float32)
 
 
+# (size, sigma, device) -> the Gaussian window on the device, built once
+# and kept: the SSIM loss may run inside a captured train step
+# (utils/programs.py), which cannot capture a host-to-device copy and reads
+# the window by address.
+_WINDOWS = {}
+
+
+def _gaussian_window(size: int, sigma: float,
+                     device: torch.device) -> torch.Tensor:
+  key = (size, sigma, device)
+  window = _WINDOWS.get(key)
+  if window is None:
+    window = _WINDOWS.setdefault(key, torch.from_numpy(
+        _gaussian_kernel(size, sigma)).to(device))
+  return window
+
+
 def _filter2d_valid(x: torch.Tensor, kernel2d: torch.Tensor) -> torch.Tensor:
   """Depthwise VALID 2-D filter of (B, H, W, C) with a (k, k) kernel."""
   c = x.shape[-1]
@@ -41,8 +58,7 @@ def ssim(img1: torch.Tensor, img2: torch.Tensor, max_val: float = 1.0,
   """Per-image SSIM, shape (B,), matching tf.image.ssim."""
   x = img1.float()
   y = img2.float()
-  kernel = torch.from_numpy(_gaussian_kernel(filter_size, filter_sigma)).to(
-      x.device)
+  kernel = _gaussian_window(filter_size, filter_sigma, x.device)
   c1 = (k1 * max_val)**2
   c2 = (k2 * max_val)**2
 

@@ -19,6 +19,26 @@ import torch
 
 from . import rows
 
+# (table, in_size, out_size, device) -> the table on the device. Built on
+# the host once and kept: a captured graph (utils/programs.py) may read an
+# entry by address, and a host-to-device copy cannot be captured. The
+# sizes a model meets are few, and each table is one row of indices.
+_DEVICE_TABLES = {}
+
+
+def _device_table(kind: str, in_size: int, out_size: int,
+                  device: torch.device) -> torch.Tensor:
+  key = (kind, in_size, out_size, device)
+  table = _DEVICE_TABLES.get(key)
+  if table is None:
+    if kind == 'nearest':
+      host = _nearest_index_table(in_size, out_size)
+    else:
+      host = _linear_interp_tables(in_size, out_size)[
+          ('lower', 'upper', 'lerp').index(kind)]
+    table = _DEVICE_TABLES.setdefault(key, torch.from_numpy(host).to(device))
+  return table
+
 
 def _linear_interp_tables(in_size: int, out_size: int):
   """TF2 half-pixel bilinear tables for one axis (lower, upper, lerp)."""
@@ -40,12 +60,14 @@ def _nearest_index_table(in_size: int, out_size: int) -> np.ndarray:
 
 def _resample_axis_linear(x: torch.Tensor, dim: int,
                           out_size: int) -> torch.Tensor:
-  lower, upper, lerp = _linear_interp_tables(x.shape[dim], out_size)
-  lo = x.index_select(dim, torch.from_numpy(lower).to(x.device))
-  up = x.index_select(dim, torch.from_numpy(upper).to(x.device))
+  in_size = x.shape[dim]
+  lo = x.index_select(dim, _device_table('lower', in_size, out_size,
+                                         x.device))
+  up = x.index_select(dim, _device_table('upper', in_size, out_size,
+                                         x.device))
   shape = [1] * x.dim()
   shape[dim] = out_size
-  w = torch.from_numpy(lerp).to(x.device).reshape(shape)
+  w = _device_table('lerp', in_size, out_size, x.device).reshape(shape)
   return lo * (1.0 - w) + up * w
 
 
@@ -79,8 +101,8 @@ def _resize_nearest_whole(image: torch.Tensor, new_h: int,
     return image
   if new_h == 2 * h and new_w == 2 * w:
     return image.repeat_interleave(2, dim=1).repeat_interleave(2, dim=2)
-  hi = torch.from_numpy(_nearest_index_table(h, new_h)).to(image.device)
-  wi = torch.from_numpy(_nearest_index_table(w, new_w)).to(image.device)
+  hi = _device_table('nearest', h, new_h, image.device)
+  wi = _device_table('nearest', w, new_w, image.device)
   return image.index_select(1, hi).index_select(2, wi)
 
 
@@ -113,8 +135,8 @@ def _bilinear_cols(x: torch.Tensor, new_w: int) -> torch.Tensor:
 def _nearest_cols(x: torch.Tensor, new_w: int) -> torch.Tensor:
   if new_w == 2 * x.shape[2]:
     return x.repeat_interleave(2, dim=2)
-  wi = torch.from_numpy(_nearest_index_table(x.shape[2], new_w))
-  return x.index_select(2, wi.to(x.device))
+  wi = _device_table('nearest', x.shape[2], new_w, x.device)
+  return x.index_select(2, wi)
 
 
 def _sharding_to(size):

@@ -257,11 +257,11 @@ def backward_warp_rows_kernel(image: torch.Tensor, flow: torch.Tensor,
   if out.numel() == 0:
     return out
   fn = getattr(_kernels.library(), _ROWS_DTYPES[image.dtype])
+  stream = _kernels.stream_of(image)
   code = fn(image.data_ptr(), flow.data_ptr(), out.data_ptr(), b, h_src,
-            h_out, w, c, row_offset, src_row0, clamp_h,
-            _kernels.stream_of(image))
+            h_out, w, c, row_offset, src_row0, clamp_h, stream)
   _kernels.check('backward_warp_rows', code)
-  _kernels.count_launch('warp_rows')
+  _kernels.count_launch('warp_rows', stream)
   return out
 
 
@@ -317,10 +317,11 @@ def backward_warp_kernel(image: torch.Tensor,
   if out.numel() == 0:
     return out
   fn = getattr(_kernels.library(), _KERNEL_DTYPES[image.dtype])
+  stream = _kernels.stream_of(image)
   code = fn(image.data_ptr(), flow.data_ptr(), out.data_ptr(), b, h, w, c,
-            _kernels.stream_of(image))
+            stream)
   _kernels.check('backward_warp', code)
-  _kernels.count_launch('warp')
+  _kernels.count_launch('warp', stream)
   return out
 
 
@@ -334,10 +335,11 @@ def warp_planes_kernel(image: torch.Tensor, flow: torch.Tensor
   if du.numel() == 0:
     return du, dv
   fn = getattr(_kernels.library(), _PLANES_DTYPES[image.dtype])
+  stream = _kernels.stream_of(image)
   code = fn(image.data_ptr(), flow.data_ptr(), du.data_ptr(), dv.data_ptr(),
-            b, h, w, c, _kernels.stream_of(image))
+            b, h, w, c, stream)
   _kernels.check('warp_planes', code)
-  _kernels.count_launch('warp_planes')
+  _kernels.count_launch('warp_planes', stream)
   return du, dv
 
 
@@ -352,10 +354,11 @@ def splat_kernel(g: torch.Tensor, flow: torch.Tensor) -> torch.Tensor:
   if acc.numel() == 0:
     return acc
   fn = getattr(_kernels.library(), _SPLAT_DTYPES[g.dtype])
+  stream = _kernels.stream_of(g)
   code = fn(g.data_ptr(), flow.data_ptr(), acc.data_ptr(), b, h, w, c,
-            _kernels.stream_of(g))
+            stream)
   _kernels.check('splat', code)
-  _kernels.count_launch('splat')
+  _kernels.count_launch('splat', stream)
   return acc
 
 

@@ -35,29 +35,41 @@ from ..inference import interpolator as interpolator_lib
 from ..inference.interpolator import Interpolator
 from ..ops import rows, tiling
 from ..options import Options
+from ..utils import programs
 from . import mesh as mesh_lib
 from .shard_map import Collective, ShardPool
 
 
 def _shard_interpolators(params_or_model: Any, options: Options,
-                         mesh: mesh_lib.Mesh,
-                         align: Optional[int]) -> List[Interpolator]:
-  """One Interpolator per shard, over its device's replica."""
+                         mesh: mesh_lib.Mesh, align: Optional[int],
+                         graphs: Optional[bool]) -> List[Interpolator]:
+  """One Interpolator per shard, over its device's replica; the shards on
+  one device share one pool for their graphs (their replays run in turn
+  on the device's stream anyway)."""
   model = interpolator_lib.as_model(params_or_model, options)
-  return [Interpolator(replica, options, align=align, device=device)
+  pools = {device: programs.Pool() for device in mesh.devices}
+  return [Interpolator(replica, options, align=align, device=device,
+                       graphs=graphs, pool=pools[device])
           for replica, device in zip(mesh_lib.replicate(model, mesh),
                                      mesh.devices)]
 
 
 class _Sharded:
-  """What the three classes share: the mesh and one Interpolator a shard."""
+  """What the three classes share: the mesh and one Interpolator a shard.
+
+  `graphs` is the shards' Interpolators' (None: captured programs on a
+  CUDA device): each shard replays its own pair program from its thread.
+  The row-sharded class runs its shards' models eagerly whatever it is:
+  its halo exchanges meet at a host barrier inside the forward.
+  """
 
   def __init__(self, params_or_model: Any, options: Options,
-               mesh: mesh_lib.Mesh, align: Optional[int]):
+               mesh: mesh_lib.Mesh, align: Optional[int],
+               graphs: Optional[bool] = None):
     self._mesh = mesh
     self._align = align or None
     self._shards = _shard_interpolators(params_or_model, options, mesh,
-                                        align)
+                                        align, graphs)
     self._pool = ShardPool(mesh.devices)
 
   @property
@@ -99,8 +111,8 @@ class ShardedInterpolator(_Sharded):
 
   def __init__(self, params_or_model: Any, options: Options,
                mesh: mesh_lib.Mesh, block_shape: Sequence[int],
-               align: Optional[int] = 64):
-    super().__init__(params_or_model, options, mesh, align)
+               align: Optional[int] = 64, graphs: Optional[bool] = None):
+    super().__init__(params_or_model, options, mesh, align, graphs)
     self._block_shape = tuple(block_shape)
 
   def call_device(self, x0: torch.Tensor, x1: torch.Tensor,
@@ -137,8 +149,9 @@ class ShardedVideoInterpolator(_Sharded):
   """
 
   def __init__(self, params_or_model: Any, options: Options,
-               mesh: mesh_lib.Mesh, align: Optional[int] = 64):
-    super().__init__(params_or_model, options, mesh, align)
+               mesh: mesh_lib.Mesh, align: Optional[int] = 64,
+               graphs: Optional[bool] = None):
+    super().__init__(params_or_model, options, mesh, align, graphs)
 
   def tiled(self) -> bool:
     return False
@@ -165,6 +178,12 @@ class SpatialShardedInterpolator(_Sharded):
   are the full-frame forward's. A frame whose rows do not split into even
   slabs runs whole on every shard.
   """
+
+  def __init__(self, params_or_model: Any, options: Options,
+               mesh: mesh_lib.Mesh, align: Optional[int] = 64):
+    # Eager: the shards exchange halos through a host barrier inside the
+    # forward, and the row-mode warp reads the flow's reach on the host.
+    super().__init__(params_or_model, options, mesh, align, graphs=False)
 
   def call_device(self, x0: torch.Tensor, x1: torch.Tensor,
                   dt: torch.Tensor) -> torch.Tensor:

@@ -25,6 +25,20 @@ The model, the batch and the augmentations live on one device; on CUDA the
 warp and the extractor's conv stacks run the hand-written kernels forward
 and backward (ops/warp.py, ops/conv_stack.py).
 
+On a CUDA device the lean step is one captured program
+(utils/programs.py), as the JAX package's step is one jitted program with
+the augmentations on the device: augmentation, forward, weighted losses,
+backward and Adam replay as one CUDA graph. What changes from step to
+step reaches the graph through static device tensors written before each
+replay: the batch, the loss weights and the augmentations' draws (made on
+the host from the step's generator, in the eager order, and copied over
+as one small tensor), and the learning rate, which a capturable Adam
+reads from a device tensor (`create_optimizer`, `set_learning_rate`). The
+summary step (logging steps) and the data-parallel step run eagerly on
+the same parameters, optimizer state and learning-rate tensor, so a run
+that mixes them computes what an all-eager run does. `graphs=False` is the
+eager path throughout; the CPU always takes it.
+
 Data-parallel across processes (parallel/distributed.py): where a process
 group is initialized, every rank reads the same global batch from the
 same seeded iterator, augments all of it with the step's generator (so
@@ -57,7 +71,7 @@ from ..io import params_io
 from ..models.film_net import FilmNet, init_params
 from ..options import Options
 from ..parallel import distributed
-from ..utils import profiling, tensorboard
+from ..utils import profiling, programs, tensorboard
 
 
 @dataclasses.dataclass(frozen=True)
@@ -89,15 +103,43 @@ def create_optimizer(parameters, opts: TrainingOptions) -> torch.optim.Adam:
   """Adam with the reference's epsilon (the Keras default, 1e-7).
 
   The learning rate is set before every update from
-  `learning_rate_schedule` (see `make_train_step`).
+  `learning_rate_schedule` (see `make_train_step`). On a CUDA device the
+  optimizer is capturable and its rate an f32 device tensor (`device_form`),
+  so a captured step reads the rate written before each replay.
   """
-  return torch.optim.Adam(parameters, lr=learning_rate_schedule(opts)(0),
-                          eps=1e-7)
+  optimizer = torch.optim.Adam(parameters, lr=learning_rate_schedule(opts)(0),
+                               eps=1e-7)
+  device_form(optimizer)
+  return optimizer
+
+
+def device_form(optimizer: torch.optim.Optimizer) -> None:
+  """Puts each param group in its device's form, in place: on CUDA
+  capturable (the step counts on the device) with the learning rate an f32
+  device tensor; elsewhere not capturable, the rate a float. Also after a
+  load_state_dict, which brings the saved form."""
+  for group in optimizer.param_groups:
+    device = group['params'][0].device
+    cuda = device.type == 'cuda'
+    lr = float(group['lr'])
+    group['capturable'] = cuda
+    group['lr'] = (torch.tensor(lr, dtype=torch.float32, device=device)
+                   if cuda else lr)
+    for p in group['params']:
+      state = optimizer.state.get(p, {})
+      if 'step' in state:
+        state['step'] = state['step'].to(
+            device=device if cuda else 'cpu', dtype=torch.float32)
 
 
 def set_learning_rate(optimizer: torch.optim.Optimizer, lr: float) -> None:
+  """Writes `lr` into every param group: into its device tensor where it
+  has one (no sync), else as a float."""
   for group in optimizer.param_groups:
-    group['lr'] = lr
+    if isinstance(group['lr'], torch.Tensor):
+      group['lr'].fill_(lr)
+    else:
+      group['lr'] = lr
 
 
 @dataclasses.dataclass
@@ -129,6 +171,7 @@ def make_train_step(
     augmentation_names: Sequence[str] = (),
     with_summaries: bool = True,
     data_parallel: bool = False,
+    graphs: Optional[bool] = None,
 ) -> Callable[[TrainState, Batch, torch.Generator],
               Tuple[Dict[str, torch.Tensor], Dict[str, torch.Tensor]]]:
   """Builds the train step.
@@ -144,33 +187,93 @@ def make_train_step(
   `data_parallel`, `batch` is the global batch: the step augments all of
   it, trains on this rank's slice, and averages the gradients and the
   metrics over the ranks (the module docstring says how).
-  """
-  augmentation_fns = augmentations_lib.data_augmentations(augmentation_names)
-  schedule = learning_rate_schedule(opts)
 
-  def step_fn(state: TrainState, batch: Batch, generator: torch.Generator):
-    batch = augmentations_lib.apply_data_augmentation(
-        augmentation_fns, generator, batch)
+  `graphs`: capture the step as a CUDA graph (None: the lean step on a
+  CUDA device). The summary step and the data-parallel step run eagerly
+  (graphs=True with either raises), as does every step on the CPU
+  (graphs=True there raises at the first step). The graph is captured
+  at the first step of each batch shape, after that step ran eagerly as
+  its warm-up, for the state's model and optimizer; a step with another
+  model or optimizer captures anew.
+  """
+  if graphs and (with_summaries or data_parallel):
+    raise ValueError('make_train_step: the summary step and the '
+                     'data-parallel step run eagerly; graphs=True takes '
+                     'neither')
+  if with_summaries or data_parallel:
+    graphs = False
+  augmentations = augmentations_lib.data_augmentations(augmentation_names)
+  schedule = learning_rate_schedule(opts)
+  bound = {}  # the state's (model, optimizer) -> its program or None
+
+  def body(model: FilmNet, optimizer: torch.optim.Optimizer, batch: Batch,
+           scalars: torch.Tensor):
+    """The step on device tensors alone: `scalars` holds the loss weights,
+    then the augmentations' draws (augmentations.draw_augmentations)."""
+    weights = scalars[:len(losses)]
+    draws = scalars[len(losses):].reshape(-1, batch['y'].shape[0])
+    batch = augmentations_lib.apply_drawn(augmentations, draws, batch)
     if data_parallel:
       start, size = distributed.process_batch_slice(batch['y'].shape[0])
       batch = {k: v[start:start + size] for k, v in batch.items()}
-    model, optimizer = state.model, state.optimizer
     predictions = model(batch['x0'], batch['x1'], batch['time'])
     per_loss = {}
     total = torch.zeros((), dtype=torch.float32, device=batch['y'].device)
-    for name, (loss_fn, weight_fn) in losses.items():
+    for (name, (loss_fn, _)), weight in zip(losses.items(), weights):
       value = loss_fn(batch, predictions)
       per_loss[name] = value.detach()
-      total = total + weight_fn(state.step) * value
+      total = total + weight * value
     optimizer.zero_grad(set_to_none=True)
     total.backward()
     if data_parallel:
       total = _average_over_ranks(model, per_loss, total)
-    set_learning_rate(optimizer, schedule(state.step))
     optimizer.step()
-    state.step += 1
     metrics = dict(per_loss)
     metrics['training_loss'] = total.detach()
+    return metrics, batch, predictions
+
+  def program_of(model: FilmNet, optimizer: torch.optim.Optimizer):
+    key = (id(model), id(optimizer))
+    if key not in bound:
+      for old in bound.values():
+        if old is not None:
+          old.release()
+      bound.clear()
+      device = next(model.parameters()).device
+      program = None
+      if programs.resolve(graphs, device, 'make_train_step'):
+        if not all(group.get('capturable') and
+                   isinstance(group['lr'], torch.Tensor)
+                   for group in optimizer.param_groups):
+          raise ValueError('make_train_step: a captured step needs a '
+                           'capturable optimizer with a device learning '
+                           'rate (create_optimizer on the CUDA device)')
+        program = programs.Program(
+            lambda batch, scalars: body(model, optimizer, batch,
+                                        scalars)[0], device, 'train_step')
+      bound[key] = program
+    return bound[key]
+
+  def step_fn(state: TrainState, batch: Batch, generator: torch.Generator):
+    model, optimizer = state.model, state.optimizer
+    program = program_of(model, optimizer)
+    draws = augmentations_lib.draw_augmentations(
+        augmentations, generator, batch['y'].shape[0])
+    weights = torch.tensor([weight_fn(state.step)
+                            for _, weight_fn in losses.values()],
+                           dtype=torch.float32, device=draws.device)
+    scalars = torch.cat([weights, draws.reshape(-1)])
+    device = batch['y'].device
+    if scalars.device.type == 'cpu' and device.type == 'cuda':
+      scalars = scalars.pin_memory()
+    set_learning_rate(optimizer, schedule(state.step))
+    if program is not None:
+      metrics = program(batch, scalars)
+      state.step += 1
+      return metrics, {}
+    metrics, batch, predictions = body(
+        model, optimizer, batch, scalars.to(device, non_blocking=True))
+    state.step += 1
     if not with_summaries:
       return metrics, {}
     # Image-shaped step outputs for TensorBoard, the reference's
@@ -183,6 +286,7 @@ def make_train_step(
         summaries[key] = value.detach()
     return metrics, summaries
 
+  step_fn.programs = lambda: [p for p in bound.values() if p is not None]
   return step_fn
 
 
@@ -257,6 +361,7 @@ class CheckpointManager:
                          weights_only=True)
     state.model.load_state_dict(payload['model'])
     state.optimizer.load_state_dict(payload['optimizer'])
+    device_form(state.optimizer)
     state.step = int(payload['step'])
     return True
 
@@ -290,6 +395,7 @@ def train_loop(
     profile_dir: Optional[str] = None,
     profile_start_step: int = 10,
     profile_num_steps: int = 5,
+    graphs: Optional[bool] = None,
 ) -> TrainState:
   """Runs training to `opts.num_steps`, resuming from the run dir if set.
 
@@ -301,14 +407,17 @@ def train_loop(
 
   In a process group every rank runs the loop on the same global batches
   (data-parallel, see the module docstring); only rank 0 logs, traces and
-  writes anything under `run_dir`.
+  writes anything under `run_dir`. `graphs` is `make_train_step`'s for
+  the lean steps (None: captured on a CUDA device, except data-parallel);
+  the logging steps run eagerly.
   """
   data_parallel = distributed.is_initialized()
   lead = distributed.rank() == 0
   if not lead:
     log_fn = _silent
   step_fn = make_train_step(losses, opts, augmentation_names,
-                            with_summaries=False, data_parallel=data_parallel)
+                            with_summaries=False, data_parallel=data_parallel,
+                            graphs=graphs)
   summary_step_fn = make_train_step(losses, opts, augmentation_names,
                                     with_summaries=True,
                                     data_parallel=data_parallel)
@@ -333,8 +442,11 @@ def train_loop(
       next_step = state.step + 1
       will_log = (next_step % opts.save_interval == 0 or
                   next_step == opts.num_steps)
-      metrics, summaries = (summary_step_fn if will_log else step_fn)(
-          state, batch, step_generator(seed, state.step))
+      # A replayed step calls nothing in Python that a trace would name
+      # (Adam's own annotation among them): the window marks each step.
+      with torch.profiler.record_function('train_step'):
+        metrics, summaries = (summary_step_fn if will_log else step_fn)(
+            state, batch, step_generator(seed, state.step))
       if trace is not None and (
           next_step >= profile_start_step + profile_num_steps):
         _close_trace(trace, profile_start_step, next_step, log_fn)
@@ -397,6 +509,7 @@ def train(model: FilmNet,
           profile_dir: Optional[str] = None,
           profile_start_step: int = 10,
           profile_num_steps: int = 5,
+          graphs: Optional[bool] = None,
           ) -> TrainState:
   """End to end: init (or restore), run the loop, export the weights.
 
@@ -405,7 +518,7 @@ def train(model: FilmNet,
   `<run_dir>/saved_model` (io/params_io.save_state_bundle), which the
   port's Interpolator loads. In a process group each rank passes its own
   device (parallel/distributed.rank_device); every rank draws the same
-  weights, and rank 0 alone writes.
+  weights, and rank 0 alone writes. `graphs` as `train_loop`'s.
   """
   if init_generator is None:
     init_generator = torch.Generator().manual_seed(0)
@@ -420,7 +533,7 @@ def train(model: FilmNet,
                      augmentation_names=augmentation_names, seed=seed,
                      log_fn=log_fn, eval_fn=eval_fn, profile_dir=profile_dir,
                      profile_start_step=profile_start_step,
-                     profile_num_steps=profile_num_steps)
+                     profile_num_steps=profile_num_steps, graphs=graphs)
   if lead:
     bundle_dir = os.path.join(run_dir, 'saved_model')
     params_io.save_state_bundle(bundle_dir, state.model.state_dict(),

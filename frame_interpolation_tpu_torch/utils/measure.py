@@ -1,14 +1,18 @@
 """Device timing and roofline bounds for the port's measurement scripts.
 
 `chip_smoke.py`, `tools/conv_sites.py` and `tools/profile_pair.py` take
-their peaks, their timer and their bounds from here, so that numbers from
+their peaks, their timers, the idle share and their bounds from here, so that numbers from
 the three can stand in one table. The port's library path never imports
 this module. A copy of it, placed with the scripts in an unpacked older
 checkout, measures that checkout the same way.
 """
 from __future__ import annotations
 
+import json
+import os
 import subprocess
+import tempfile
+import time
 from typing import Callable, Tuple
 
 import torch
@@ -52,6 +56,46 @@ def time_ms(fn: Callable[[], object], iters: int = 10,
   end.record()
   end.synchronize()
   return start.elapsed_time(end) / iters
+
+
+def busy_us(intervals) -> float:
+  """Length of the union of (start, end) intervals."""
+  total, reach = 0.0, float('-inf')
+  for start, end in sorted(intervals):
+    if end <= reach:
+      continue
+    total += end - max(start, reach)
+    reach = end
+  return total
+
+
+def idle_share(fn: Callable[[], object], count: int = 5) -> dict:
+  """fn() `count` times under torch.profiler, after one warm-up call: the
+  host's wall ms a call (to a synchronize), the device's busy ms a call
+  (the union of its kernels' intervals in the trace) and the idle share,
+  1 - busy / wall; busy and idle are None where the trace holds no
+  kernel."""
+  fn()
+  activities = [torch.profiler.ProfilerActivity.CPU,
+                torch.profiler.ProfilerActivity.CUDA]
+  with torch.profiler.profile(activities=activities) as prof:
+    torch.cuda.synchronize()
+    start = time.perf_counter()
+    for _ in range(count):
+      fn()
+    torch.cuda.synchronize()
+    wall_ms = 1e3 * (time.perf_counter() - start) / count
+  with tempfile.TemporaryDirectory() as work:
+    path = os.path.join(work, 'trace.json')
+    prof.export_chrome_trace(path)
+    with open(path) as f:
+      events = json.load(f)['traceEvents']
+  kernels = [(e['ts'], e['ts'] + e['dur']) for e in events
+             if e.get('cat') == 'kernel' and 'dur' in e]
+  busy_ms = busy_us(kernels) / 1e3 / count if kernels else None
+  return {'wall_ms': wall_ms, 'busy_ms': busy_ms,
+          'kernels': len(kernels) / count,
+          'idle': None if busy_ms is None else 1.0 - busy_ms / wall_ms}
 
 
 def roofline(flops: float, nbytes: float, peak: float) -> dict:

@@ -189,10 +189,12 @@ def test_cached_tree_matches_chunked_tree(interp, n, times, max_batch):
 
 def test_cached_tree_launch_pattern(interp, monkeypatch):
   """One extraction per input frame and per non-leaf midpoint, at batch 1;
-  one midpoint forward per output frame that is not an input."""
+  one midpoint forward per output frame that is not an input. The first
+  frame's extraction is a step of its own and each pair's tree one body
+  (the programs a CUDA device captures), so the steps inside are
+  counted."""
   calls = {'features': [], 'midpoints': 0}
-  features, midpoint = (interp.features_device,
-                        interp.midpoint_from_features_device)
+  features, midpoint = interp._features_eager, interp._midpoint_eager
 
   def count_features(x):
     calls['features'].append(int(x.shape[0]))
@@ -202,9 +204,8 @@ def test_cached_tree_launch_pattern(interp, monkeypatch):
     calls['midpoints'] += 1
     return midpoint(*args, **kwargs)
 
-  monkeypatch.setattr(interp, 'features_device', count_features)
-  monkeypatch.setattr(interp, 'midpoint_from_features_device',
-                      count_midpoints)
+  monkeypatch.setattr(interp, '_features_eager', count_features)
+  monkeypatch.setattr(interp, '_midpoint_eager', count_midpoints)
   interp.expand_tree_device(np.stack(_frames(3)), 3, cached=True)
   # 3 inputs + 2 pairs x 3 non-leaf midpoints; the leaves' extraction is
   # skipped inside the midpoint step.

@@ -77,7 +77,10 @@ def recording(sites: collections.Counter):
 def pair_sites() -> collections.Counter:
   options = Options.film_net_released(dtype_policy='bfloat16')
   model = init_params(create_model(options), torch.Generator().manual_seed(0))
-  interpolator = Interpolator(model, options, align=64, device='cuda')
+  # Eager: a captured program's first call runs the forward twice (its
+  # warm-up, then the capture), which would count each site twice.
+  interpolator = Interpolator(model, options, align=64, device='cuda',
+                              graphs=False)
   frames = torch.from_numpy(np.random.RandomState(0).rand(
       2, 1, 1080, 1920, 3).astype(np.float32)).cuda()
   sites = collections.Counter()

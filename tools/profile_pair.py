@@ -22,7 +22,9 @@ train_lib without augmentation, PyTorch's default TF32 for convs, after
 two warm-up steps): device time by kernel group per step and the idle
 share. With `--out`, the Chrome traces and the per-kernel tables go
 there too. Each output line names the card and its power limit. Needs a
-GPU.
+GPU. The whole pair and the step take the port's default on the card, a
+captured CUDA graph (utils/programs.py); the pair's parts run the model's
+methods eagerly.
 """
 from __future__ import annotations
 
@@ -90,17 +92,6 @@ def group_of(name: str) -> str:
   return 'other'
 
 
-def busy_us(intervals) -> float:
-  """Length of the union of (start, end) intervals."""
-  total, reach = 0.0, float('-inf')
-  for start, end in sorted(intervals):
-    if end <= reach:
-      continue
-    total += end - max(start, reach)
-    reach = end
-  return total
-
-
 def profile(fn, count: int, unit: str, card: str, out_dir: Path,
             label: str) -> None:
   """Runs fn() `count` times under torch.profiler and prints device time
@@ -131,8 +122,8 @@ def profile(fn, count: int, unit: str, card: str, out_dir: Path,
       table[key][0] += e['dur'] / 1e3 / count
       table[key][1] += 1
   kernel_ms = sum(ms for ms, _ in by_group.values())
-  busy_ms = busy_us((e['ts'], e['ts'] + e['dur'])
-                    for e in kernels) / 1e3 / count
+  busy_ms = measure.busy_us((e['ts'], e['ts'] + e['dur'])
+                            for e in kernels) / 1e3 / count
   for group, (ms, n) in sorted(by_group.items(), key=lambda g: -g[1][0]):
     print(f'kernels ({label}) {group}: {ms:.3f} ms/{unit}, '
           f'{n / count:.1f} launches/{unit}')

@@ -106,11 +106,12 @@ Then the slice that completes the port:
     step without a group; one rank a card over NCCL where there are
     several GPUs.
 
-The warp's row mode (B1-rows: a slab of output rows against the whole
-frame or a halo of one slab each side, as the row-sharded forward runs
-it) is held bit for bit against the whole-frame warp's rows, and against
-its plain version, at 1088x1920x67 and x64 bf16 and 544x960x195 f32 over
-2 and 4 slabs, on both branches.
+The warp's row mode (B1-rows: a slab of output rows read from a table
+of the frame's slabs, as the row-sharded forward runs it) is held bit
+for bit against the whole-frame warp's rows, and against its plain
+version, at 1088x1920x67 and x64 bf16 and 544x960x195 f32 over 2 and 4
+slabs, under the seam flow and the seam flow moved a third of the frame
+down.
 
 Every path above takes the port's default on the card: its entry points
 run as captured CUDA graphs (utils/programs.py), so the serving, video,
@@ -137,8 +138,28 @@ graphs=False on the same weights and inputs:
     (non-capturable) Adam's; steps/s, peak memory and
     idle share of each; train_lib.train for 10 steps (logging at 5) with
     and without graphs, losses tracked;
-  * the patch-sharded pair on [cuda:0] * 4 with and without graphs (the
-    row-sharded class stays eager).
+  * the summary step as its own program in the lean step's pool: from
+    one state against the eager summary step (the step bounds), its
+    images equal, the pool's bytes of each variant;
+  * determinism: under torch.use_deterministic_algorithms(True) (the
+    splat's fixed-order route), two replayed film_net-L1 graph steps from
+    one state bit-equal in the loss, the gradients and the parameters,
+    and two film_net-Style steps; steps/s with and without the mode;
+  * the patch-sharded pair on [cuda:0] * 4 with and without graphs, and
+    the row-sharded pair on [cuda:0] * 2 and * 4 as one program: >= 50 dB
+    against one device, max-abs against its eager path, the launches, no
+    host sync in a replayed call (set_sync_debug_mode('error')), ms a
+    pair both ways in turns.
+
+The 1080p pair's check also holds the all-outputs program (every output
+of the forward) against eager, max-abs 0; the eval phase holds its
+program against eager (1e-4) and times both over 10 batches; the
+world-size-1 NCCL step is captured, under deterministic mode, and must
+equal one process's captured step bit for bit. The splat's fixed-order
+route is checked at 8x256x256x67 f32 (seam and out-of-bounds flows),
+8x128x128x195 f32 and 1088x1920x67 bf16: two launches bit-equal, within
+the splat's bounds of its plain version, timed beside the atomic route.
+`--kernels_only` stops after the kernels' checks.
 
 Each phase prints its lines; the second-to-last line is the per-kernel JSON
 record and the last line is {"ok": true, "device": {...}}. Any failed check
@@ -161,6 +182,11 @@ import subprocess
 import sys
 import tempfile
 import time
+
+# cuBLAS gives reproducible results only with a fixed workspace, which it
+# reads when its first handle is made: the determinism phases need it, and
+# the data-parallel ranks this script starts inherit it.
+os.environ.setdefault('CUBLAS_WORKSPACE_CONFIG', ':4096:8')
 
 import numpy as np
 import torch
@@ -319,6 +345,9 @@ EVAL_REL_BOUND = 1e-4
 EVAL_SSIM_BOUND = 1e-4
 EVAL_PSNR_BOUND_DB = 1e-3
 EVAL_BATCHES, EVAL_H, EVAL_W = 2, 256, 448
+# Eval's timing: the same triplets repeated, so one program's warm-up and
+# capture spread over a dataset's worth of replays.
+EVAL_TIMED_BATCHES = 10
 # Split-concat convs against the concat form: the 1080p bf16 pair (one
 # more bf16 rounding of each partial output at 18 sites: the kernels vs
 # plain bound), the pair in f32 at 544x960 with TF32 off (reassociation:
@@ -370,6 +399,7 @@ REPLACES = {
     'warp': 'frame_interpolation_tpu/ops/warp_window.py:134',
     'warp_planes': 'frame_interpolation_tpu/ops/warp_window.py:134',
     'splat': 'frame_interpolation_tpu/ops/warp_splat.py:67',
+    'splat_fixed': 'frame_interpolation_tpu/ops/warp_splat.py:67',
     'conv3x3_c64': 'frame_interpolation_tpu/ops/conv_stack.py:141',
     'conv3x3_wide': 'frame_interpolation_tpu/ops/conv_stack_wide.py:124',
     'warp_rows': 'frame_interpolation_tpu/ops/warp_window.py:134',
@@ -378,6 +408,7 @@ SOURCES = {
     'warp': 'frame_interpolation_tpu_torch/csrc/warp.cu',
     'warp_planes': 'frame_interpolation_tpu_torch/csrc/warp.cu',
     'splat': 'frame_interpolation_tpu_torch/csrc/splat.cu',
+    'splat_fixed': 'frame_interpolation_tpu_torch/csrc/splat.cu',
     'conv3x3_c64': 'frame_interpolation_tpu_torch/csrc/conv3x3.cu',
     'conv3x3_wide': 'frame_interpolation_tpu_torch/csrc/conv3x3.cu',
     'warp_rows': 'frame_interpolation_tpu_torch/csrc/warp.cu',
@@ -456,74 +487,60 @@ def check_warp(rng, h, w, c, dtype, bound, batch=1, timed=True):
   return result
 
 
-def rows_extension(image, row0, slab, k):
-  """Global rows [row0 - k*slab, row0 + (k+1)*slab) of `image`, zeros
-  beyond the frame (the halo branch), or the whole frame for k = 0 (the
-  gather branch); and the extension's global first row."""
-  if k == 0:
-    return image, 0
-  lo = row0 - k * slab
-  ext = torch.zeros((image.shape[0], (2 * k + 1) * slab) + image.shape[2:],
-                    dtype=image.dtype, device=image.device)
-  a, b = max(lo, 0), min(row0 + (k + 1) * slab, image.shape[1])
-  ext[:, a - lo:b - lo] = image[:, a:b]
-  return ext, lo
-
-
 def check_warp_rows(rng, h, w, c, dtype, bound, timed_cases):
-  """B1-rows: each slab of n in {2, 4}, on the halo branch (one slab each
-  side) and the gather branch (the whole frame), bit for bit against the
+  """B1-rows: the frame's rows as n in {2, 4} slabs, each its own tensor,
+  and each shard's output rows warped by the kernel from the slabs' table
+  of addresses, under the seam flow and under the seam flow moved by a
+  third of the frame down (taps many slabs away): bit for bit against the
   whole-frame kernel's rows and within `bound` of the row-mode plain
-  version. Timed for (n, branch) in `timed_cases`: all n slabs' launches,
-  against one F.grid_sample a slab on its extension and the bound of the
-  bytes the slabs' taps reach (each slab's output and flow, and the source
-  rows between its lowest and highest tap)."""
+  version. Timed for (n, flow) in `timed_cases`: all n shards' launches,
+  against one F.grid_sample a shard on the whole frame and the bound of
+  the bytes the shards' taps reach (each shard's output and flow, and the
+  source rows between its lowest and highest tap)."""
   image = torch.from_numpy(rng.rand(1, h, w, c).astype(np.float32)).to(
       'cuda', dtype)
-  flow = smooth_seam_flow(h, w)
-  full = warp.backward_warp_kernel(image, flow)
+  flows = {'seam': smooth_seam_flow(h, w)}
+  flows['far'] = (flows['seam'] + torch.tensor(
+      [0.0, h / 3.0], device='cuda')).contiguous()
   results = []
-  for n in (2, 4):
-    slab = h // n
-    for branch, k in (('halo', 1), ('gather', 0)):
-      cases = []
-      for d in range(n):
-        row0 = d * slab
-        ext, src_row0 = rows_extension(image, row0, slab, k)
-        cases.append((ext, flow[:, row0:row0 + slab].contiguous(), row0,
-                      src_row0))
+  for flow_kind, flow in flows.items():
+    full = warp.backward_warp_kernel(image, flow)
+    for n in (2, 4):
+      slab = h // n
+      slabs = [image[:, d * slab:(d + 1) * slab].clone() for d in range(n)]
+      cases = [(flow[:, d * slab:(d + 1) * slab].contiguous(), d * slab)
+               for d in range(n)]
 
       def kernel():
-        return [warp.backward_warp_rows_kernel(e, f, r, s0, h)
-                for e, f, r, s0 in cases]
+        return [warp.backward_warp_rows_kernel(slabs, f, r, h)
+                for f, r in cases]
 
       def plain():
-        return [warp.backward_warp_rows_plain(e, f, r, s0, h)
-                for e, f, r, s0 in cases]
+        return [warp.backward_warp_rows_plain(slabs, f, r, h)
+                for f, r in cases]
 
       got, want = kernel(), plain()
       torch.cuda.synchronize()
       full_err = max((g.float() - full[:, r:r + slab].float()).abs().max(
-          ).item() for g, (_, _, r, _) in zip(got, cases))
+          ).item() for g, (_, r) in zip(got, cases))
       err = max((g.float() - p.float()).abs().max().item()
                 for g, p in zip(got, want))
-      result = {'shape': f'{h}x{w}x{c} n={n} {branch}',
+      result = {'shape': f'{h}x{w}x{c} n={n}', 'flow': flow_kind,
                 'dtype': str(dtype).split('.')[-1], 'max_abs_err': err,
                 'full_err': full_err, 'bound': bound,
                 'ok': full_err == 0 and err <= bound}
-      if (n, branch) in timed_cases:
-        grids = [measure.bilinear_grid(f, r - s0, e.shape[1]).to(dtype)
-                 for e, f, r, s0 in cases]
+      if (n, flow_kind) in timed_cases:
+        nchw = image.permute(0, 3, 1, 2)
+        grids = [measure.bilinear_grid(f, r, h).to(dtype) for f, r in cases]
 
         def library():
           return [torch.nn.functional.grid_sample(
-              e.permute(0, 3, 1, 2), g, mode='bilinear',
-              padding_mode='border', align_corners=True)
-                  for (e, _, _, _), g in zip(cases, grids)]
+              nchw, g, mode='bilinear', padding_mode='border',
+              align_corners=True) for g in grids]
 
         nbytes = 0
-        for e, f, r, s0 in cases:
-          iy = warp.query_coords(e.shape[1], w, f, r, s0, h)[0]
+        for f, r in cases:
+          iy = warp.query_coords(h, w, f, r, 0, h)[0]
           reach = int(iy.max().item()) + 2 - int(iy.min().item())
           nbytes += ((f.shape[1] + reach) * w * c * image.element_size() +
                      f.numel() * 4)
@@ -661,6 +678,44 @@ def check_splat(rng, b, h, w, c, dtype, bound, flow_kind, timed):
                lambda: warp.splat_plain(g, flow), library, 8.0 * g.numel(),
                g.numel() * (g.element_size() + 4) + flow.numel() * 4,
                measure.PEAK_FLOPS['float32'])
+  return result
+
+
+def check_splat_fixed(rng, b, h, w, c, dtype, bound, flow_kind):
+  """The splat's fixed-order route (C13), which the splat takes under
+  torch.use_deterministic_algorithms(True): two launches on one input
+  equal bit for bit, within `bound` of the plain version; timed with the
+  splat's bound beside the atomic route on the same input. No library
+  call: grid_sampler_2d_backward, the atomic route's yardstick, raises
+  under the deterministic mode."""
+  g = torch.from_numpy((rng.rand(b, h, w, c) - 0.5).astype(np.float32)).to(
+      'cuda', dtype)
+  flow = training_flow(flow_kind, b, h, w)
+  with deterministic():
+    first = warp.splat_kernel(g, flow)
+    second = warp.splat_kernel(g, flow)
+  want = warp.splat_plain(g, flow)
+  torch.cuda.synchronize()
+  repeat_equal = torch.equal(first, second)
+  err = (first - want).abs().max().item()
+  rel = err / want.abs().max().item()
+  result = {'shape': f'{b}x{h}x{w}x{c}', 'flow': flow_kind,
+            'dtype': str(dtype).split('.')[-1], 'max_abs_err': err,
+            'rel_err': rel, 'bound': bound, 'repeat_bit_equal': repeat_equal,
+            'ok': rel <= bound and repeat_equal}
+  # The mode also fills every new tensor with NaN (PyTorch's
+  # fill_uninitialized_memory); the route's time is taken without.
+  fill = torch.utils.deterministic.fill_uninitialized_memory
+  torch.utils.deterministic.fill_uninitialized_memory = False
+  try:
+    with deterministic():
+      add_timing(result, lambda: warp.splat_kernel(g, flow),
+                 lambda: warp.splat_plain(g, flow), None, 8.0 * g.numel(),
+                 g.numel() * (g.element_size() + 4) + flow.numel() * 4,
+                 measure.PEAK_FLOPS['float32'])
+  finally:
+    torch.utils.deterministic.fill_uninitialized_memory = fill
+  result['atomic_ms'] = measure.time_ms(lambda: warp.splat_kernel(g, flow))
   return result
 
 
@@ -1730,7 +1785,10 @@ def check_sharded_patches_and_tree(model, options, interpolator, card,
 
 
 def check_eval(card, failures):
-  """eval_lib.eval_loop, kernels vs plain in exact f32."""
+  """eval_lib.eval_loop, kernels vs plain in exact f32, and its program
+  (the forward and the metrics captured a batch shape) against its eager
+  path; ms per example of both in turns over EVAL_TIMED_BATCHES batches,
+  the program's warm-up and capture included."""
   config = configs.get_experiment('film_net-L1')
   options = config.model
   model = init_params(create_model(options),
@@ -1746,15 +1804,36 @@ def check_eval(card, failures):
         'x0': frames[0], 'y': frames[1], 'x1': frames[2],
         'time': np.full((1, 1), 0.5, np.float32)})
 
-  def run():
-    return eval_lib.eval_loop(model, datasets, metrics, 0,
-                              log_fn=lambda _: None)['vimeo_like']
+  def run(graphs=None, data=datasets):
+    return eval_lib.eval_loop(model, data, metrics, 0, log_fn=lambda _: None,
+                              graphs=graphs)['vimeo_like']
+
+  timed = {'vimeo_like': datasets['vimeo_like'] * (
+      EVAL_TIMED_BATCHES // EVAL_BATCHES)}
+  def turns():
+    ms = {'graphs': [], 'eager': []}
+    for label in ('graphs', 'eager', 'eager', 'graphs'):
+      ms[label].append(measure.time_ms(
+          lambda: run(label == 'graphs', timed), iters=1, queued=False) /
+                       EVAL_TIMED_BATCHES)
+    return ms
 
   with torch.backends.cudnn.flags(enabled=False, allow_tf32=False):
     got, launches, _ = run_counted(run)
-    ms = measure.time_ms(run, iters=2, queued=False) / EVAL_BATCHES
+    eager, eager_launches, _ = run_counted(lambda: run(False))
+    exact_turns = turns()
     with plain_versions():
-      want, plain_launches, _ = run_counted(run)
+      want, plain_launches, _ = run_counted(lambda: run(False))
+  # As a user's eval runs: cuDNN on, TF32 allowed (PyTorch's default).
+  with tf32_allowed(True):
+    ms_turns = turns()
+  ms = mean(ms_turns['graphs'])
+  graph_errors = {name: abs(got[name] - value) / max(abs(value), 1e-12)
+                  for name, value in eager.items()}
+  if max(graph_errors.values()) > EVAL_REL_BOUND or (
+      eager_launches != launches):
+    failures.append(f'eval program vs eager: {graph_errors}, launches '
+                    f'{launches} vs {eager_launches}')
   errors = {}
   for name, value in want.items():
     diff = abs(got[name] - value)
@@ -1776,10 +1855,19 @@ def check_eval(card, failures):
         f'{EVAL_BATCHES} batches of one {EVAL_H}x{EVAL_W} triplet): '
         f'kernels {got}, plain {want}; errors {errors} (bounds: '
         f'{EVAL_REL_BOUND:.0e} relative, SSIM {EVAL_SSIM_BOUND:.0e}, PSNR '
-        f'{EVAL_PSNR_BOUND_DB:.0e} dB); {ms:.3f} ms per example; launches '
+        f'{EVAL_PSNR_BOUND_DB:.0e} dB); the program vs its eager path: '
+        f'{graph_errors} (bound {EVAL_REL_BOUND:.0e} relative); ms per '
+        f'example over {EVAL_TIMED_BATCHES} batches, a program\'s warm-up '
+        f'and capture included: TF32 allowed, cuDNN on {ms:.3f} with '
+        f'graphs, {mean(ms_turns["eager"]):.3f} eager (turns g/e/e/g: '
+        f'{ms_turns}); exact f32, cuDNN off '
+        f'{mean(exact_turns["graphs"]):.3f} with graphs, '
+        f'{mean(exact_turns["eager"]):.3f} eager ({exact_turns}); launches '
         f'{launches}; on {card}')
-  return {'kernels': got, 'plain': want, 'errors': errors, 'launches':
-          launches, 'ms_per_example': ms}
+  return {'kernels': got, 'plain': want, 'eager': eager, 'errors': errors,
+          'graph_errors': graph_errors, 'launches': launches,
+          'ms_per_example': ms, 'ms_turns': ms_turns,
+          'exact_ms_turns': exact_turns}
 
 
 # ---- PR 8: split convs, the native CRC, the builders, data-parallel -------
@@ -2055,21 +2143,21 @@ def check_builders(card, failures):
 
 
 def ddp_steps(device, data_parallel: bool, steps: int = DDP_STEPS,
-              timed: bool = True):
+              timed: bool = True, graphs=False, grads_at: int = 0):
   """film_net-L1 train steps (released config, f32) on the global batches
   of moving squares, with the augmentations: `steps` under TF32 and cuDNN
-  off (losses, launches a step, the first step's gradients, which a
+  off (losses, launches a step, step `grads_at`'s gradients, which a
   data-parallel step leaves averaged), then, if `timed`, steps/s with
-  PyTorch's default precision."""
+  PyTorch's default precision. `graphs` is make_train_step's: eager by
+  default; a captured step's first call is its warm-up, the next ones
+  replays."""
   config = configs.get_experiment('film_net-L1')
   model = init_params(create_model(config.model),
                       torch.Generator().manual_seed(0)).to(device)
   opts = train_lib.TrainingOptions()
-  # Eager in both: the data-parallel step is, and the graph phase holds
-  # the captured step against the eager one.
   step_fn = train_lib.make_train_step(
       losses_lib.training_losses(['l1']), opts, tuple(config.augmentations),
-      with_summaries=False, data_parallel=data_parallel, graphs=False)
+      with_summaries=False, data_parallel=data_parallel, graphs=graphs)
   state = train_lib.create_train_state(model, opts)
   batches = square_batches(5)
   result = {'losses': [], 'launches': []}
@@ -2083,7 +2171,7 @@ def ddp_steps(device, data_parallel: bool, steps: int = DDP_STEPS,
       metrics, launches, _ = run_counted(step)
       result['losses'].append(float(metrics['training_loss']))
       result['launches'].append(launches)
-      if i == 0:
+      if i == grads_at:
         result['grads'] = {n: p.grad.detach().cpu().clone()
                            for n, p in model.named_parameters()}
   if timed:
@@ -2107,24 +2195,47 @@ def ddp_rank_main(args) -> int:
   try:
     device = distributed.rank_device('cuda')
     torch.cuda.set_device(device)
-    result = ddp_steps(device, data_parallel=True)
-    result.update(backend=backend, device=str(device))
     if args.ddp_world == 1:
-      # The same step without the process group, in this process.
-      alone = ddp_steps(device, data_parallel=False, steps=1, timed=False)
-      grads = [g.to(device) for g in alone['grads'].values()]
-      reduced = distributed.all_reduce_mean(grads)
-      result['alone'] = {
-          'loss': alone['losses'][0],
-          'all_reduce_identity': all(torch.equal(a, b)
-                                     for a, b in zip(grads, reduced)),
-          'grads': alone['grads']}
+      result = ddp_world1(device)
+    else:
+      result = ddp_steps(device, data_parallel=True)
+    result.update(backend=backend, device=str(device))
     if args.ddp_rank != 0:
       del result['grads']
     torch.save(result, os.path.join(args.ddp_out, f'rank{args.ddp_rank}.pt'))
   finally:
     distributed.shutdown()
   return 0
+
+
+def ddp_world1(device):
+  """World size 1 over NCCL: the data-parallel step captured (its
+  all-reduce inside the graph) against the step of one process without
+  the group, also captured, both under torch.use_deterministic_algorithms
+  (the splat's fixed order), from the same seed: two steps each, the
+  first the warm-up, the second a replay, so the replays' loss and
+  gradients must match bit for bit; the NCCL all-reduce of the replay's
+  gradients must return their bits. Then steps/s of the data-parallel
+  step with and without graphs in turns (TF32 allowed)."""
+  with deterministic():
+    result = ddp_steps(device, data_parallel=True, steps=2, timed=False,
+                       graphs=None, grads_at=1)
+    alone = ddp_steps(device, data_parallel=False, steps=2, timed=False,
+                      graphs=None, grads_at=1)
+  grads = [g.to(device) for g in alone['grads'].values()]
+  reduced = distributed.all_reduce_mean(grads)
+  result['alone'] = {
+      'losses': alone['losses'],
+      'all_reduce_identity': all(torch.equal(a, b)
+                                 for a, b in zip(grads, reduced)),
+      'grads': alone['grads'], 'launches': alone['launches']}
+  rates = {'graphs': [], 'eager': []}
+  for turn in ('graphs', 'eager', 'eager', 'graphs'):
+    rates[turn].append(ddp_steps(
+        device, data_parallel=True, steps=0,
+        graphs=None if turn == 'graphs' else False)['steps_per_s'])
+  result['steps_per_s'] = rates
+  return result
 
 
 def run_ranks(world: int, out_dir: str):
@@ -2192,15 +2303,21 @@ def check_ddp(card, failures):
                    for n, g in nccl['grads'].items())
     bit_equal = all(torch.equal(g, alone['grads'][n])
                     for n, g in nccl['grads'].items())
+    launches_ok = all(l == STEP_LAUNCHES
+                      for l in nccl['launches'] + alone['launches'])
     if not (nccl['backend'] == 'nccl' and alone['all_reduce_identity'] and
-            nccl['losses'][0] == alone['loss'] and
-            grad_rel <= GRAD_REL_BOUND):
-      failures.append(f'world size 1 over {nccl["backend"]}: loss '
-                      f'{nccl["losses"][0]} vs {alone["loss"]}, all-reduce '
-                      f'identity {alone["all_reduce_identity"]}, grad rel '
-                      f'{grad_rel:.2e}')
+            nccl['losses'] == alone['losses'] and bit_equal and
+            len(nccl['grads']) == 82 and launches_ok):
+      failures.append(f'world size 1 over {nccl["backend"]}, captured, '
+                      f'deterministic: losses {nccl["losses"]} vs '
+                      f'{alone["losses"]}, all-reduce identity '
+                      f'{alone["all_reduce_identity"]}, gradients bit-equal '
+                      f'{bit_equal} (rel {grad_rel:.2e}), launches '
+                      f'{nccl["launches"]} / {alone["launches"]}')
     report['nccl_world1'] = {'backend': nccl['backend'], 'grad_rel': grad_rel,
-                             'grads_bit_equal': bit_equal}
+                             'grads_bit_equal': bit_equal,
+                             'losses': nccl['losses'],
+                             'steps_per_s': nccl['steps_per_s']}
     cards = torch.cuda.device_count()
     if cards > 1:
       report['per_card'] = compare_ranks(f'{cards} ranks, one a card',
@@ -2219,12 +2336,18 @@ def check_ddp(card, failures):
         f'{STEP_LAUNCHES}; steps/s (TF32 allowed, {DDP_TIMED} after '
         f'{DDP_WARMUP}) two ranks {shared["steps_per_s"]}, one process '
         f'{single["steps_per_s"]:.3f}; on {card}')
-  print(f'data-parallel: world size 1 over {nccl["backend"]}: the loss '
-        f'equals the step without a group bit for bit '
-        f'{nccl["losses"][0] == alone["loss"]}, the NCCL all-reduce returns '
-        f'the gradients\' bits {alone["all_reduce_identity"]}; gradients '
-        f'bit-equal {bit_equal}, worst rel {grad_rel:.2e} (the splat sums '
-        f'in no fixed order; bound {GRAD_REL_BOUND:.0e}); '
+  print(f'data-parallel: world size 1 over {nccl["backend"]}, the step '
+        f'captured with its all-reduce, under deterministic algorithms, '
+        f'against one process\'s captured step: losses of the warm-up and '
+        f'the replay {nccl["losses"]} vs {alone["losses"]}, bit-equal '
+        f'{nccl["losses"] == alone["losses"]}; the replay\'s 82 gradients '
+        f'bit-equal {bit_equal} (worst rel {grad_rel:.1e}); the NCCL '
+        f'all-reduce returns their bits {alone["all_reduce_identity"]}; '
+        f'launches a step {nccl["launches"]}; steps/s (TF32 allowed, '
+        f'{DDP_TIMED} after {DDP_WARMUP}) '
+        f'{mean(nccl["steps_per_s"]["graphs"]):.3f} with graphs, '
+        f'{mean(nccl["steps_per_s"]["eager"]):.3f} eager (turns g/e/e/g: '
+        f'{nccl["steps_per_s"]}); '
         + (f'one rank a card over {report["per_card"]["backends"]}: '
            f'{report["per_card"]}' if 'per_card' in report else
            f'one rank a card: not run, {torch.cuda.device_count()} GPU')
@@ -2272,11 +2395,30 @@ def graph_pair(card, failures):
   idle = {label: measure.idle_share(lambda: interp.call_device(x0, x1, dtd),
                                     GRAPH_IDLE_PAIRS)
           for label, interp in (('graphs', graphs), ('eager', eager))}
+  # The all-outputs program (the Interpolator's fifth): every output of
+  # the forward, the image cropped, against the eager forward's.
+  graphs.interpolate_all_outputs(x0, x1, dtd)
+  outputs, all_launches, _ = run_counted(
+      lambda: graphs.interpolate_all_outputs(x0, x1, dtd))
+  eager_outputs = eager.interpolate_all_outputs(x0, x1, dtd)
+  flat = flat_outputs(outputs)
+  eager_flat = flat_outputs(eager_outputs)
+  all_abs = {name: float((t.float() - eager_flat[name].float()).abs().max())
+             for name, t in flat.items()}
+  if flat.keys() != eager_flat.keys() or max(all_abs.values()) != 0.0 or (
+      all_launches != PAIR_LAUNCHES) or outputs['image'].shape != (
+          1, 1080, 1920, 3):
+    failures.append(f'graph all-outputs vs eager: max-abs {all_abs}, '
+                    f'launches {all_launches}')
+  del outputs, eager_outputs, flat, eager_flat
   report = {'max_abs': max_abs, 'first_call_max_abs': first_abs,
             'psnr': psnr, 'launches': launches, 'ms': ms, 'idle': idle,
             'first_call_s': first_s,
             'capture_s': capture.capture_seconds,
-            'pool_bytes': program.pool_bytes}
+            'pool_bytes': program.pool_bytes,
+            'all_outputs_max_abs': all_abs,
+            'all_outputs_launches': all_launches,
+            'all_outputs_pool_bytes': graphs.programs['all_outputs'].pool_bytes}
   print(f'graphs: 1080p bf16 pair (released config): replay vs eager '
         f'max-abs {max_abs:.3e} (first call, the warm-up, {first_abs:.1e}), '
         f'{psnr:.2f} dB (bound {GRAPH_PSNR_DB}); launches a replay '
@@ -2284,8 +2426,23 @@ def graph_pair(card, failures):
         f'{mean(ms["eager"]):.3f} eager (CUDA events, {GRAPH_PAIR_ITERS} '
         f'pairs, turns g/e/e/g: {ms}); idle share {idle_text(idle)}; first '
         f'call {first_s:.3f} s of which capture {capture.capture_seconds:.3f}'
-        f' s, pool {program.pool_bytes / 2**30:.2f} GiB; on {card}')
+        f' s, pool {program.pool_bytes / 2**30:.2f} GiB; all-outputs program '
+        f'({len(all_abs)} outputs) vs eager max-abs '
+        f'{max(all_abs.values()):.1e}, launches a replay {all_launches}, '
+        f'pool {report["all_outputs_pool_bytes"] / 2**30:.2f} GiB; on {card}')
   return report
+
+
+def flat_outputs(outputs):
+  """name -> tensor of every output of the forward, pyramids by level."""
+  flat = {}
+  for name, value in outputs.items():
+    if isinstance(value, (list, tuple)):
+      for level, t in enumerate(value):
+        flat[f'{name}/{level}'] = t
+    else:
+      flat[name] = value
+  return flat
 
 
 def graph_mixed(card, failures):
@@ -2668,12 +2825,234 @@ def graph_step(label, config, losses, step0, card, failures):
   return report
 
 
+def grad_rel_of(model_a, grads_a, grads_b):
+  """The largest max|a - b| / max|b| over the parameters' gradients, and
+  its parameter's name."""
+  worst, name = 0.0, ''
+  for (n, _), a, b in zip(model_a.named_parameters(), grads_a, grads_b):
+    rel = ((a - b).abs().max() / b.abs().max().clamp_min(1e-30)).item()
+    if rel > worst:
+      worst, name = rel, n
+  return worst, name
+
+
+def graph_summary_step(card, failures):
+  """The summary step (with_summaries=True, the logging steps' variant) as
+  its own program, sharing one pool with the lean step as train_loop gives
+  them: from one state, the replay against the eager summary step under
+  the graph-step bounds, its images against eager's, launches, and the
+  pool's bytes of each variant (film_net-L1, released config, f32, batch
+  8 of 256x256, the augmentations, TF32 allowed)."""
+  config = configs.get_experiment('film_net-L1')
+  losses = losses_lib.training_losses(['l1'])
+  augs = tuple(config.augmentations)
+  opts = train_lib.TrainingOptions()
+  model = init_params(create_model(config.model),
+                      torch.Generator().manual_seed(0)).cuda()
+  states = {'graphs': train_lib.create_train_state(model, opts),
+            'eager': train_lib.create_train_state(copy.deepcopy(model), opts)}
+  pool = programs.Pool()
+  lean = train_lib.make_train_step(losses, opts, augs, with_summaries=False,
+                                   pool=pool)
+  step_fns = {'graphs': train_lib.make_train_step(losses, opts, augs,
+                                                  with_summaries=True,
+                                                  pool=pool),
+              'eager': train_lib.make_train_step(losses, opts, augs,
+                                                 with_summaries=True,
+                                                 graphs=False)}
+  rng = np.random.RandomState(11)
+  batches = [train_lib.batch_to_device(square_batch(rng),
+                                       torch.device('cuda'))
+             for _ in range(3)]
+  outs, grads, launches = {}, {}, {}
+  with tf32_allowed(True):
+    # The lean step's capture, then the summary step's, in one pool; the
+    # eager side's first step makes its Adam state.
+    state = states['graphs']
+    for fn, batch in ((lean, batches[0]), (lean, batches[0]),
+                      (step_fns['graphs'], batches[1])):
+      fn(state, batch, train_lib.step_generator(0, state.step))
+    step_fns['eager'](states['eager'], batches[0],
+                      train_lib.step_generator(0, 0))
+    torch.cuda.synchronize()
+    lean_bytes = lean.programs()[0].pool_bytes
+    summary_bytes = step_fns['graphs'].programs()[0].pool_bytes
+    copy_tensors(train_state_tensors(states['eager']),
+                 train_state_tensors(states['graphs']))
+    states['eager'].step = step = states['graphs'].step
+    for turn, st in states.items():
+      outs[turn], launches[turn], _ = run_counted(
+          lambda: step_fns[turn](st, batches[2],
+                                 train_lib.step_generator(0, step)))
+      grads[turn] = [p.grad.detach().clone() for p in st.model.parameters()]
+  (metrics_g, images_g), (metrics_e, images_e) = outs['graphs'], outs['eager']
+  loss = {k: float(m['training_loss']) for k, m in (('graphs', metrics_g),
+                                                    ('eager', metrics_e))}
+  loss_rel = abs(loss['graphs'] - loss['eager']) / abs(loss['eager'])
+  grad_rel, grad_worst = grad_rel_of(model, grads['graphs'], grads['eager'])
+  param_rel, param_worst = max_rel(states['graphs'].model,
+                                   states['eager'].model)
+  image_abs = {k: float((v - images_e[k]).abs().max())
+               for k, v in images_g.items()}
+  if not (loss_rel <= GRAPH_STEP_REL_BOUND and grad_rel <= GRAD_REL_BOUND
+          and param_rel <= GRAPH_STEP_REL_BOUND) or (
+              images_g.keys() != images_e.keys() or
+              max(image_abs.values()) != 0.0) or (
+                  launches['graphs'] != STEP_LAUNCHES):
+    failures.append(f'graph summary step vs eager: loss rel {loss_rel:.3e}, '
+                    f'gradients rel {grad_rel:.3e} ({grad_worst}), '
+                    f'parameters rel {param_rel:.3e} ({param_worst}), '
+                    f'images max-abs {image_abs}, launches '
+                    f'{launches["graphs"]}')
+  report = {'loss_rel': loss_rel, 'grad_rel': grad_rel,
+            'param_rel': param_rel, 'image_max_abs': image_abs,
+            'launches': launches, 'lean_pool_bytes': lean_bytes,
+            'summary_pool_bytes': summary_bytes,
+            'pool_bytes': pool.bytes}
+  print(f'graphs: the summary step (film_net-L1, released config, f32, '
+        f'batch {TRAIN_BATCH}x{TRAIN_CROP}x{TRAIN_CROP}, TF32 allowed) as its '
+        f'own program beside the lean one: replay vs eager from one state, '
+        f'loss rel {loss_rel:.2e} (bound {GRAPH_STEP_REL_BOUND:.0e}), '
+        f'gradients rel {grad_rel:.2e} ({grad_worst}; bound '
+        f'{GRAD_REL_BOUND:.0e}), parameters rel {param_rel:.2e} (bound '
+        f'{GRAPH_STEP_REL_BOUND:.0e}); its {len(images_g)} images vs eager '
+        f'max-abs {max(image_abs.values()):.1e}; launches '
+        f'{launches["graphs"]}; one pool: lean {lean_bytes / 2**30:.2f} GiB '
+        f'+ summary {summary_bytes / 2**30:.2f} GiB = '
+        f'{pool.bytes / 2**30:.2f} GiB; on {card}')
+  del states, step_fns, lean, model, outs, grads
+  pool.clear()
+  return report
+
+
+@contextlib.contextmanager
+def deterministic():
+  """torch.use_deterministic_algorithms(True) while the block runs (cuBLAS
+  reads CUBLAS_WORKSPACE_CONFIG, set when this script starts)."""
+  saved = torch.are_deterministic_algorithms_enabled()
+  torch.use_deterministic_algorithms(True)
+  try:
+    yield
+  finally:
+    torch.use_deterministic_algorithms(saved)
+
+
+def determinism_step(label, config, losses, step0, card, failures):
+  """Under torch.use_deterministic_algorithms(True) (the splat's
+  fixed-order route, cuDNN's deterministic algorithms): two replays of
+  the captured step from one state, bit for bit in the loss, every
+  gradient and every parameter; launches a step; steps/s with and without
+  the mode in turns (released config, f32, batch 8 of 256x256, the
+  augmentations, TF32 allowed)."""
+  augs = tuple(config.augmentations)
+  opts = train_lib.TrainingOptions()
+  model = init_params(create_model(config.model),
+                      torch.Generator().manual_seed(0)).cuda()
+  state = train_lib.create_train_state(model, opts)
+  step_fn = train_lib.make_train_step(losses, opts, augs,
+                                      with_summaries=False)
+  rng = np.random.RandomState(12)
+  batches = [train_lib.batch_to_device(square_batch(rng),
+                                       torch.device('cuda'))
+             for _ in range(2)]
+  runs = []
+  with tf32_allowed(True), deterministic():
+    state.step = step0
+    step_fn(state, batches[0], train_lib.step_generator(0, state.step))
+    snapshot = [t.clone() for t in train_state_tensors(state)]
+    step = state.step
+    for _ in range(2):
+      copy_tensors(train_state_tensors(state), snapshot)
+      state.step = step
+      (metrics, _), launches, _ = run_counted(
+          lambda: step_fn(state, batches[1],
+                          train_lib.step_generator(0, step)))
+      runs.append({'loss': metrics['training_loss'].clone(),
+                   'grads': [p.grad.detach().clone()
+                             for p in model.parameters()],
+                   'params': [p.detach().clone()
+                              for p in model.parameters()],
+                   'launches': launches})
+  a, b = runs
+  loss_equal = torch.equal(a['loss'], b['loss'])
+  grads_equal = all(torch.equal(x, y) for x, y in zip(a['grads'], b['grads']))
+  params_equal = all(torch.equal(x, y)
+                     for x, y in zip(a['params'], b['params']))
+  grad_diff = max(float((x - y).abs().max())
+                  for x, y in zip(a['grads'], b['grads']))
+  if not (loss_equal and grads_equal and params_equal) or any(
+      r['launches'] != STEP_LAUNCHES for r in runs):
+    failures.append(f'{label} deterministic graph steps: loss equal '
+                    f'{loss_equal}, gradients equal {grads_equal} (max-abs '
+                    f'{grad_diff:.3e}), parameters equal {params_equal}, '
+                    f'launches {[r["launches"] for r in runs]}')
+  del runs, snapshot
+  rates = {'deterministic': [], 'default': []}
+  batch_iter = (train_lib.batch_to_device(b, torch.device('cuda'))
+                for b in square_batches(13))
+  profiles = {}
+  with tf32_allowed(True):
+    for turn in ('deterministic', 'default', 'default', 'deterministic'):
+      with (deterministic() if turn == 'deterministic'
+            else contextlib.nullcontext()):
+        rates[turn].append(steps_per_second(state, step_fn, batch_iter))
+    # The splat's device ms a step by route (its kernels' names start with
+    # splat_), beside the step's busy ms: the fixed order's share.
+    for turn in ('deterministic', 'default'):
+      with (deterministic() if turn == 'deterministic'
+            else contextlib.nullcontext()):
+        profiles[turn] = measure.idle_share(
+            lambda: step_fn(state, batches[1], torch.Generator()),
+            GRAPH_IDLE_STEPS, named=('splat_',))
+  splat_ms = {k: v['named']['splat_'] for k, v in profiles.items()}
+  fixed_share = ((splat_ms['deterministic'] - splat_ms['default']) /
+                 profiles['default']['busy_ms'])
+  report = {'loss_equal': loss_equal, 'grads_equal': grads_equal,
+            'params_equal': params_equal, 'grad_max_abs': grad_diff,
+            'launches': a['launches'], 'steps_per_s': rates,
+            'splat_ms': splat_ms, 'fixed_share': fixed_share,
+            'busy_ms': {k: v['busy_ms'] for k, v in profiles.items()}}
+  print(f'determinism: {label} (released config, f32, batch {TRAIN_BATCH}x'
+        f'{TRAIN_CROP}x{TRAIN_CROP}, {list(augs)}, TF32 allowed, from step '
+        f'{step0}) under torch.use_deterministic_algorithms(True): two '
+        f'replayed graph steps from one state, loss bit-equal {loss_equal}, '
+        f'{len(a["grads"])} gradients bit-equal {grads_equal} (max-abs '
+        f'{grad_diff:.1e}), parameters bit-equal {params_equal}; launches '
+        f'{a["launches"]} (the splat by its fixed-order route); graph '
+        f'steps/s {mean(rates["deterministic"]):.3f} deterministic, '
+        f'{mean(rates["default"]):.3f} default (turns d/D/D/d: {rates}); '
+        f'the splat\'s device ms a step (torch.profiler, '
+        f'{GRAPH_IDLE_STEPS} replays) {splat_ms["deterministic"]:.3f} '
+        f'fixed-order, {splat_ms["default"]:.3f} atomic, of '
+        f'{profiles["default"]["busy_ms"]:.3f} ms busy a default step: the '
+        f'fixed order costs {100 * fixed_share:.2f}% of the step; busy ms '
+        f'a deterministic step {profiles["deterministic"]["busy_ms"]:.3f}; '
+        f'on {card}')
+  del state, step_fn, model
+  release_memory()
+  return report
+
+
+def check_determinism(mat_path, card, failures):
+  """Reproducible training (ROADMAP C13): film_net-L1 and -Style graph
+  steps under deterministic mode."""
+  l1 = configs.get_experiment('film_net-L1')
+  report = {'film_net-L1': determinism_step(
+      'film_net-L1', l1, losses_lib.training_losses(['l1']), 0, card,
+      failures)}
+  style = configs.get_experiment('film_net-Style', mat_path)
+  report['film_net-Style'] = determinism_step(
+      'film_net-Style', style, losses_lib.training_losses(
+          list(style.training_losses.names),
+          loss_weight_schedules=list(style.training_losses.weight_schedules),
+          vgg_model_file=style.vgg_model_file), STYLE_STEP, card, failures)
+  return report
+
+
 def graph_sharded(card, failures):
   """The 2x2 patches of a 1080p pair over [cuda:0] * 4 with and without
   graphs (each shard replays its own pair program from its thread): ms a
-  pair. The row-sharded class stays eager: its halo exchanges meet at a
-  host barrier inside the forward, and its warp reads the flow's reach on
-  the host (ops/warp.py backward_warp_rows)."""
+  pair; then the row-sharded pair (graph_rows)."""
   options = Options.film_net_released(dtype_policy='bfloat16')
   model = init_params(create_model(options), torch.Generator().manual_seed(0))
   mesh = parallel_mesh.Mesh(['cuda:0'] * SHARDS)
@@ -2703,9 +3082,87 @@ def graph_sharded(card, failures):
   print(f'graphs: sharded patches {mesh!r} (1080p pair, 2x2 patches): '
         f'{mean(ms["graphs"]):.3f} ms a pair with graphs, '
         f'{mean(ms["eager"]):.3f} eager (turns g/e/e/g: {ms}); with graphs '
-        f'vs eager {psnr:.2f} dB; launches {launches["graphs"]}; the '
-        f'row-sharded class stays eager; on {card}')
-  return {'ms': ms, 'psnr': psnr, 'launches': launches}
+        f'vs eager {psnr:.2f} dB; launches {launches["graphs"]}; on {card}')
+  report = {'patches': {'ms': ms, 'psnr': psnr, 'launches': launches}}
+  del interps
+  release_memory()
+  report['rows'] = graph_rows(model, options, x0, x1, dtd, card, failures)
+  return report
+
+
+def graph_rows(model, options, x0, x1, dtd, card, failures):
+  """The row-sharded 1080p bf16 pair on [cuda:0] * 2 and * 4 as one
+  captured program against its eager path and one device: >= 50 dB
+  against one device, max-abs against eager, the predicted launches
+  through the replay, no host sync inside a replayed call
+  (torch.cuda.set_sync_debug_mode('error')), and ms a pair with and
+  without graphs in turns. A mesh of several cards runs eagerly (its
+  shards launch onto several devices' streams): check_spatial covers it
+  where more than one GPU is visible."""
+  one = Interpolator(model, options, align=64, device='cuda')
+  want = one.call_device(x0, x1, dtd).cpu().numpy()
+  del one
+  release_memory()
+  report = {}
+  for n in (2, SHARDS):
+    mesh = parallel_mesh.Mesh(['cuda:0'] * n)
+    interps = {label: sharded.SpatialShardedInterpolator(
+        model, options, mesh, align=64, graphs=label == 'graphs')
+               for label in ('graphs', 'eager')}
+    torch.cuda.synchronize()
+    start = time.perf_counter()
+    interps['graphs'].call_device(x0, x1, dtd)
+    torch.cuda.synchronize()
+    first_s = time.perf_counter() - start
+    program = interps['graphs'].program
+    capture = next(iter(program.captures.values()))
+    # The replayed call alone under the sync check: torch.cuda.synchronize
+    # itself counts as a sync there.
+    torch.cuda.synchronize()
+    _kernels.reset_launch_counts()
+    torch.cuda.set_sync_debug_mode('error')
+    try:
+      out = interps['graphs'].call_device(x0, x1, dtd)
+      synced = None
+    except RuntimeError as e:  # a host sync inside the replayed call
+      out, synced = None, str(e)
+    finally:
+      torch.cuda.set_sync_debug_mode(0)
+    torch.cuda.synchronize()
+    launches = _kernels.launch_counts()
+    eager_out = interps['eager'].call_device(x0, x1, dtd)
+    if out is None:
+      failures.append(f'graph rows {mesh!r}: a replayed call synced: '
+                      f'{synced}')
+      out = interps['graphs'].call_device(x0, x1, dtd)
+    max_abs = float((out - eager_out).abs().max())
+    psnr = psnr_db(out.cpu().numpy(), want)
+    if not psnr >= SPATIAL_PSNR_DB or launches != SPATIAL_LAUNCHES[n] or (
+        capture.launches != SPATIAL_LAUNCHES[n]):
+      failures.append(f'graph rows {mesh!r}: {psnr:.2f} dB vs one device, '
+                      f'launches {launches}, recorded {capture.launches}')
+    ms = {'graphs': [], 'eager': []}
+    for label in ('graphs', 'eager', 'eager', 'graphs'):
+      ms[label].append(measure.time_ms(
+          lambda: interps[label].call_device(x0, x1, dtd), iters=3,
+          queued=False))
+    report[repr(mesh)] = {
+        'psnr': psnr, 'max_abs_vs_eager': max_abs, 'launches': launches,
+        'host_sync': synced, 'ms': ms, 'first_call_s': first_s,
+        'capture_s': capture.capture_seconds,
+        'pool_bytes': program.pool_bytes}
+    print(f'graphs: row-sharded pair {mesh!r} (1080p, released config, bf16 '
+          f'policy) as one program: {psnr:.2f} dB vs one device (bound '
+          f'{SPATIAL_PSNR_DB}), max-abs vs its eager path {max_abs:.1e}; '
+          f'launches a replay {launches}; host syncs in a replayed call '
+          f'{"none" if synced is None else synced}; '
+          f'{mean(ms["graphs"]):.3f} ms a pair with graphs, '
+          f'{mean(ms["eager"]):.3f} eager (turns g/e/e/g: {ms}); first call '
+          f'{first_s:.2f} s, capture {capture.capture_seconds:.3f} s, pool '
+          f'{program.pool_bytes / 2**30:.2f} GiB; on {card}')
+    del interps, program, capture, out, eager_out
+    release_memory()
+  return report
 
 
 def check_graphs(mat_path, card, failures):
@@ -2727,6 +3184,10 @@ def check_graphs(mat_path, card, failures):
           loss_weight_schedules=list(style.training_losses.weight_schedules),
           vgg_model_file=style.vgg_model_file), STYLE_STEP, card, failures)
   release_memory()
+  report['summary_step'] = graph_summary_step(card, failures)
+  release_memory()
+  report['determinism'] = check_determinism(mat_path, card, failures)
+  release_memory()
   report['sharded'] = graph_sharded(card, failures)
   release_memory()
   return report
@@ -2742,6 +3203,9 @@ def main() -> int:
     parser.add_argument(flag, type=int, default=None, help=argparse.SUPPRESS)
   for flag in ('--ddp_url', '--ddp_out'):
     parser.add_argument(flag, default=None, help=argparse.SUPPRESS)
+  parser.add_argument('--kernels_only', action='store_true',
+                      help='Build and check the kernels against their plain '
+                      'versions, then stop (no result line).')
   args = parser.parse_args()
   if args.ddp_rank is not None:
     return ddp_rank_main(args)
@@ -2859,7 +3323,16 @@ def main() -> int:
                                 (544, 960, 195, torch.float32,
                                  WARP_F32_BOUND)):
     checks['warp_rows'].extend(check_warp_rows(
-        rng, h, w, c, dtype, bound, ((4, 'halo'), (2, 'gather'))))
+        rng, h, w, c, dtype, bound, ((4, 'seam'), (2, 'far'))))
+  # The splat's fixed-order route (C13) at the four timed shapes of the
+  # atomic route: repeats bit-equal, both routes timed.
+  checks['splat_fixed'] = [
+      check_splat_fixed(rng, b, h, w, c, dtype, bound, flow_kind)
+      for b, h, w, c, dtype, bound, flow_kind in (
+          (8, 256, 256, 67, torch.float32, SPLAT_F32_BOUND, 'seam'),
+          (8, 256, 256, 67, torch.float32, SPLAT_F32_BOUND, 'oob'),
+          (8, 128, 128, 195, torch.float32, SPLAT_F32_BOUND, 'seam'),
+          (1, 1088, 1920, 67, torch.bfloat16, SPLAT_BF16_BOUND, 'seam'))]
   for name, results in checks.items():
     for r in results:
       flow_kind = f' {r["flow"]} flow' if 'flow' in r else ''
@@ -2872,6 +3345,8 @@ def main() -> int:
              if 'library_rel_err' in r else '') +
             (f' (whole-frame rows max-abs {r["full_err"]:.1e})'
              if 'full_err' in r else '') +
+            (f' (two launches bit-equal {r["repeat_bit_equal"]}; atomic '
+             f'route {r["atomic_ms"]:.3f} ms)' if 'atomic_ms' in r else '') +
             f' (bound {r["bound"]:.1e}) {"ok" if r["ok"] else "FAILED"}' +
             (f'; kernel {r["ms"]:.3f} ms, plain {r["plain_ms"]:.3f} ms, '
              f'library {library}, bound {r["bound_ms"]:.3f} ms '
@@ -2879,6 +3354,14 @@ def main() -> int:
              if 'ms' in r else ''))
       if not r['ok']:
         failures.append(f'{name} {r["shape"]} {r["dtype"]}{flow_kind}')
+  if args.kernels_only:
+    if args.out:
+      os.makedirs(args.out, exist_ok=True)
+      with open(os.path.join(args.out, 'chip_smoke_build.log'), 'w') as f:
+        f.write(str(_kernels.BUILD_INFO.get('log', '')))
+    print('chip_smoke: kernels only: ' +
+          ('FAILED: ' + '; '.join(failures) if failures else 'all passed'))
+    return 1 if failures else 0
 
   # Phase 4: the serving path, three 1080p pair requests.
   options = Options.film_net_released(dtype_policy='bfloat16')
@@ -2997,10 +3480,15 @@ def main() -> int:
   # shards for the row mode. Times: the serving kernels' bf16 shapes, the
   # backward kernels' every timed shape.
   record = {'kernels': []}
-  for name in ('warp', 'warp_planes', 'splat', 'conv3x3_c64',
+  # The fixed-order splat counts as 'splat': its launches are those of a
+  # deterministic film_net-L1 graph step.
+  fixed_launches = {'splat_fixed': graphs_report['determinism'][
+      'film_net-L1']['launches']['splat']}
+  for name in ('warp', 'warp_planes', 'splat', 'splat_fixed', 'conv3x3_c64',
                'conv3x3_wide', 'warp_rows'):
-    backward = name in ('warp_planes', 'splat')
-    main_launches = (train_launches if backward else spatial_launches
+    backward = name in ('warp_planes', 'splat', 'splat_fixed')
+    main_launches = (fixed_launches if name == 'splat_fixed' else
+                     train_launches if backward else spatial_launches
                      if name == 'warp_rows' else launches)
     timed = [r for r in checks[name]
              if 'ms' in r and (backward or r['dtype'] == 'bfloat16')]

@@ -6,8 +6,8 @@
 // primal mode (emit_planes off, reached through _forward /
 // backward_warp_window) is fi_warp_*; the planes mode (emit_planes on,
 // reached through the window VJP's _bwd) is fi_warp_planes_*; the primal
-// on a slab of output rows (_forward with row_offset, src_row0 and
-// clamp_h, reached through backward_warp_window_rows) is fi_warp_rows_*.
+// on a slab of output rows (_forward with row_offset and clamp_h, reached
+// through backward_warp_window_rows) is fi_warp_rows_*.
 //
 //   out[b, y, x, c] = bilerp(image[b], y + flow[b,y,x,1], x + flow[b,y,x,0])
 //
@@ -47,16 +47,18 @@
 //
 // Row mode: the row-sharded forward (ops/warp.py backward_warp_rows) warps
 // each shard's slab of H_out output rows, whose first row is global row
-// row_offset, against an image of H_src rows whose first row is global row
-// src_row0: the whole frame (src_row0 = 0) or an extension of the slab by
-// whole slabs on each side. Queries are computed and clamped in global
-// coordinates, against the frame's clamp_h rows, so they are the
-// whole-frame warp's bit for bit; only the clamped integer row corner
-// shifts by src_row0. The caller guarantees that every corner it can reach
-// lies inside the image it passes (the halo predicate of
-// backward_warp_rows); the kernel does not clamp again. The same routes and
-// the same bytes per output pixel as the whole-frame warp, which is this
-// mode with H_src = H_out = clamp_h = H and both offsets 0.
+// row_offset, against the frame's clamp_h rows as n_slabs slabs of
+// slab_rows rows each, one per shard: a table of the slabs' addresses,
+// passed in the kernel's parameters, so a captured graph reads every
+// shard's slab where it lies and no rows are copied or exchanged. The JAX
+// kernel takes a halo or the whole frame, chosen by the flow's reach
+// (lax.pmax + cond); a tap here finds its row's slab itself, so there is
+// no reach and no branch. Queries are computed and clamped in global
+// coordinates, so they are the whole-frame warp's bit for bit; a tap's
+// two rows may lie in two slabs, so each pixel keeps the offsets of its
+// top and bottom tap rows. The same routes and the same bytes per output
+// pixel as the whole-frame warp, which is this mode with one slab of H
+// rows and H_out = clamp_h = H.
 //
 // Planes mode: the flow-derivative planes of the warp, for the training
 // backward (ops/warp.py flow_cotangent_from_planes reduces them against
@@ -90,21 +92,34 @@ constexpr int kMaxRun = 32;
 constexpr int kRunElements = 4096;
 constexpr int kUnroll = 2;
 
+// The most slabs of a row-mode launch.
+constexpr int kMaxSlabs = 16;
+
 // The rows of a launch (see Row mode above).
 struct Rows {
-  int h_src;       // rows of the image
   int h_out;       // rows of the flow and the output
   int row_offset;  // global row of the output's first row
-  int src_row0;    // global row of the image's first row
-  int clamp_h;     // global rows the taps clamp to
+  int clamp_h;     // global rows the taps clamp to: n_slabs * slab_rows
+  int slab_rows;   // rows of a slab, (B, slab_rows, W, C) each
+  int n_slabs;
+  int64_t slab[kMaxSlabs];  // each slab's offset from slab 0, in elements
 };
 
 // Output pixel p of the flat (B * h_out * W) range: the query at its
-// global row, and the offset in the image of its top-left tap.
+// global row, and the offsets from slab 0 of its top-left tap and of the
+// tap below it.
 struct Pixel {
   Query q;
-  int64_t tap;
+  int64_t tap, below;
 };
+
+// Offset from slab 0 of global row `y`, column `x`, of plane b.
+__device__ __forceinline__ int64_t row_at(const Rows& r, int64_t b, int y,
+                                          int x, int W, int C) {
+  const int s = y / r.slab_rows;
+  return r.slab[s] +
+         ((b * r.slab_rows + (y - s * r.slab_rows)) * W + x) * (int64_t)C;
+}
 
 __device__ __forceinline__ Pixel locate(int64_t p, const float2* flow,
                                         const Rows& r, int W, int C) {
@@ -114,7 +129,8 @@ __device__ __forceinline__ Pixel locate(int64_t p, const float2* flow,
   const int64_t b = by / r.h_out;
   Pixel px;
   px.q = query(y + r.row_offset, x, flow[p], r.clamp_h, W);
-  px.tap = ((b * r.h_src + (px.q.iy - r.src_row0)) * W + px.q.ix) * C;
+  px.tap = row_at(r, b, px.q.iy, px.q.ix, W, C);
+  px.below = row_at(r, b, px.q.iy + 1, px.q.ix, W, C);
   return px;
 }
 
@@ -178,9 +194,9 @@ __global__ void __launch_bounds__(kVectorThreads)
   const T* t00 = image + px.tap + c0;
   const uint4 v00 = *reinterpret_cast<const uint4*>(t00);
   const uint4 v01 = *reinterpret_cast<const uint4*>(t00 + C);
-  const uint4 v10 = *reinterpret_cast<const uint4*>(t00 + (int64_t)W * C);
-  const uint4 v11 =
-      *reinterpret_cast<const uint4*>(t00 + (int64_t)W * C + C);
+  const T* t10 = image + px.below + c0;
+  const uint4 v10 = *reinterpret_cast<const uint4*>(t10);
+  const uint4 v11 = *reinterpret_cast<const uint4*>(t10 + C);
   const T* e00 = reinterpret_cast<const T*>(&v00);
   const T* e01 = reinterpret_cast<const T*>(&v01);
   const T* e10 = reinterpret_cast<const T*>(&v10);
@@ -210,7 +226,7 @@ __global__ void __launch_bounds__(kVectorThreads)
 // next channel of the same pixel, or channel 0 of the next pixel where the
 // pair spans two (a select, not a branch, so the warp does not diverge).
 struct alignas(16) RunPixel {
-  int64_t tap;  // offset of the top-left tap
+  int64_t tap, below;  // offsets of the top-left tap and the tap below it
   float ax, ay;
 };
 
@@ -227,7 +243,7 @@ __global__ void __launch_bounds__(kRunThreads)
   const int n = (int)(pixels - p0 < run ? pixels - p0 : run);
   if (tid < n) {
     const Pixel px = locate(p0 + tid, flow, rows, W, C);
-    s_px[tid] = RunPixel{px.tap, px.q.ax, px.q.ay};
+    s_px[tid] = RunPixel{px.tap, px.below, px.q.ax, px.q.ay};
     if (kPlanes) {
       s_cg[tid] = make_float2(clip_grad(px.q.tx), clip_grad(px.q.ty));
     }
@@ -235,7 +251,6 @@ __global__ void __launch_bounds__(kRunThreads)
   __syncthreads();
 
   const int total = n * C;
-  const int64_t row = (int64_t)W * C;
   T* o = out + p0 * C;
   T* v = kPlanes ? dv_out + p0 * C : nullptr;
   FlatWalk walk(2 * tid, 2 * kRunThreads, C);
@@ -251,11 +266,14 @@ __global__ void __launch_bounds__(kRunThreads)
       walk.next();
       const int64_t a = s_px[px[u]].tap + c;
       const int64_t b = c + 1 < C ? a + 1 : s_px[qx[u]].tap;
-      const int64_t offs[4] = {0, C, row, row + C};
+      const int64_t a2 = s_px[px[u]].below + c;
+      const int64_t b2 = c + 1 < C ? a2 + 1 : s_px[qx[u]].below;
+      const int64_t first[4] = {a, a + C, a2, a2 + C};
+      const int64_t second[4] = {b, b + C, b2, b2 + C};
 #pragma unroll
       for (int k = 0; k < 4; ++k) {
-        t[u][k] = live ? make_float2(load1(image + a + offs[k]),
-                                     load1(image + b + offs[k]))
+        t[u][k] = live ? make_float2(load1(image + first[k]),
+                                     load1(image + second[k]))
                        : make_float2(0.f, 0.f);
       }
     }
@@ -295,9 +313,10 @@ __global__ void __launch_bounds__(kRunThreads)
 template <typename T, bool kPlanes>
 int launch_warp(const void* image, const void* flow, void* out, void* dv_out,
                 int B, Rows rows, int W, int C, void* stream) {
-  if (rows.clamp_h < 2 || W < 2 || C < 1 || B < 1 || rows.h_src < 1 ||
-      rows.h_out < 1 || rows.row_offset < 0 ||
-      rows.row_offset + rows.h_out > rows.clamp_h) {
+  if (rows.clamp_h < 2 || W < 2 || C < 1 || B < 1 || rows.h_out < 1 ||
+      rows.row_offset < 0 || rows.row_offset + rows.h_out > rows.clamp_h ||
+      rows.n_slabs < 1 || rows.n_slabs > kMaxSlabs || rows.slab_rows < 1 ||
+      (int64_t)rows.n_slabs * rows.slab_rows != rows.clamp_h) {
     return (int)cudaErrorInvalidValue;
   }
   constexpr int kVec = 16 / sizeof(T);
@@ -307,8 +326,12 @@ int launch_warp(const void* image, const void* flow, void* out, void* dv_out,
   T* v = static_cast<T*>(dv_out);
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   const int64_t pixels = (int64_t)B * rows.h_out * W;
-  const bool vector = C % kVec == 0 &&
-                      reinterpret_cast<uintptr_t>(image) % 16 == 0 &&
+  bool slabs_aligned = true;
+  for (int k = 0; k < rows.n_slabs; ++k) {
+    slabs_aligned = slabs_aligned &&
+        (reinterpret_cast<uintptr_t>(in + rows.slab[k]) % 16 == 0);
+  }
+  const bool vector = C % kVec == 0 && slabs_aligned &&
                       reinterpret_cast<uintptr_t>(out) % 16 == 0 &&
                       reinterpret_cast<uintptr_t>(dv_out) % 16 == 0;
   if (vector) {
@@ -335,8 +358,48 @@ int launch_warp(const void* image, const void* flow, void* out, void* dv_out,
   return (int)cudaGetLastError();
 }
 
-// A whole frame: the image's rows are the output's and the clamp's.
-Rows frame_rows(int H) { return Rows{H, H, 0, 0, H}; }
+// A whole frame: one slab, whose rows are the output's and the clamp's.
+Rows frame_rows(int H) {
+  Rows r{};
+  r.h_out = r.clamp_h = r.slab_rows = H;
+  r.n_slabs = 1;
+  return r;
+}
+
+// The row mode's table of slabs, as offsets in elements from slab 0.
+template <typename T>
+int rows_of(const void* const* slabs, int n_slabs, int slab_rows, int H_out,
+            int row_offset, int clamp_h, Rows* r) {
+  if (slabs == nullptr || n_slabs < 1 || n_slabs > kMaxSlabs) {
+    return (int)cudaErrorInvalidValue;
+  }
+  *r = Rows{};
+  r->h_out = H_out;
+  r->row_offset = row_offset;
+  r->clamp_h = clamp_h;
+  r->slab_rows = slab_rows;
+  r->n_slabs = n_slabs;
+  const char* base = static_cast<const char*>(slabs[0]);
+  for (int k = 0; k < n_slabs; ++k) {
+    if (slabs[k] == nullptr) return (int)cudaErrorInvalidValue;
+    const int64_t bytes = static_cast<const char*>(slabs[k]) - base;
+    if (bytes % (int64_t)sizeof(T) != 0) return (int)cudaErrorInvalidValue;
+    r->slab[k] = bytes / (int64_t)sizeof(T);
+  }
+  return 0;
+}
+
+template <typename T>
+int launch_warp_rows(const void* const* slabs, int n_slabs, int slab_rows,
+                     const void* flow, void* out, int B, int H_out, int W,
+                     int C, int row_offset, int clamp_h, void* stream) {
+  Rows rows;
+  const int code = rows_of<T>(slabs, n_slabs, slab_rows, H_out, row_offset,
+                              clamp_h, &rows);
+  if (code != 0) return code;
+  return launch_warp<T, false>(slabs[0], flow, out, nullptr, B, rows, W, C,
+                               stream);
+}
 
 }  // namespace
 
@@ -352,22 +415,23 @@ extern "C" int fi_warp_f32(const void* image, const void* flow, void* out,
                                    frame_rows(H), W, C, stream);
 }
 
-extern "C" int fi_warp_rows_bf16(const void* image, const void* flow,
-                                 void* out, int B, int H_src, int H_out,
-                                 int W, int C, int row_offset, int src_row0,
-                                 int clamp_h, void* stream) {
-  return launch_warp<__nv_bfloat16, false>(
-      image, flow, out, nullptr, B,
-      Rows{H_src, H_out, row_offset, src_row0, clamp_h}, W, C, stream);
+// slabs: a host array of n_slabs device pointers, each slab (B, slab_rows,
+// W, C); the frame is their rows in order, n_slabs * slab_rows = clamp_h.
+extern "C" int fi_warp_rows_bf16(const void* const* slabs, int n_slabs,
+                                 int slab_rows, const void* flow, void* out,
+                                 int B, int H_out, int W, int C,
+                                 int row_offset, int clamp_h, void* stream) {
+  return launch_warp_rows<__nv_bfloat16>(slabs, n_slabs, slab_rows, flow,
+                                         out, B, H_out, W, C, row_offset,
+                                         clamp_h, stream);
 }
 
-extern "C" int fi_warp_rows_f32(const void* image, const void* flow,
-                                void* out, int B, int H_src, int H_out,
-                                int W, int C, int row_offset, int src_row0,
-                                int clamp_h, void* stream) {
-  return launch_warp<float, false>(
-      image, flow, out, nullptr, B,
-      Rows{H_src, H_out, row_offset, src_row0, clamp_h}, W, C, stream);
+extern "C" int fi_warp_rows_f32(const void* const* slabs, int n_slabs,
+                                int slab_rows, const void* flow, void* out,
+                                int B, int H_out, int W, int C,
+                                int row_offset, int clamp_h, void* stream) {
+  return launch_warp_rows<float>(slabs, n_slabs, slab_rows, flow, out, B,
+                                 H_out, W, C, row_offset, clamp_h, stream);
 }
 
 extern "C" int fi_warp_planes_bf16(const void* image, const void* flow,

@@ -27,7 +27,8 @@ timestamps come from recursive invocation.
 
 On a CUDA device each of these is one captured program (utils/programs.py),
 as each is one jitted program in the JAX package: the pair (pad -> model
--> crop), the features of a frame, a midpoint from two frames' features,
+-> crop), the pair with every output of the forward (`_forward_all`
+there), the features of a frame, a midpoint from two frames' features,
 and one input pair's whole cached tree. A call then replays a CUDA graph
 per key (shapes, dtypes, the static arguments) instead of issuing every
 launch from Python; the tiled pair, the chunked tree, the recursion drivers
@@ -111,12 +112,13 @@ class Interpolator:
     self._model = as_model(params_or_model, options).to(self._device).eval()
     self._programs: Dict[str, programs.Program] = {}
     if programs.resolve(graphs, self._device, 'Interpolator'):
-      # One pool for the four, bounded as a whole.
+      # One pool for the five, bounded as a whole.
       self._pool = pool or programs.Pool()
       self._programs = {
           name: programs.Program(programs.weak_method(fn), self._device,
                                  name, pool=self._pool)
           for name, fn in (('pair', self._pair_eager),
+                           ('all_outputs', self._all_outputs_eager),
                            ('features', self._features_eager),
                            ('midpoint', self._midpoint_eager),
                            ('tree_pair', self._tree_pair_eager))}
@@ -206,18 +208,23 @@ class Interpolator:
   def interpolate_all_outputs(self, x0: Any, x1: Any,
                               dt: Any) -> Dict[str, Any]:
     """The padded forward with its aux outputs (flows, warps) as device
-    tensors; only the image is cropped back."""
-    x0, x1, dt = self.to_device(x0), self.to_device(x1), self.to_device(dt)
-    with torch.inference_mode():
-      bbox = None
-      if self._align is not None:
-        x0, bbox = tiling.pad_to_align(x0, self._align)
-        x1, _ = tiling.pad_to_align(x1, self._align)
-      outputs = dict(self._model(x0, x1, dt.reshape(-1, 1)))
-      if bbox is not None:
-        outputs['image'] = tiling.crop_to_bounding_box(outputs['image'],
-                                                       **bbox)
-      return outputs
+    tensors; only the image is cropped back. The all-outputs program:
+    one replay a call on the graphs' path."""
+    return self._run('all_outputs', self._all_outputs_eager,
+                     self.to_device(x0), self.to_device(x1),
+                     self.to_device(dt))
+
+  def _all_outputs_eager(self, x0: torch.Tensor, x1: torch.Tensor,
+                         dt: torch.Tensor) -> Dict[str, Any]:
+    bbox = None
+    if self._align is not None:
+      x0, bbox = tiling.pad_to_align(x0, self._align)
+      x1, _ = tiling.pad_to_align(x1, self._align)
+    outputs = dict(self._model(x0, x1, dt.reshape(-1, 1)))
+    if bbox is not None:
+      outputs['image'] = tiling.crop_to_bounding_box(outputs['image'],
+                                                     **bbox)
+    return outputs
 
   def call_device(self, x0: torch.Tensor, x1: torch.Tensor,
                   dt: torch.Tensor) -> torch.Tensor:

@@ -48,7 +48,8 @@ NVCC_FLAGS = (*ARCH_FLAGS, '-std=c++17', '-O3', '-Xcompiler', '-fPIC',
 
 # warp: ops/warp_window.py's window warp (B1); warp_planes: the same kernel
 # in its emit_planes mode (B4); splat: ops/warp_splat.py's two splat
-# kernels (B5, B6); conv3x3_c64: the C=64 stack of ops/conv_stack.py (B2);
+# kernels (B5, B6), by either of its routes (the atomic one or the
+# fixed-order one); conv3x3_c64: the C=64 stack of ops/conv_stack.py (B2);
 # conv3x3_wide: the C>=128 flat stack of ops/conv_stack_wide.py (B3);
 # warp_rows: the window warp on a slab of output rows, as
 # backward_warp_window_rows runs it (B1-rows). All names in the JAX
@@ -179,11 +180,12 @@ def _declare(lib: ctypes.CDLL) -> None:
     fn.restype = i32
   for name in ('fi_warp_rows_bf16', 'fi_warp_rows_f32'):
     fn = getattr(lib, name)
-    # image (B, H_src rows from global row src_row0), flow (B, H_out rows
-    # from global row row_offset), out, B, H_src, H_out, W, C, row_offset,
-    # src_row0, clamp_h, stream
-    fn.argtypes = [ptr, ptr, ptr, i32, i32, i32, i32, i32, i32, i32, i32,
-                   ptr]
+    # slabs (a host array of n_slabs device pointers, each slab (B,
+    # slab_rows, W, C)), n_slabs, slab_rows, flow (B, H_out rows from
+    # global row row_offset), out, B, H_out, W, C, row_offset, clamp_h,
+    # stream
+    fn.argtypes = [ctypes.POINTER(ptr), i32, i32, ptr, ptr, i32, i32, i32,
+                   i32, i32, i32, ptr]
     fn.restype = i32
   for name in ('fi_warp_planes_bf16', 'fi_warp_planes_f32'):
     fn = getattr(lib, name)
@@ -195,6 +197,14 @@ def _declare(lib: ctypes.CDLL) -> None:
     # g, flow, acc (f32, zeroed), B, H, W, C, stream
     fn.argtypes = [ptr, ptr, ptr, i32, i32, i32, i32, ptr]
     fn.restype = i32
+  for name in ('fi_splat_fixed_bf16', 'fi_splat_fixed_f32'):
+    fn = getattr(lib, name)
+    # g, flow, acc (f32), workspace, B, H, W, C, stream
+    fn.argtypes = [ptr, ptr, ptr, ptr, i32, i32, i32, i32, ptr]
+    fn.restype = i32
+  # B, H, W -> the fixed-order splat's workspace in bytes
+  lib.fi_splat_fixed_workspace_bytes.argtypes = [i32, i32, i32]
+  lib.fi_splat_fixed_workspace_bytes.restype = ctypes.c_longlong
   for name in ('fi_conv3x3_bf16', 'fi_conv3x3_tf32', 'fi_conv3x3_f32'):
     fn = getattr(lib, name)
     # x, w, bias, out, pool (or NULL), N, H, W, Cin, Cout, slope, stream

@@ -11,6 +11,10 @@ frame's edge row again beyond it, as the resize clamps) and the nearest
 none; from a level that does not split, the whole plane is resized and
 the shard takes its rows. The arithmetic of each output row is the whole
 frame's.
+
+The backward is deterministic (torch.use_deterministic_algorithms passes):
+the exact-2x nearest is a broadcast, and the tables' selections sum each
+input's cotangents in output order (`_TableSelect`).
 """
 from __future__ import annotations
 
@@ -31,13 +35,76 @@ def _device_table(kind: str, in_size: int, out_size: int,
   key = (kind, in_size, out_size, device)
   table = _DEVICE_TABLES.get(key)
   if table is None:
-    if kind == 'nearest':
+    base = kind.replace('_spread', '')
+    if base == 'nearest':
       host = _nearest_index_table(in_size, out_size)
     else:
       host = _linear_interp_tables(in_size, out_size)[
-          ('lower', 'upper', 'lerp').index(kind)]
+          ('lower', 'upper', 'lerp').index(base)]
+    if kind.endswith('_spread'):
+      host = _spread_tables(host, in_size)
     table = _DEVICE_TABLES.setdefault(key, torch.from_numpy(host).to(device))
   return table
+
+
+def _spread_tables(table: np.ndarray, in_size: int) -> np.ndarray:
+  """For a nondecreasing table of input indices (one per output), the
+  outputs that read each input: (m, in_size) output indices, the r-th
+  output that reads input i in row r, or -1 past input i's count."""
+  counts = np.bincount(table, minlength=in_size)
+  first = np.searchsorted(table, np.arange(in_size))
+  spread = np.full((max(int(counts.max()), 1), in_size), -1, np.int64)
+  for r in range(spread.shape[0]):
+    spread[r] = np.where(r < counts, first + r, -1)
+  return spread
+
+
+class _TableSelect(torch.autograd.Function):
+  """`x.index_select(dim, table)` for a resize's nondecreasing table, with
+  a backward that sums each input's cotangents in output order by
+  gathers (index_select's own backward adds them with atomics, in an
+  order that changes from run to run, and raises under
+  torch.use_deterministic_algorithms)."""
+
+  @staticmethod
+  def forward(ctx, x, dim, table, spread):
+    ctx.dim = dim
+    ctx.save_for_backward(spread)
+    return x.index_select(dim, table)
+
+  @staticmethod
+  def backward(ctx, grad):
+    spread, = ctx.saved_tensors
+    dim = ctx.dim
+    shape = [1] * grad.dim()
+    shape[dim] = spread.shape[1]
+    out = None
+    for row in spread:
+      taken = grad.index_select(dim, row.clamp_min(0))
+      taken = torch.where((row >= 0).reshape(shape), taken,
+                          torch.zeros((), dtype=grad.dtype,
+                                      device=grad.device))
+      out = taken if out is None else out + taken
+    return out, None, None, None
+
+
+def _table_select(x: torch.Tensor, dim: int, kind: str,
+                  out_size: int) -> torch.Tensor:
+  """`x`'s entries along `dim` by the resize table `kind` to `out_size`."""
+  in_size = x.shape[dim]
+  table = _device_table(kind, in_size, out_size, x.device)
+  if not x.requires_grad:
+    return x.index_select(dim, table)
+  spread = _device_table(kind + '_spread', in_size, out_size, x.device)
+  return _TableSelect.apply(x, dim, table, spread)
+
+
+def _repeat2(x: torch.Tensor, dim: int) -> torch.Tensor:
+  """Each entry along `dim` twice: the exact-2x nearest (index i // 2),
+  by a broadcast whose backward is a sum (no scatter)."""
+  shape = list(x.shape)
+  shape.insert(dim + 1, 2)
+  return x.unsqueeze(dim + 1).expand(shape).flatten(dim, dim + 1)
 
 
 def _linear_interp_tables(in_size: int, out_size: int):
@@ -61,10 +128,8 @@ def _nearest_index_table(in_size: int, out_size: int) -> np.ndarray:
 def _resample_axis_linear(x: torch.Tensor, dim: int,
                           out_size: int) -> torch.Tensor:
   in_size = x.shape[dim]
-  lo = x.index_select(dim, _device_table('lower', in_size, out_size,
-                                         x.device))
-  up = x.index_select(dim, _device_table('upper', in_size, out_size,
-                                         x.device))
+  lo = _table_select(x, dim, 'lower', out_size)
+  up = _table_select(x, dim, 'upper', out_size)
   shape = [1] * x.dim()
   shape[dim] = out_size
   w = _device_table('lerp', in_size, out_size, x.device).reshape(shape)
@@ -100,10 +165,9 @@ def _resize_nearest_whole(image: torch.Tensor, new_h: int,
   if (h, w) == (new_h, new_w):
     return image
   if new_h == 2 * h and new_w == 2 * w:
-    return image.repeat_interleave(2, dim=1).repeat_interleave(2, dim=2)
-  hi = _device_table('nearest', h, new_h, image.device)
-  wi = _device_table('nearest', w, new_w, image.device)
-  return image.index_select(1, hi).index_select(2, wi)
+    return _repeat2(_repeat2(image, 1), 2)
+  return _table_select(_table_select(image, 1, 'nearest', new_h), 2,
+                       'nearest', new_w)
 
 
 def _sharded(image: torch.Tensor, new_w: int, shard, whole, rows_2x,
@@ -134,9 +198,8 @@ def _bilinear_cols(x: torch.Tensor, new_w: int) -> torch.Tensor:
 
 def _nearest_cols(x: torch.Tensor, new_w: int) -> torch.Tensor:
   if new_w == 2 * x.shape[2]:
-    return x.repeat_interleave(2, dim=2)
-  wi = _device_table('nearest', x.shape[2], new_w, x.device)
-  return x.index_select(2, wi)
+    return _repeat2(x, 2)
+  return _table_select(x, 2, 'nearest', new_w)
 
 
 def _sharding_to(size):
@@ -165,6 +228,6 @@ def resize_nearest(image: torch.Tensor, size) -> torch.Tensor:
   shard = _sharding_to(size)
   if shard is not None:
     return _sharded(image, int(size[1]), shard, _resize_nearest_whole,
-                    lambda slab, _: slab.repeat_interleave(2, dim=1),
+                    lambda slab, _: _repeat2(slab, 1),
                     _nearest_cols)
   return _resize_nearest_whole(image, int(size[0]), int(size[1]))

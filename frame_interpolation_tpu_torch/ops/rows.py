@@ -119,12 +119,6 @@ class RowShard:
     """The whole plane from every shard's slab, on this shard's device."""
     return torch.cat([s.to(x.device) for s in self.exchange(x)], dim=1)
 
-  def pmax(self, value: float) -> float:
-    """The largest of the shards' values (NaN if any is NaN), the same on
-    every shard."""
-    values = self.exchange(float(value))
-    return float('nan') if any(v != v for v in values) else max(values)
-
   def halo(self, x, above: int, below: int, edge: str = 'zeros'):
     """This shard's slab with `above` rows before it and `below` after it
     from the other shards' slabs, in one exchange. Rows beyond the frame

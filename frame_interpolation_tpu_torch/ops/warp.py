@@ -36,7 +36,8 @@ the fourth (inference only, as in JAX).
 """
 from __future__ import annotations
 
-from typing import Optional, Tuple
+import ctypes
+from typing import Optional, Sequence, Tuple
 
 import torch
 
@@ -49,6 +50,8 @@ _ROWS_DTYPES = {torch.bfloat16: 'fi_warp_rows_bf16',
 _PLANES_DTYPES = {torch.bfloat16: 'fi_warp_planes_bf16',
                   torch.float32: 'fi_warp_planes_f32'}
 _SPLAT_DTYPES = {torch.bfloat16: 'fi_splat_bf16', torch.float32: 'fi_splat_f32'}
+_SPLAT_FIXED_DTYPES = {torch.bfloat16: 'fi_splat_fixed_bf16',
+                       torch.float32: 'fi_splat_fixed_f32'}
 
 
 def _check_shapes(image: torch.Tensor, flow: torch.Tensor) -> None:
@@ -129,37 +132,45 @@ def backward_warp_plain(image: torch.Tensor,
   return _blend_plain(image, flow)
 
 
-def _check_rows(image: torch.Tensor, flow: torch.Tensor, row_offset: int,
-                clamp_h: int) -> None:
-  if image.dim() != 4 or flow.dim() != 4 or flow.shape[-1] != 2:
-    raise ValueError(f'expected image (B, Hsrc, W, C) and flow (B, Hout, '
-                     f'W, 2); got {tuple(image.shape)} and '
+def _check_rows(slabs: Sequence[torch.Tensor], flow: torch.Tensor,
+                row_offset: int, clamp_h: int) -> None:
+  if not slabs or any(t.dim() != 4 for t in slabs) or flow.dim() != 4 or (
+      flow.shape[-1] != 2):
+    raise ValueError(f'expected slabs (B, rows, W, C) and a flow (B, Hout, '
+                     f'W, 2); got {[tuple(t.shape) for t in slabs]} and '
                      f'{tuple(flow.shape)}')
-  if flow.shape[0] != image.shape[0] or flow.shape[2] != image.shape[2]:
-    raise ValueError(f'flow {tuple(flow.shape)} does not match image '
-                     f'{tuple(image.shape)} in batch and width')
-  if clamp_h < 2 or image.shape[2] < 2:
+  first = slabs[0]
+  if any(t.shape != first.shape or t.dtype != first.dtype for t in slabs):
+    raise ValueError(f'the slabs differ in shape or dtype: '
+                     f'{[(tuple(t.shape), t.dtype) for t in slabs]}')
+  if flow.shape[0] != first.shape[0] or flow.shape[2] != first.shape[2]:
+    raise ValueError(f'flow {tuple(flow.shape)} does not match the slabs '
+                     f'{tuple(first.shape)} in batch and width')
+  if clamp_h != len(slabs) * first.shape[1]:
+    raise ValueError(f'{len(slabs)} slabs of {first.shape[1]} rows do not '
+                     f'make the frame\'s {clamp_h} rows')
+  if clamp_h < 2 or first.shape[2] < 2:
     raise ValueError(f'the bilinear warp needs H, W >= 2; got clamp_h '
-                     f'{clamp_h}, W {image.shape[2]}')
+                     f'{clamp_h}, W {first.shape[2]}')
   if row_offset < 0 or row_offset + flow.shape[1] > clamp_h:
     raise ValueError(f'output rows [{row_offset}, '
                      f'{row_offset + flow.shape[1]}) leave the frame\'s '
                      f'{clamp_h} rows')
 
 
-def backward_warp_rows_plain(image: torch.Tensor, flow: torch.Tensor,
-                             row_offset: int, src_row0: int,
+def backward_warp_rows_plain(slabs: Sequence[torch.Tensor],
+                             flow: torch.Tensor, row_offset: int,
                              clamp_h: int) -> torch.Tensor:
   """The row-mode warp as plain tensor ops (any device).
 
-  `image` (B, Hsrc, W, C) holds global rows [src_row0, src_row0 + Hsrc) of
-  a frame of `clamp_h` rows; `flow` (B, Hout, W, 2) the output rows
-  [row_offset, row_offset + Hout). Returns the whole-frame warp's rows
-  [row_offset, row_offset + Hout), provided every tap lies in the image
-  (the caller's halo predicate: backward_warp_rows).
+  `slabs` are the frame's `clamp_h` rows as equal slabs (B, rows, W, C),
+  in order; `flow` (B, Hout, W, 2) the output rows [row_offset,
+  row_offset + Hout). Returns the whole-frame warp's rows [row_offset,
+  row_offset + Hout).
   """
-  _check_rows(image, flow, row_offset, clamp_h)
-  return _blend_plain(image, flow, row_offset=row_offset, src_row0=src_row0,
+  _check_rows(slabs, flow, row_offset, clamp_h)
+  frame = torch.cat([t.to(flow.device) for t in slabs], dim=1)
+  return _blend_plain(frame, flow, row_offset=row_offset, src_row0=0,
                       clamp_h=clamp_h)
 
 
@@ -236,48 +247,44 @@ def _check_kernel_args(name: str, image: torch.Tensor,
     raise ValueError(f'{name}: image and flow on different devices')
 
 
-def backward_warp_rows_kernel(image: torch.Tensor, flow: torch.Tensor,
-                              row_offset: int, src_row0: int,
+def backward_warp_rows_kernel(slabs: Sequence[torch.Tensor],
+                              flow: torch.Tensor, row_offset: int,
                               clamp_h: int) -> torch.Tensor:
   """The row-mode warp through csrc/warp.cu (`backward_warp_rows_plain`'s
-  arguments). CUDA tensors only; raises otherwise."""
-  _check_rows(image, flow, row_offset, clamp_h)
-  _kernels.require_cuda('backward_warp_rows', image)
+  arguments): the kernel reads each tap from its row's slab by a table of
+  the slabs' addresses, so nothing is copied. CUDA tensors on one device
+  only; raises otherwise."""
+  _check_rows(slabs, flow, row_offset, clamp_h)
+  if len(slabs) > MAX_SLABS:
+    raise ValueError(f'backward_warp_rows: the kernel takes at most '
+                     f'{MAX_SLABS} slabs; got {len(slabs)}')
+  _kernels.require_cuda('backward_warp_rows', *slabs)
   _kernels.require_cuda('backward_warp_rows', flow, alignment=8)
+  image = slabs[0]
   if image.dtype not in _ROWS_DTYPES or flow.dtype != torch.float32:
     raise ValueError(f'backward_warp_rows: the kernel takes bf16 or f32 '
                      f'images and an f32 flow; got {image.dtype}, '
                      f'{flow.dtype}')
-  if flow.device != image.device:
-    raise ValueError('backward_warp_rows: image and flow on different '
+  if any(t.device != flow.device for t in slabs):
+    raise ValueError('backward_warp_rows: slabs and flow on different '
                      'devices')
-  b, h_src, w, c = image.shape
+  b, slab_rows, w, c = image.shape
   h_out = flow.shape[1]
   out = torch.empty((b, h_out, w, c), dtype=image.dtype, device=image.device)
   if out.numel() == 0:
     return out
   fn = getattr(_kernels.library(), _ROWS_DTYPES[image.dtype])
   stream = _kernels.stream_of(image)
-  code = fn(image.data_ptr(), flow.data_ptr(), out.data_ptr(), b, h_src,
-            h_out, w, c, row_offset, src_row0, clamp_h, stream)
+  table = (ctypes.c_void_p * len(slabs))(*(t.data_ptr() for t in slabs))
+  code = fn(table, len(slabs), slab_rows, flow.data_ptr(), out.data_ptr(), b,
+            h_out, w, c, row_offset, clamp_h, stream)
   _kernels.check('backward_warp_rows', code)
   _kernels.count_launch('warp_rows', stream)
   return out
 
 
-# The film_net pyramid resolves motion up to about 192 px (7 levels of up
-# to 64 px each, reference models/film_net/options.py:30-34): a halo of
-# k slabs with k * slab > 192 holds every realistic flow's taps.
-MOTION_REACH_PX = 192
-
-
-def halo_slabs(slab: int, n: int) -> int:
-  """The row-sharded warp's halo in slabs on each side, or 0 for the
-  whole frame (ops/warp_window.py _halo_slab_count): k slabs with
-  k * slab > MOTION_REACH_PX, unless a shard would then take at least as
-  many slabs (2k) from the others as the whole frame holds (n - 1)."""
-  k = -(-MOTION_REACH_PX // slab)
-  return 0 if 2 * k >= n - 1 else k
+# The most slabs the row-mode kernel takes (kMaxSlabs in csrc/warp.cu).
+MAX_SLABS = 16
 
 
 def backward_warp_rows(image: torch.Tensor, flow: torch.Tensor,
@@ -285,27 +292,21 @@ def backward_warp_rows(image: torch.Tensor, flow: torch.Tensor,
   """The warp of this shard's slab of a split level (inference only).
 
   Counterpart of ops/warp_window.py backward_warp_window_rows. `image` and
-  `flow` are this shard's slabs. The source rows the slab's taps can reach
-  come from the other shards: `halo_slabs` slabs on each side (zeros
-  beyond the frame, never read: the taps clamp to the frame) when every
-  shard's largest |flow_y| is at most k * slab - 1, agreed by pmax so
-  every shard takes the same branch, else the whole frame. Queries are
-  the whole frame's (global rows, global clamp), so each slab is the
-  whole-frame warp's rows bit for bit.
+  `flow` are this shard's slabs. One exchange hands every shard the
+  others' slabs, and the row-mode warp reads each tap from the slab that
+  holds its row: queries are the whole frame's (global rows, global
+  clamp), so each slab is the whole-frame warp's rows bit for bit. The
+  JAX kernel fetches a halo of the slab or the whole frame, chosen on the
+  device by the flow's reach; reading the slabs where they lie needs
+  neither the reach nor a copy, so nothing here reads the flow on the
+  host. Slabs on another device are copied over first (meshes of several
+  cards).
   """
   slab = image.shape[1]
-  height = slab * shard.n
-  row0 = shard.index * slab
-  k = halo_slabs(slab, shard.n)
-  if k and shard.pmax(flow[..., 1].abs().max().item()) <= k * slab - 1:
-    source = shard.halo(image, k * slab, k * slab)
-    src_row0 = row0 - k * slab
-  else:
-    source, src_row0 = shard.gather(image), 0
+  slabs = [s.to(image.device) for s in shard.exchange(image)]
   warp = (backward_warp_rows_plain if image.device.type == 'cpu'
           else backward_warp_rows_kernel)
-  return warp(source.contiguous(), flow.contiguous(), row0, src_row0,
-              height)
+  return warp(slabs, flow.contiguous(), shard.index * slab, slab * shard.n)
 
 
 def backward_warp_kernel(image: torch.Tensor,
@@ -346,17 +347,34 @@ def warp_planes_kernel(image: torch.Tensor, flow: torch.Tensor
 def splat_kernel(g: torch.Tensor, flow: torch.Tensor) -> torch.Tensor:
   """The splat through csrc/splat.cu. CUDA tensors only; raises otherwise.
 
-  Returns the (B, H, W, C) f32 accumulator.
+  Returns the (B, H, W, C) f32 accumulator. Two routes: the atomic one
+  (its f32 sums run in an order that changes from run to run) and the
+  fixed-order one (each element sums its products in the order of the
+  source pixel's flat index, then the corner: the same bits on every
+  run), taken exactly when `torch.are_deterministic_algorithms_enabled()`,
+  PyTorch's own switch for reproducible results. The fixed order costs
+  time (PERF.md), so it is not the default. Both count as a launch of
+  'splat'.
   """
   _check_kernel_args('splat', g, flow)
   b, h, w, c = g.shape
-  acc = torch.zeros(g.shape, dtype=torch.float32, device=g.device)
-  if acc.numel() == 0:
-    return acc
-  fn = getattr(_kernels.library(), _SPLAT_DTYPES[g.dtype])
+  lib = _kernels.library()
   stream = _kernels.stream_of(g)
-  code = fn(g.data_ptr(), flow.data_ptr(), acc.data_ptr(), b, h, w, c,
-            stream)
+  if torch.are_deterministic_algorithms_enabled():
+    acc = torch.empty(g.shape, dtype=torch.float32, device=g.device)
+    if acc.numel() == 0:
+      return acc
+    words = -(-lib.fi_splat_fixed_workspace_bytes(b, h, w) // 4)
+    workspace = torch.empty(words, dtype=torch.int32, device=g.device)
+    code = getattr(lib, _SPLAT_FIXED_DTYPES[g.dtype])(
+        g.data_ptr(), flow.data_ptr(), acc.data_ptr(), workspace.data_ptr(),
+        b, h, w, c, stream)
+  else:
+    acc = torch.zeros(g.shape, dtype=torch.float32, device=g.device)
+    if acc.numel() == 0:
+      return acc
+    code = getattr(lib, _SPLAT_DTYPES[g.dtype])(
+        g.data_ptr(), flow.data_ptr(), acc.data_ptr(), b, h, w, c, stream)
   _kernels.check('splat', code)
   _kernels.count_launch('splat', stream)
   return acc

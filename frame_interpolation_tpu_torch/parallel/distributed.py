@@ -38,6 +38,11 @@ def rank() -> int:
   return dist.get_rank() if is_initialized() else 0
 
 
+def backend() -> Optional[str]:
+  """The process group's backend ('nccl' or 'gloo'); None outside one."""
+  return dist.get_backend() if is_initialized() else None
+
+
 def choose_backend(device_type: str, num_processes: int) -> str:
   """'nccl' when every process of this host has a GPU of its own, else
   'gloo' (the CPU, or ranks that share a card)."""

@@ -23,6 +23,17 @@ exchange and every row-mode kernel there. Shards on one card share its
 stream, so they run in turn; on a host with N cards the same code runs a
 shard on each. Only shards that share one card have been run here.
 Inference only, as in JAX.
+
+Captured programs (utils/programs.py), as the JAX package jits each of
+these: the patch- and tree-sharded classes replay each shard's pair
+program from its thread. The row-sharded pair is one program on a mesh
+that repeats one card: its shards' threads launch onto the program's
+capturing stream, so the whole sharded forward, every shard and every
+exchange, is one CUDA graph and a call is one replay. The exchanges meet
+at the host barrier only while the graph is captured; in the graph they
+are the stream's order. Nothing in the forward reads the device on the
+host (the row-mode warp reads the slabs where they lie: ops/warp.py
+backward_warp_rows).
 """
 from __future__ import annotations
 
@@ -59,8 +70,6 @@ class _Sharded:
 
   `graphs` is the shards' Interpolators' (None: captured programs on a
   CUDA device): each shard replays its own pair program from its thread.
-  The row-sharded class runs its shards' models eagerly whatever it is:
-  its halo exchanges meet at a host barrier inside the forward.
   """
 
   def __init__(self, params_or_model: Any, options: Options,
@@ -177,45 +186,75 @@ class SpatialShardedInterpolator(_Sharded):
   its ops/rows.RowShard installed; the shards' output slabs, gathered,
   are the full-frame forward's. A frame whose rows do not split into even
   slabs runs whole on every shard.
+
+  `graphs` (None: on a mesh whose shards all lie on one CUDA device): the
+  whole sharded pair (pad, every shard's forward, the gather, the crop) as
+  one captured program a key, keyed like the Interpolator's pair. Its
+  shards' threads launch onto the capturing stream, which only shards on
+  the capturing device share, so a mesh of several cards runs eagerly
+  (graphs=True raises there), as does the CPU.
   """
 
   def __init__(self, params_or_model: Any, options: Options,
-               mesh: mesh_lib.Mesh, align: Optional[int] = 64):
-    # Eager: the shards exchange halos through a host barrier inside the
-    # forward, and the row-mode warp reads the flow's reach on the host.
+               mesh: mesh_lib.Mesh, align: Optional[int] = 64,
+               graphs: Optional[bool] = None):
+    # The shards' models run inside this class's program, not their own.
     super().__init__(params_or_model, options, mesh, align, graphs=False)
+    device = mesh.devices[0]
+    one_device = all(d == device for d in mesh.devices)
+    if graphs and device.type == 'cuda' and not one_device:
+      raise ValueError(f'SpatialShardedInterpolator: graphs=True needs a '
+                       f'mesh on one CUDA device (its shards launch onto '
+                       f'one capturing stream); got {mesh!r}')
+    self._program = None
+    if programs.resolve(graphs, device, 'SpatialShardedInterpolator') and (
+        one_device):
+      self._program = programs.Program(programs.weak_method(self._pair_eager),
+                                       device, 'row_pair')
+
+  @property
+  def program(self) -> Optional[programs.Program]:
+    """The captured row-sharded pair, or None on the eager path."""
+    return self._program
 
   def call_device(self, x0: torch.Tensor, x1: torch.Tensor,
                   dt: torch.Tensor) -> torch.Tensor:
-    """(B, H, W, 3) f32 frames on any device to the midpoint on `device`."""
-    time = dt.reshape(-1, 1).float()
+    """(B, H, W, 3) f32 frames on any device to the midpoint on `device`:
+    one replay a call on the graphs' path."""
     with torch.inference_mode():
-      bbox = None
-      if self._align is not None:
-        x0, bbox = tiling.pad_to_align(x0, self._align)
-        x1, _ = tiling.pad_to_align(x1, self._align)
-      height, width = x0.shape[1], x0.shape[2]
-      split = rows.splits(height, self.num_devices)
-      collective = Collective(self.num_devices)
+      if self._program is None:
+        return self._pair_eager(x0, x1, dt)
+      return self._program(x0, x1, dt)
 
-      def shard(index: int) -> torch.Tensor:
-        row_shard = rows.RowShard(collective, index, height, width)
-        a, b = x0, x1
-        if split:
-          a, b = row_shard.take(x0), row_shard.take(x1)
-        device = self._mesh.devices[index]
-        with rows.sharding(row_shard):
-          return self._shards[index].model(
-              a.to(device), b.to(device), time.to(device))['image']
+  def _pair_eager(self, x0: torch.Tensor, x1: torch.Tensor,
+                  dt: torch.Tensor) -> torch.Tensor:
+    time = dt.reshape(-1, 1).float()
+    bbox = None
+    if self._align is not None:
+      x0, bbox = tiling.pad_to_align(x0, self._align)
+      x1, _ = tiling.pad_to_align(x1, self._align)
+    height, width = x0.shape[1], x0.shape[2]
+    split = rows.splits(height, self.num_devices)
+    collective = Collective(self.num_devices)
 
-      outs = self._pool.run(shard, collective)
+    def shard(index: int) -> torch.Tensor:
+      row_shard = rows.RowShard(collective, index, height, width)
+      a, b = x0, x1
       if split:
-        image = torch.cat([o.to(self.device) for o in outs], dim=1)
-      else:
-        image = outs[0]
-      if bbox is not None:
-        image = tiling.crop_to_bounding_box(image, **bbox)
-      return image.contiguous()
+        a, b = row_shard.take(x0), row_shard.take(x1)
+      device = self._mesh.devices[index]
+      with rows.sharding(row_shard):
+        return self._shards[index].model(
+            a.to(device), b.to(device), time.to(device))['image']
+
+    outs = self._pool.run(shard, collective)
+    if split:
+      image = torch.cat([o.to(self.device) for o in outs], dim=1)
+    else:
+      image = outs[0]
+    if bbox is not None:
+      image = tiling.crop_to_bounding_box(image, **bbox)
+    return image.contiguous()
 
   def __call__(self, x0: np.ndarray, x1: np.ndarray,
                dt: np.ndarray) -> np.ndarray:

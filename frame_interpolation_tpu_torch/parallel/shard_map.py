@@ -1,9 +1,9 @@
 """Shards in threads, and the collectives between them.
 
-Counterpart of `jax.shard_map` with `lax.ppermute`, `lax.all_gather` and
-`lax.pmax`, which the JAX package's sharded serving runs on
-(parallel/inference.py, ops/warp_window.py backward_warp_window_rows,
-ops/conv_stack.py stack_rows). JAX runs one program over a device mesh;
+Counterpart of `jax.shard_map` with `lax.ppermute` and `lax.all_gather`,
+which the JAX package's sharded serving runs on (parallel/inference.py,
+ops/warp_window.py backward_warp_window_rows, ops/conv_stack.py
+stack_rows). JAX runs one program over a device mesh;
 here each shard is a Python thread on its own device, the way
 `torch.nn.parallel.parallel_apply` runs replicas, and the shards exchange
 tensors through a `Collective`: a barrier and a slot per shard. A tensor
@@ -19,7 +19,10 @@ as the JAX tests' virtual 8-device CPU mesh does for JAX.
 A `ShardPool` keeps one thread a shard for its lifetime, and each call
 runs shard i on thread i: PyTorch keeps some caches per thread (cuDNN's
 execution plans among them), which a fresh thread a call would build
-again on every call.
+again on every call. A shard launches onto the caller's current stream on
+its device, so a caller that captures a CUDA graph on a stream
+(utils/programs.py) captures every shard's launches on that device into
+it; the exchanges between them are then references within the graph.
 """
 from __future__ import annotations
 
@@ -73,10 +76,13 @@ class Collective:
     self._barrier.abort()
 
 
-def _device_scope(device: torch.device):
-  if device.type == 'cuda':
-    return torch.cuda.device(device)
-  return contextlib.nullcontext()
+@contextlib.contextmanager
+def _device_scope(device: torch.device, stream=None):
+  if device.type != 'cuda':
+    yield
+    return
+  with torch.cuda.device(device), torch.cuda.stream(stream):
+    yield
 
 
 def _serve(tasks: 'queue.Queue') -> None:
@@ -93,8 +99,8 @@ class ShardPool:
   """One long-lived thread a shard of `devices`.
 
   `run(fn, collective)` runs fn(index) for every shard, shard i on thread
-  i, each with the caller's grad and inference modes and its device
-  current. A shard that raises aborts `collective`, so the others stop at
+  i, each with the caller's grad and inference modes, its device current
+  and, on a CUDA device, the caller's current stream there. A shard that raises aborts `collective`, so the others stop at
   their next exchange instead of waiting; the first failure is raised
   once every shard has ended (a ShardAborted only when no shard failed
   otherwise). Returns the shards' results in order. The threads end with
@@ -119,11 +125,13 @@ class ShardPool:
     done = threading.Semaphore(0)
     grad = torch.is_grad_enabled()
     inference = torch.is_inference_mode_enabled()
+    streams = [torch.cuda.current_stream(d) if d.type == 'cuda' else None
+               for d in self.devices]
 
     def task(index: int) -> None:
       try:
         with torch.inference_mode(inference), torch.set_grad_enabled(grad), \
-            _device_scope(self.devices[index]):
+            _device_scope(self.devices[index], streams[index]):
           results[index] = fn(index)
       except BaseException as e:  # re-raised in the caller's thread below
         errors[index] = e

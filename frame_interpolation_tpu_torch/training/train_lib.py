@@ -25,19 +25,22 @@ The model, the batch and the augmentations live on one device; on CUDA the
 warp and the extractor's conv stacks run the hand-written kernels forward
 and backward (ops/warp.py, ops/conv_stack.py).
 
-On a CUDA device the lean step is one captured program
-(utils/programs.py), as the JAX package's step is one jitted program with
-the augmentations on the device: augmentation, forward, weighted losses,
-backward and Adam replay as one CUDA graph. What changes from step to
-step reaches the graph through static device tensors written before each
-replay: the batch, the loss weights and the augmentations' draws (made on
-the host from the step's generator, in the eager order, and copied over
-as one small tensor), and the learning rate, which a capturable Adam
-reads from a device tensor (`create_optimizer`, `set_learning_rate`). The
-summary step (logging steps) and the data-parallel step run eagerly on
-the same parameters, optimizer state and learning-rate tensor, so a run
-that mixes them computes what an all-eager run does. `graphs=False` is the
-eager path throughout; the CPU always takes it.
+On a CUDA device the step is one captured program (utils/programs.py), as
+the JAX package's step is one jitted program with the augmentations on
+the device: augmentation, forward, weighted losses, backward (with the
+data-parallel all-reduce) and Adam replay as one CUDA graph. What changes
+from step to step reaches the graph through static device tensors
+written before each replay: the batch, the loss weights and the
+augmentations' draws (made on the host from the step's generator, in the
+eager order, and copied over as one small tensor), and the learning rate,
+which a capturable Adam reads from a device tensor (`create_optimizer`,
+`set_learning_rate`). As the JAX package compiles two variants, the lean
+step and the summary step (logging steps, which also return the images)
+are two programs; the loop gives them one memory pool, and both update
+the same parameters, optimizer state and learning-rate tensor.
+`graphs=False` is the eager path throughout; the CPU always takes it, and
+so does a data-parallel step over gloo, whose collectives run through the
+host and cannot be captured (graphs=True raises there).
 
 Data-parallel across processes (parallel/distributed.py): where a process
 group is initialized, every rank reads the same global batch from the
@@ -172,6 +175,7 @@ def make_train_step(
     with_summaries: bool = True,
     data_parallel: bool = False,
     graphs: Optional[bool] = None,
+    pool: Optional[programs.Pool] = None,
 ) -> Callable[[TrainState, Batch, torch.Generator],
               Tuple[Dict[str, torch.Tensor], Dict[str, torch.Tensor]]]:
   """Builds the train step.
@@ -188,20 +192,16 @@ def make_train_step(
   it, trains on this rank's slice, and averages the gradients and the
   metrics over the ranks (the module docstring says how).
 
-  `graphs`: capture the step as a CUDA graph (None: the lean step on a
-  CUDA device). The summary step and the data-parallel step run eagerly
-  (graphs=True with either raises), as does every step on the CPU
-  (graphs=True there raises at the first step). The graph is captured
-  at the first step of each batch shape, after that step ran eagerly as
-  its warm-up, for the state's model and optimizer; a step with another
-  model or optimizer captures anew.
+  `graphs`: capture the step as a CUDA graph (None: on a CUDA device,
+  and for the data-parallel step only over NCCL). Every step on the CPU
+  runs eagerly, and so does the data-parallel step over gloo: gloo's
+  all-reduce goes through the host, which a graph cannot hold. graphs=True
+  raises there at the first step. The graph is captured at the first step
+  of each batch shape, after that step ran eagerly as its warm-up, for the
+  state's model and optimizer; a step with another model or optimizer
+  captures anew. `pool`: the graphs' memory pool, to share with the other
+  variant's step (utils/programs.Pool).
   """
-  if graphs and (with_summaries or data_parallel):
-    raise ValueError('make_train_step: the summary step and the '
-                     'data-parallel step run eagerly; graphs=True takes '
-                     'neither')
-  if with_summaries or data_parallel:
-    graphs = False
   augmentations = augmentations_lib.data_augmentations(augmentation_names)
   schedule = learning_rate_schedule(opts)
   bound = {}  # the state's (model, optimizer) -> its program or None
@@ -230,7 +230,17 @@ def make_train_step(
     optimizer.step()
     metrics = dict(per_loss)
     metrics['training_loss'] = total.detach()
-    return metrics, batch, predictions
+    if not with_summaries:
+      return metrics, {}
+    # Image-shaped step outputs for TensorBoard, the reference's
+    # image_summaries selection (train_lib.py:72-93).
+    summaries = {'x0': batch['x0'], 'x1': batch['x1'], 'y': batch['y'],
+                 'pred_y': predictions['image'].detach()}
+    for key in _EXTRA_IMAGE_SUMMARIES:
+      value = predictions.get(key)
+      if isinstance(value, torch.Tensor) and value.dim() == 4:
+        summaries[key] = value.detach()
+    return metrics, summaries
 
   def program_of(model: FilmNet, optimizer: torch.optim.Optimizer):
     key = (id(model), id(optimizer))
@@ -241,7 +251,7 @@ def make_train_step(
       bound.clear()
       device = next(model.parameters()).device
       program = None
-      if programs.resolve(graphs, device, 'make_train_step'):
+      if _captured(graphs, device, data_parallel):
         if not all(group.get('capturable') and
                    isinstance(group['lr'], torch.Tensor)
                    for group in optimizer.param_groups):
@@ -249,8 +259,9 @@ def make_train_step(
                            'capturable optimizer with a device learning '
                            'rate (create_optimizer on the CUDA device)')
         program = programs.Program(
-            lambda batch, scalars: body(model, optimizer, batch,
-                                        scalars)[0], device, 'train_step')
+            lambda batch, scalars: body(model, optimizer, batch, scalars),
+            device, 'summary_step' if with_summaries else 'train_step',
+            pool=pool)
       bound[key] = program
     return bound[key]
 
@@ -268,39 +279,47 @@ def make_train_step(
       scalars = scalars.pin_memory()
     set_learning_rate(optimizer, schedule(state.step))
     if program is not None:
-      metrics = program(batch, scalars)
-      state.step += 1
-      return metrics, {}
-    metrics, batch, predictions = body(
-        model, optimizer, batch, scalars.to(device, non_blocking=True))
+      outputs = program(batch, scalars)
+    else:
+      outputs = body(model, optimizer, batch,
+                     scalars.to(device, non_blocking=True))
     state.step += 1
-    if not with_summaries:
-      return metrics, {}
-    # Image-shaped step outputs for TensorBoard, the reference's
-    # image_summaries selection (train_lib.py:72-93).
-    summaries = {'x0': batch['x0'], 'x1': batch['x1'], 'y': batch['y'],
-                 'pred_y': predictions['image'].detach()}
-    for key in _EXTRA_IMAGE_SUMMARIES:
-      value = predictions.get(key)
-      if isinstance(value, torch.Tensor) and value.dim() == 4:
-        summaries[key] = value.detach()
-    return metrics, summaries
+    return outputs
 
   step_fn.programs = lambda: [p for p in bound.values() if p is not None]
   return step_fn
 
 
+def _captured(graphs: Optional[bool], device: torch.device,
+              data_parallel: bool) -> bool:
+  """Whether a step runs as a captured program (see make_train_step)."""
+  backend = distributed.backend() if data_parallel else None
+  if backend not in (None, 'nccl'):
+    if graphs:
+      raise ValueError(f'make_train_step: graphs=True takes no data-parallel '
+                       f'step over {backend}: its all-reduce runs through '
+                       f'the host, which a CUDA graph cannot hold (NCCL\'s '
+                       f'can be captured)')
+    return False
+  return programs.resolve(graphs, device, 'make_train_step')
+
+
 def _average_over_ranks(model: FilmNet, per_loss: Dict[str, torch.Tensor],
                         total: torch.Tensor) -> torch.Tensor:
   """Replaces every gradient and every entry of `per_loss` by its mean over
-  the ranks (one all-reduce); returns the mean training loss."""
+  the ranks (one all-reduce); returns the mean training loss. The
+  gradients are written in place, where a captured step's optimizer reads
+  them."""
   params = list(model.parameters())
   grads = [torch.zeros_like(p) if p.grad is None else p.grad
            for p in params]
   losses = torch.stack([*per_loss.values(), total.detach()])
   *grads, losses = distributed.all_reduce_mean(grads + [losses])
   for p, g in zip(params, grads):
-    p.grad = g
+    if p.grad is None:
+      p.grad = g
+    else:
+      p.grad.copy_(g)
   for i, name in enumerate(per_loss):
     per_loss[name] = losses[i]
   return losses[-1]
@@ -408,24 +427,24 @@ def train_loop(
   In a process group every rank runs the loop on the same global batches
   (data-parallel, see the module docstring); only rank 0 logs, traces and
   writes anything under `run_dir`. `graphs` is `make_train_step`'s for
-  the lean steps (None: captured on a CUDA device, except data-parallel);
-  the logging steps run eagerly.
+  both variants, the lean steps and the logging (summary) steps, whose
+  programs share one memory pool.
   """
   data_parallel = distributed.is_initialized()
   lead = distributed.rank() == 0
   if not lead:
     log_fn = _silent
-  step_fn = make_train_step(losses, opts, augmentation_names,
-                            with_summaries=False, data_parallel=data_parallel,
-                            graphs=graphs)
-  summary_step_fn = make_train_step(losses, opts, augmentation_names,
-                                    with_summaries=True,
-                                    data_parallel=data_parallel)
+  device = next(state.model.parameters()).device
+  pool = programs.Pool() if device.type == 'cuda' else None
+  step_fn, summary_step_fn = (
+      make_train_step(losses, opts, augmentation_names,
+                      with_summaries=summaries, data_parallel=data_parallel,
+                      graphs=graphs, pool=pool)
+      for summaries in (False, True))
   ckpt = CheckpointManager(os.path.join(run_dir, 'train'),
                            max_to_keep=opts.max_to_keep, create=lead)
   if ckpt.restore(state):
     log_fn(f'Restored checkpoint at step {state.step}')
-  device = next(state.model.parameters()).device
   state.model.train()
   schedule = learning_rate_schedule(opts)
 

@@ -13,7 +13,7 @@ import os
 import subprocess
 import tempfile
 import time
-from typing import Callable, Tuple
+from typing import Callable, Sequence, Tuple
 
 import torch
 
@@ -69,12 +69,14 @@ def busy_us(intervals) -> float:
   return total
 
 
-def idle_share(fn: Callable[[], object], count: int = 5) -> dict:
+def idle_share(fn: Callable[[], object], count: int = 5,
+               named: Sequence[str] = ()) -> dict:
   """fn() `count` times under torch.profiler, after one warm-up call: the
   host's wall ms a call (to a synchronize), the device's busy ms a call
   (the union of its kernels' intervals in the trace) and the idle share,
   1 - busy / wall; busy and idle are None where the trace holds no
-  kernel."""
+  kernel. `named`: substrings of kernel names, each with its kernels'
+  summed device ms a call (under 'named')."""
   fn()
   activities = [torch.profiler.ProfilerActivity.CPU,
                 torch.profiler.ProfilerActivity.CUDA]
@@ -93,9 +95,14 @@ def idle_share(fn: Callable[[], object], count: int = 5) -> dict:
   kernels = [(e['ts'], e['ts'] + e['dur']) for e in events
              if e.get('cat') == 'kernel' and 'dur' in e]
   busy_ms = busy_us(kernels) / 1e3 / count if kernels else None
+  by_name = {part: sum(e['dur'] for e in events
+                       if e.get('cat') == 'kernel' and 'dur' in e and
+                       part in e.get('name', '')) / 1e3 / count
+             for part in named}
   return {'wall_ms': wall_ms, 'busy_ms': busy_ms,
           'kernels': len(kernels) / count,
-          'idle': None if busy_ms is None else 1.0 - busy_ms / wall_ms}
+          'idle': None if busy_ms is None else 1.0 - busy_ms / wall_ms,
+          'named': by_name}
 
 
 def roofline(flops: float, nbytes: float, peak: float) -> dict:
@@ -128,9 +135,9 @@ def bilinear_grid(flow: torch.Tensor, row_shift: int = 0,
 
   The warp clamps the floor of each coordinate to [0, size-2] and its alpha
   to [0, 1]; border padding clamps the coordinate to [0, size-1]. Both give
-  the same corner weights. For the row mode's yardstick, `row_shift`
-  (row_offset - src_row0) moves the rows into a source of `source_h` rows
-  (border padding then clamps to that source's rows, not the frame's).
+  the same corner weights. For the row mode's yardstick, `row_shift` (a
+  slab's first global row) moves the rows into a source of `source_h` rows
+  (the whole frame).
   """
   _, h, w, _ = flow.shape
   source_h = h if source_h is None else source_h

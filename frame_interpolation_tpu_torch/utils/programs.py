@@ -10,7 +10,8 @@ key as a CUDA graph and replays it, one launch from the host a call:
 
   * the key is the inputs' structure, shapes and dtypes, the static
     keyword arguments, and the process-wide switches that change what the
-    function launches (grad and inference mode, cuDNN's and TF32's flags);
+    function launches (grad and inference mode, cuDNN's and TF32's flags,
+    deterministic algorithms);
   * the first call of a key copies the inputs into static buffers, runs
     the function eagerly on a side stream (the warm-up: the kernels'
     build, their attributes, cuDNN's plans, an optimizer's state and every
@@ -126,7 +127,8 @@ def backend_flags() -> tuple:
           torch.backends.cudnn.enabled, torch.backends.cudnn.allow_tf32,
           torch.backends.cudnn.benchmark, torch.backends.cudnn.deterministic,
           torch.backends.cuda.matmul.allow_tf32,
-          torch.get_float32_matmul_precision())
+          torch.get_float32_matmul_precision(),
+          torch.are_deterministic_algorithms_enabled())
 
 
 @dataclasses.dataclass

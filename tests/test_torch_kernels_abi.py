@@ -15,7 +15,12 @@ import torch
 from frame_interpolation_tpu_torch.ops import _kernels, warp
 
 _C_TYPES = {'const void*': ctypes.c_void_p, 'void*': ctypes.c_void_p,
+            'const void* const*': ctypes.POINTER(ctypes.c_void_p),
             'int': ctypes.c_int, 'float': ctypes.c_float}
+_C_RETURNS = {'int': ctypes.c_int, 'const char*': ctypes.c_char_p,
+              'long long': ctypes.c_longlong}
+# What the recorder returns for an entry point that reports a size.
+_WORKSPACE_BYTES = 4 * 1234 + 2
 
 
 class _Entry:
@@ -30,12 +35,15 @@ class _Entry:
     for kind, arg in zip(self.argtypes, args):
       if kind is ctypes.c_float:
         assert isinstance(arg, float), (self.name, args)
+      elif kind is ctypes.POINTER(ctypes.c_void_p):
+        assert isinstance(arg, ctypes.Array) and (
+            arg._type_ is ctypes.c_void_p), (self.name, args)
       else:
         assert isinstance(arg, int), (self.name, args)
         if kind is ctypes.c_int:
           assert -2**31 <= arg < 2**31, (self.name, args)
     self.calls.append(args)
-    return 0
+    return _WORKSPACE_BYTES if self.restype is ctypes.c_longlong else 0
 
 
 class _Library:
@@ -60,7 +68,7 @@ def _defined():
   found = {}
   for path in sorted(_kernels.CSRC_DIR.glob('*.cu')):
     for ret, name, params in re.findall(
-        r'extern "C" (int|const char\*) (\w+)\(([^)]*)\)\s*\{',
+        r'extern "C" (int|const char\*|long long) (\w+)\(([^)]*)\)\s*\{',
         path.read_text()):
       kinds = [re.sub(r'\s*\w+$', '', p.strip()).replace(' *', '*')
                for p in params.split(',')]
@@ -75,8 +83,7 @@ def test_every_declared_entry_point_is_defined_with_its_arguments():
   for name, entry in declared.items():
     kinds, ret = defined[name]
     assert [_C_TYPES[k] for k in kinds] == entry.argtypes, name
-    assert entry.restype == (ctypes.c_char_p if ret == 'const char*'
-                             else ctypes.c_int), name
+    assert entry.restype == _C_RETURNS[ret], name
 
 
 @pytest.mark.parametrize('dtype', [torch.float32, torch.bfloat16])
@@ -104,23 +111,72 @@ def test_kernel_wrappers_pass_what_the_entry_points_declare(
   assert _kernels.LAUNCHES == {launch: 1}
 
 
-@pytest.mark.parametrize('dtype', [torch.float32, torch.bfloat16])
-def test_rows_kernel_wrapper_passes_the_row_arguments(monkeypatch, dtype):
-  # fi_warp_rows_*: the extension's rows (H_src) and the slab's (H_out),
-  # then the slab's and the extension's global first rows and the frame's.
+def _stub_library(monkeypatch, launches):
+  """The recorder as the kernels' library, CPU tensors standing in for
+  CUDA ones (device checks and the stream stubbed)."""
   library = _declared()
   monkeypatch.setattr(_kernels, 'library', lambda: library)
   monkeypatch.setattr(_kernels, 'require_cuda', lambda *a, **k: None)
   monkeypatch.setattr(_kernels, 'stream_of', lambda t: 0)
-  monkeypatch.setattr(_kernels, 'LAUNCHES', {'warp_rows': 0})
-  image = torch.zeros(2, 24, 7, 67, dtype=dtype)
+  monkeypatch.setattr(_kernels, 'LAUNCHES', dict.fromkeys(launches, 0))
+  return library
+
+
+def _calls(library):
+  return [(e.name, c) for e in library.entries.values() for c in e.calls]
+
+
+@pytest.mark.parametrize('dtype', [torch.float32, torch.bfloat16])
+def test_rows_kernel_wrapper_passes_the_row_arguments(monkeypatch, dtype):
+  # fi_warp_rows_*: the table of the slabs' addresses, their count and
+  # rows, the flow and the output, then B, the slab's output rows, W, C,
+  # its global first row and the frame's rows.
+  library = _stub_library(monkeypatch, ['warp_rows'])
+  slabs = [torch.zeros(2, 8, 7, 67, dtype=dtype) for _ in range(4)]
   flow = torch.zeros(2, 8, 7, 2)
-  out = warp.backward_warp_rows_kernel(image, flow, 16, 8, 32)
+  out = warp.backward_warp_rows_kernel(slabs, flow, 16, 32)
   assert tuple(out.shape) == (2, 8, 7, 67) and out.dtype == dtype
-  calls = [(e.name, c) for e in library.entries.values() for c in e.calls]
+  calls = _calls(library)
   suffix = 'bf16' if dtype == torch.bfloat16 else 'f32'
   assert [name for name, _ in calls] == [f'fi_warp_rows_{suffix}']
   args = calls[0][1]
-  assert args[:3] == (image.data_ptr(), flow.data_ptr(), out.data_ptr())
-  assert args[3:11] == (2, 24, 8, 7, 67, 16, 8, 32)
+  assert list(args[0]) == [t.data_ptr() for t in slabs]
+  assert args[1:5] == (4, 8, flow.data_ptr(), out.data_ptr())
+  assert args[5:11] == (2, 8, 7, 67, 16, 32)
   assert _kernels.LAUNCHES == {'warp_rows': 1}
+  with pytest.raises(ValueError, match='at most 16 slabs'):
+    warp.backward_warp_rows_kernel(
+        [torch.zeros(2, 2, 7, 67, dtype=dtype)] * 17, flow[:, :2], 0, 34)
+
+
+@pytest.mark.parametrize('dtype', [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize('mode', ['deterministic', 'default'])
+def test_splat_takes_the_fixed_order_entry_point_under_deterministic_mode(
+    monkeypatch, dtype, mode):
+  # torch.use_deterministic_algorithms(True) sends the splat to
+  # fi_splat_fixed_*, with a workspace of the size the library reports;
+  # otherwise it takes the atomic fi_splat_*. Either counts as 'splat'.
+  library = _stub_library(monkeypatch, ['splat'])
+  g = torch.zeros(2, 5, 7, 67, dtype=dtype)
+  flow = torch.zeros(2, 5, 7, 2)
+  saved = torch.are_deterministic_algorithms_enabled()
+  torch.use_deterministic_algorithms(mode == 'deterministic')
+  try:
+    acc = warp.splat_kernel(g, flow)
+  finally:
+    torch.use_deterministic_algorithms(saved)
+  assert acc.shape == g.shape and acc.dtype == torch.float32
+  suffix = 'bf16' if dtype == torch.bfloat16 else 'f32'
+  calls = dict(_calls(library))
+  if mode == 'default':
+    assert list(calls) == [f'fi_splat_{suffix}']
+    assert calls[f'fi_splat_{suffix}'][:3] == (
+        g.data_ptr(), flow.data_ptr(), acc.data_ptr())
+  else:
+    assert sorted(calls) == sorted(['fi_splat_fixed_workspace_bytes',
+                                    f'fi_splat_fixed_{suffix}'])
+    assert calls['fi_splat_fixed_workspace_bytes'] == (2, 5, 7)
+    args = calls[f'fi_splat_fixed_{suffix}']
+    assert args[:3] == (g.data_ptr(), flow.data_ptr(), acc.data_ptr())
+    assert args[4:] == (2, 5, 7, 67, 0)
+  assert _kernels.LAUNCHES == {'splat': 1}

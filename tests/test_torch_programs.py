@@ -49,6 +49,7 @@ from frame_interpolation_tpu_torch.io import params_io
 from frame_interpolation_tpu_torch.models import film_net
 from frame_interpolation_tpu_torch.ops import _kernels, resize
 from frame_interpolation_tpu_torch.options import Options
+from frame_interpolation_tpu_torch.parallel import distributed
 from frame_interpolation_tpu_torch.training import train_lib
 from frame_interpolation_tpu_torch.utils import programs
 
@@ -102,14 +103,36 @@ def test_interpolator_graphs_true_on_the_cpu_raises(tiny_state):
     programs.Program(lambda x: x, 'cpu', 'identity')
 
 
-@pytest.mark.parametrize('kwargs', [dict(with_summaries=True),
-                                    dict(with_summaries=False,
-                                         data_parallel=True)])
-def test_eager_steps_refuse_graphs(kwargs):
-  with pytest.raises(ValueError, match='run eagerly'):
-    train_lib.make_train_step(losses.training_losses(['l1']),
-                              train_lib.TrainingOptions(), graphs=True,
-                              **kwargs)
+@pytest.mark.parametrize('case', ['summary', 'data_parallel', 'gloo'])
+def test_steps_on_the_cpu_or_gloo_refuse_graphs(case, tmp_path):
+  # The summary step and the data-parallel step are captured programs on
+  # the card; graphs=True on the CPU raises at the first step, and so does
+  # a data-parallel step over gloo (its all-reduce runs through the host).
+  opts = train_lib.TrainingOptions()
+  model = film_net.FilmNet(Options.tiny())
+  state = train_lib.create_train_state(model, opts)
+  step_fn = train_lib.make_train_step(
+      losses.training_losses(['l1']), opts, with_summaries=case == 'summary',
+      data_parallel=case != 'summary', graphs=True)
+  if case != 'gloo':
+    with pytest.raises(ValueError, match='graphs=True needs a CUDA device'):
+      step_fn(state, _step_batch(), torch.Generator())
+    return
+  assert distributed.initialize_multihost(
+      f'file://{tmp_path}/rendezvous', 1, 0, 'cpu') == 'gloo'
+  try:
+    with pytest.raises(ValueError, match='over gloo'):
+      step_fn(state, _step_batch(), torch.Generator())
+    # graphs=None takes the eager step there.
+    eager = train_lib.make_train_step(losses.training_losses(['l1']), opts,
+                                      with_summaries=False,
+                                      data_parallel=True)
+    metrics, _ = eager(state, _step_batch(), torch.Generator())
+    assert state.step == 1 and eager.programs() == []
+    assert np.isfinite(float(metrics['training_loss']))
+  finally:
+    distributed.shutdown()
+  assert state.step == 1
 
 
 def _step_batch(seed=0, n=2, h=32):

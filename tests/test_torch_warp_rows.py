@@ -46,6 +46,11 @@ def frame():
   return image, flows, want
 
 
+def _slabs(image, n):
+  """The frame's rows as n equal slabs, each a tensor of its own."""
+  return [t.clone() for t in torch.from_numpy(image).chunk(n, dim=1)]
+
+
 def _extension(image, row0, slab, k):
   """Global rows [row0 - k*slab, row0 + (k+1)*slab), zeros beyond."""
   lo, hi = row0 - k * slab, row0 + (k + 1) * slab
@@ -59,18 +64,15 @@ def _extension(image, row0, slab, k):
     (1, 0, 'large'), (2, 0, 'small'), (4, 0, 'large'), (4, 1, 'small'),
     (2, 1, 'small')])
 def test_rows_plain_matches_jax_full_frame_slices(frame, n, k, flow_kind):
+  # n shards' output rows; the frame's rows as n * (k + 1) slabs.
   image, flows, want = frame
   flow = flows[flow_kind]
   slab = H // n
+  slabs = _slabs(image, n * (k + 1))
   for d in range(n):
     row0 = d * slab
-    if k:
-      source, src_row0 = _extension(image, row0, slab, k)
-    else:
-      source, src_row0 = image, 0
     got = warp.backward_warp_rows_plain(
-        torch.from_numpy(source), torch.from_numpy(flow[:, row0:row0 + slab]),
-        row0, src_row0, H)
+        slabs, torch.from_numpy(flow[:, row0:row0 + slab]), row0, H)
     # The tolerance of the port's full-frame warp parity test.
     np.testing.assert_allclose(got.numpy(), want[flow_kind][:, row0:row0 +
                                                             slab],
@@ -100,19 +102,24 @@ def test_rows_plain_matches_the_window_kernel_row_mode(frame):
                                interpret=True, g=1, row_offset=row0,
                                src_row0=src_row0, clamp_h=H)
     got = warp.backward_warp_rows_plain(
-        torch.from_numpy(source), torch.from_numpy(flow[:, row0:row0 + slab]),
-        row0, src_row0, H)
+        _slabs(image, H // slab), torch.from_numpy(flow[:, row0:row0 + slab]),
+        row0, H)
     np.testing.assert_allclose(got.numpy(), np.asarray(want), rtol=0,
                                atol=1e-5)
 
 
 def test_rows_plain_refuses_rows_beyond_the_frame():
-  image = torch.zeros(1, 8, 6, 3)
+  slabs = [torch.zeros(1, 4, 6, 3), torch.zeros(1, 4, 6, 3)]
   flow = torch.zeros(1, 4, 6, 2)
   with pytest.raises(ValueError, match='leave the frame'):
-    warp.backward_warp_rows_plain(image, flow, 6, 0, 8)
+    warp.backward_warp_rows_plain(slabs, flow, 6, 8)
   with pytest.raises(ValueError, match='batch and width'):
-    warp.backward_warp_rows_plain(image, torch.zeros(1, 4, 5, 2), 0, 0, 8)
+    warp.backward_warp_rows_plain(slabs, torch.zeros(1, 4, 5, 2), 0, 8)
+  with pytest.raises(ValueError, match="make the frame's"):
+    warp.backward_warp_rows_plain(slabs, flow, 0, 10)
+  with pytest.raises(ValueError, match='differ in shape'):
+    warp.backward_warp_rows_plain([slabs[0], torch.zeros(1, 3, 6, 3)], flow,
+                                  0, 7)
 
 
 # ---- the halos: n CPU shards against the whole frame ------------------------
@@ -269,42 +276,36 @@ def _record_sources(monkeypatch):
   calls = []
   plain = warp.backward_warp_rows_plain
 
-  def spy(image, flow, row_offset, src_row0, clamp_h):
-    calls.append((row_offset, src_row0, image.shape[1]))
-    return plain(image, flow, row_offset, src_row0, clamp_h)
+  def spy(slabs, flow, row_offset, clamp_h):
+    calls.append((row_offset, len(slabs), slabs[0].shape[1]))
+    return plain(slabs, flow, row_offset, clamp_h)
 
   monkeypatch.setattr(warp, 'backward_warp_rows_plain', spy)
   return calls
 
 
 def test_halo_predicate_takes_one_branch_on_every_shard(frame, monkeypatch):
-  # A reach of 8 px gives a 1-slab halo on 4 slabs of 8 rows. The small
-  # flow (|dy| <= 7 = k * slab - 1) takes it on every shard; the large
-  # flow, or a large flow on one shard only, the whole frame on every one
-  # (JAX: test_window_rows_halo_cond_falls_back_on_large_flow).
+  # The JAX kernel picks a halo or the whole frame by the flow's reach
+  # (test_window_rows_halo_cond_falls_back_on_large_flow); the port's
+  # row-mode warp has one branch whatever the flow: every shard reads the
+  # 4 slabs where they lie, for small, large and mixed flows alike, and
+  # nothing reads the flow on the host.
   image, flows, _ = frame
-  monkeypatch.setattr(warp, 'MOTION_REACH_PX', 8)
-  assert warp.halo_slabs(8, 4) == 1
   calls = _record_sources(monkeypatch)
   x = torch.from_numpy(image)
   mixed = flows['small'].copy()
-  mixed[:, 17, 3, 1] = -8.0  # shard 2 alone reaches past its halo
-  expected = {'small': [(d * 8, d * 8 - 8, 24) for d in range(4)],
-              'large': [(d * 8, 0, 32) for d in range(4)],
-              'mixed': [(d * 8, 0, 32) for d in range(4)]}
+  mixed[:, 17, 3, 1] = -8.0  # shard 2 alone reaches past one slab
+  expected = [(d * 8, 4, 8) for d in range(4)]
   for kind, flow in (('small', flows['small']), ('large', flows['large']),
                      ('mixed', mixed)):
     calls.clear()
     f = torch.from_numpy(flow)
-    outs = _sharded(4, H, W, lambda s, a, b: warp.backward_warp(a, b), x, f)
-    assert sorted(calls) == expected[kind], kind
+    with monkeypatch.context() as m:
+      m.setattr(torch.Tensor, 'item', _no_host_read)
+      outs = _sharded(4, H, W, lambda s, a, b: warp.backward_warp(a, b), x, f)
+    assert sorted(calls) == expected, kind
     assert torch.equal(torch.cat(outs, dim=1), warp.backward_warp(x, f))
 
 
-def test_halo_slab_count_follows_the_jax_rule():
-  # k * slab >= 192, and the whole frame where 2k >= n - 1.
-  assert warp.halo_slabs(272, 4) == 1
-  assert warp.halo_slabs(136, 4) == 0
-  assert warp.halo_slabs(544, 2) == 0
-  assert warp.halo_slabs(96, 8) == 2
-  assert warp.halo_slabs(50, 16) == 4
+def _no_host_read(*args):
+  raise AssertionError('the row-sharded warp read a tensor on the host')

@@ -7,13 +7,15 @@ Drives parallel.SpatialShardedInterpolator.call_device of
 frame_interpolation_tpu_torch (released config, bf16 policy, seeded random
 weights, the (1, 1080, 1920, 3) pair from numpy seed 0, padded to
 1088x1920) on meshes that repeat the card, [cuda:0] * n for n in 1, 2, 4,
-beside the single-device Interpolator, and prints for each:
+each eagerly (graphs=False) and as its one captured program, beside the
+single-device Interpolator, and prints for each:
   * ms per pair, the mean over `--pairs` pairs after one warm-up, from
     CUDA events around the call (the host's lag between launches counts);
   * the device's busy ms per pair and its idle share, from a
     torch.profiler trace of one pair: the union of the kernels' intervals
     over the host's wall time of the call;
-  * the exchanges a shard makes per pair (Collective.exchange calls);
+  * the exchanges a shard makes per pair (Collective.exchange calls; 0
+    for a replay, whose exchanges are the graph's stream order);
 then the same meshes with the interpreter's thread switch interval cut
 from its default to 0.1 ms (sys.setswitchinterval), which bounds how long
 a shard woken at a barrier waits for the interpreter lock. Each line
@@ -105,9 +107,10 @@ def main() -> int:
   runs = [('one device', single, None)]
   for n in (1, 2, 4):
     mesh = mesh_lib.Mesh(['cuda:0'] * n)
-    runs.append((repr(mesh),
-                 sharded.SpatialShardedInterpolator(model, options, mesh,
-                                                    align=64), n))
+    for graphs in (False, True):
+      runs.append((f'{mesh!r} {"one graph" if graphs else "eager"}',
+                   sharded.SpatialShardedInterpolator(
+                       model, options, mesh, align=64, graphs=graphs), n))
   default_switch = sys.getswitchinterval()
   for switch in (default_switch, SHORT_SWITCH_S):
     sys.setswitchinterval(switch)

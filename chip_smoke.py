@@ -158,7 +158,9 @@ world-size-1 NCCL step is captured, under deterministic mode, and must
 equal one process's captured step bit for bit. The splat's fixed-order
 route is checked at 8x256x256x67 f32 (seam and out-of-bounds flows),
 8x128x128x195 f32 and 1088x1920x67 bf16: two launches bit-equal, within
-the splat's bounds of its plain version, timed beside the atomic route.
+the splat's bounds of its plain version, timed beside the atomic route;
+and bit-equal to its ordered reference (warp.splat_fixed_order_plain) at
+four small shapes with seam and out-of-bounds flows, f32 and bf16.
 `--kernels_only` stops after the kernels' checks.
 
 Each phase prints its lines; the second-to-last line is the per-kernel JSON
@@ -717,6 +719,26 @@ def check_splat_fixed(rng, b, h, w, c, dtype, bound, flow_kind):
     torch.utils.deterministic.fill_uninitialized_memory = fill
   result['atomic_ms'] = measure.time_ms(lambda: warp.splat_kernel(g, flow))
   return result
+
+
+def check_splat_order(rng, b, h, w, c, dtype, flow_kind):
+  """The splat's fixed-order route against its ordered reference
+  (warp.splat_fixed_order_plain: each element summed from 0 in the order
+  of the source pixel's flat index, then the corner, one rounding a
+  product and one an add): bit-equal, so the order is the documented one
+  and not only the same on each run."""
+  g = torch.from_numpy((rng.rand(b, h, w, c) - 0.5).astype(np.float32)).to(
+      'cuda', dtype)
+  flow = training_flow(flow_kind, b, h, w)
+  with deterministic():
+    got = warp.splat_kernel(g, flow)
+  want = warp.splat_fixed_order_plain(g, flow)
+  torch.cuda.synchronize()
+  equal = torch.equal(got, want)
+  return {'shape': f'{b}x{h}x{w}x{c}', 'flow': flow_kind,
+          'dtype': str(dtype).split('.')[-1],
+          'max_abs_err': (got - want).abs().max().item(), 'bound': 0.0,
+          'order_bit_equal': equal, 'ok': equal}
 
 
 def _plain_warp(image, flow):
@@ -3272,7 +3294,9 @@ def main() -> int:
                                      torch.float32, bound, batch=TRAIN_BATCH,
                                      tf32=tf32))
   # Edges the main path also reaches: odd extents (the 17x30 coarsest
-  # level, 34x60 next to it), batches (patch tiling), both warp paths in f32.
+  # level, 34x60 next to it), batches (patch tiling), both warp paths in f32;
+  # the exact route splits K at 17x30 and at the train step's 8x8x8 (a
+  # second pass sums the parts).
   checks['warp'].append(check_warp(rng, 17, 30, 195, torch.float32,
                                    WARP_F32_BOUND, batch=2, timed=False))
   checks['warp'].append(check_warp(rng, 17, 30, 192, torch.float32,
@@ -3283,10 +3307,14 @@ def main() -> int:
   checks['conv3x3_wide'].append(check_conv(
       rng, 34, 60, 128, 128, True, torch.float32, CONV_F32_BOUND, batch=2,
       timed=False))
+  checks['conv3x3_wide'].append(check_conv(
+      rng, 8, 8, 512, 512, False, torch.float32, CONV_F32_BOUND,
+      batch=TRAIN_BATCH, timed=False))
   for h, w, c in ((17, 30, 64), (34, 60, 128)):
     name = 'conv3x3_c64' if c == 64 else 'conv3x3_wide'
     for dtype, bound, tf32 in ((torch.bfloat16, CONV_BF16_BOUND, False),
-                               (torch.float32, CONV_TF32_BOUND, True)):
+                               (torch.float32, CONV_TF32_BOUND, True),
+                               (torch.float32, CONV_F32_BOUND, False)):
       checks[name].append(check_conv(rng, h, w, c, c, True, dtype, bound,
                                      batch=2, timed=False, tf32=tf32))
   # The training backward's kernels: the warp's derivative planes (B4) and
@@ -3333,6 +3361,16 @@ def main() -> int:
           (8, 256, 256, 67, torch.float32, SPLAT_F32_BOUND, 'oob'),
           (8, 128, 128, 195, torch.float32, SPLAT_F32_BOUND, 'seam'),
           (1, 1088, 1920, 67, torch.bfloat16, SPLAT_BF16_BOUND, 'seam'))]
+  # Its order, bit for bit: both flows, both dtypes, a C of two channel
+  # passes, and oob flow on a whole 256x256 frame, whose edge tiles hold
+  # more entries than a block sorts in shared memory.
+  checks['splat_fixed'] += [
+      check_splat_order(rng, b, h, w, c, dtype, flow_kind)
+      for b, h, w, c, dtype, flow_kind in (
+          (2, 64, 96, 67, torch.float32, 'seam'),
+          (2, 64, 96, 67, torch.bfloat16, 'oob'),
+          (1, 128, 128, 195, torch.float32, 'seam'),
+          (1, 256, 256, 67, torch.float32, 'oob'))]
   for name, results in checks.items():
     for r in results:
       flow_kind = f' {r["flow"]} flow' if 'flow' in r else ''
@@ -3347,6 +3385,8 @@ def main() -> int:
              if 'full_err' in r else '') +
             (f' (two launches bit-equal {r["repeat_bit_equal"]}; atomic '
              f'route {r["atomic_ms"]:.3f} ms)' if 'atomic_ms' in r else '') +
+            (f' (bit-equal to the ordered reference {r["order_bit_equal"]})'
+             if 'order_bit_equal' in r else '') +
             f' (bound {r["bound"]:.1e}) {"ok" if r["ok"] else "FAILED"}' +
             (f'; kernel {r["ms"]:.3f} ms, plain {r["plain_ms"]:.3f} ms, '
              f'library {library}, bound {r["bound_ms"]:.3f} ms '

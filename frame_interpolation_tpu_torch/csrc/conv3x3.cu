@@ -55,9 +55,20 @@
 // shared memory limit raised, on its first launch there.
 //
 // Exact f32 (fi_conv3x3_f32, taken when TF32 is not allowed) runs on the
-// CUDA cores: synchronous shared-memory tiles of 128 pixels x 64 output
-// channels x 32 input channels, K innermost in both, and f32 FMAs, exact to
-// f32 rounding.
+// CUDA cores, with f32 FMAs summed over K in a fixed order (the same bits
+// on every run). FMA issue bounds it: 67 TFLOP/s, so the 136x240 512->512
+// site alone needs 2.3 ms. To stay at that bound the FMAs must never wait
+// on a load, and shared memory must feed them: this route keeps the
+// tensor-core route's producer and ring (TMA loads, SAME padding by TMA's
+// zero fill, 4 stages on mbarriers), so the next steps' tiles arrive while
+// this step's FMAs run, and swaps the wgmma consumers for FMA consumers
+// that read the swizzled tiles as they lie: 128 pixels x BN = 128 output
+// channels a block (64 where a wider grid would not fill the SMs), an
+// 8 x 8 register tile a thread, 16 conflict-free 16-byte shared loads for
+// every 256 FMAs. Where even BN = 64 leaves most SMs idle (the coarsest
+// levels of a train step), K is split into parts, each a block's K range
+// written to a workspace, and a second pass sums the parts in order and
+// runs the epilogue.
 //
 // Weights come repacked by the caller as (Cout, 3, 3, Cin) in the input
 // dtype (K-major, one packing for every route); bias is f32. Cin and Cout
@@ -342,6 +353,40 @@ struct Wgmma<float, 256> {
 #undef FI_R32_63
 #undef FI_R0_31
 
+// The producer of both ring kernels, run by one thread: step it = (tap,
+// chunk), for it in [it0, it1), loads x's box at the tap's shifted origin
+// (TMA zero-fills what lies outside the image: the SAME padding) and the
+// weights' box of that K range, into the ring's next stage once the
+// consumers have released it.
+__device__ __forceinline__ void produce(uint32_t ring, uint32_t full,
+                                       uint32_t empty, const CUtensorMap* xmap,
+                                       const CUtensorMap* wmap, int stages,
+                                       int stage_bytes, int a_bytes, int it0,
+                                       int it1, int chunks, int bk, int Cin,
+                                       int x0, int y0, int img, int n0) {
+  asm volatile("prefetch.tensormap [%0];\n" ::"l"(
+                   reinterpret_cast<uint64_t>(xmap))
+               : "memory");
+  asm volatile("prefetch.tensormap [%0];\n" ::"l"(
+                   reinterpret_cast<uint64_t>(wmap))
+               : "memory");
+  int stage = 0;
+  uint32_t phase = 0;
+  for (int it = it0; it < it1; ++it) {
+    mbar_wait(empty + 8 * stage, phase ^ 1);
+    const int tap = it / chunks, c0 = (it % chunks) * bk;
+    const uint32_t bar = full + 8 * stage;
+    const uint32_t dst = ring + stage * stage_bytes;
+    mbar_expect_tx(bar, stage_bytes);
+    tma_load_4d(dst, xmap, bar, c0, x0 + tap % 3 - 1, y0 + tap / 3 - 1, img);
+    tma_load_2d(dst + a_bytes, wmap, bar, tap * Cin + c0, n0);
+    if (++stage == stages) {
+      stage = 0;
+      phase ^= 1;
+    }
+  }
+}
+
 // Grid: x = pixel tile * n_blocks + N block (the N blocks of one pixel tile
 // run side by side, so the second reads its A tiles from L2), y = image.
 template <typename T, int BN>
@@ -381,30 +426,9 @@ __global__ void __launch_bounds__(kTcThreads, Ring<BN>::kMinBlocks)
   __syncthreads();
 
   if (warp == kProducerWarp) {
-    // Producer: one thread keeps the ring full.
     if (lane == 0) {
-      asm volatile("prefetch.tensormap [%0];\n" ::"l"(
-                       reinterpret_cast<uint64_t>(&xmap))
-                   : "memory");
-      asm volatile("prefetch.tensormap [%0];\n" ::"l"(
-                       reinterpret_cast<uint64_t>(&wmap))
-                   : "memory");
-      int stage = 0;
-      uint32_t phase = 0;
-      for (int it = 0; it < iters; ++it) {
-        mbar_wait(empty + 8 * stage, phase ^ 1);
-        const int tap = it / chunks, c0 = (it % chunks) * kBK;
-        const uint32_t bar = full + 8 * stage;
-        const uint32_t dst = ring + stage * R::kStageBytes;
-        mbar_expect_tx(bar, R::kStageBytes);
-        tma_load_4d(dst, &xmap, bar, c0, x0 + tap % 3 - 1, y0 + tap / 3 - 1,
-                    img);
-        tma_load_2d(dst + R::kABytes, &wmap, bar, tap * Cin + c0, n0);
-        if (++stage == R::kStages) {
-          stage = 0;
-          phase ^= 1;
-        }
-      }
+      produce(ring, full, empty, &xmap, &wmap, R::kStages, R::kStageBytes,
+              R::kABytes, 0, iters, chunks, kBK, Cin, x0, y0, img, n0);
     }
     return;
   }
@@ -467,6 +491,173 @@ __global__ void __launch_bounds__(kTcThreads, Ring<BN>::kMinBlocks)
                                sync);
 }
 
+// ---------------------------------------------------------------------------
+// Exact f32 route: the same TMA ring, consumed by CUDA-core FMAs (taken
+// when TF32 is not allowed).
+// ---------------------------------------------------------------------------
+
+// Plan for an N tile of BN channels: 16 pixel groups x BN/8 channel groups
+// of consumer threads, each owning an 8 x 8 register tile, plus the
+// producer warp. BN = 128: 256 consumer threads and 4 stages of 32 KB, one
+// block an SM; BN = 64: 128 consumer threads and 4 stages of 24 KB, two
+// blocks an SM.
+template <int BN>
+struct FmaRing {
+  static constexpr int kConsumerThreads = 2 * BN;
+  static constexpr int kConsumerWarps = kConsumerThreads / 32;
+  static constexpr int kThreads = kConsumerThreads + 32;
+  static constexpr int kStages = 4;
+  static constexpr int kABytes = kBM * kRowBytes;
+  static constexpr int kStageBytes = kABytes + BN * kRowBytes;
+  // f32 staging: +8 floats a row, so a warp's scalar stores of its 4 pixel
+  // groups x 8 channel groups cover the 32 banks once.
+  static constexpr int kCStride = BN + 8;
+  static constexpr int kCBytes = kBM * kCStride * 4;
+  static constexpr int kDataBytes =
+      kStages * kStageBytes > kCBytes ? kStages * kStageBytes : kCBytes;
+  static constexpr int kSmem = kDataBytes + 2 * kStages * 8 + 1024;
+  static constexpr int kMinBlocks = BN == 128 ? 1 : 2;
+};
+
+// The exact f32 consumers. Thread (pixel group pg, channel group cg) owns
+// the tile's pixels pg + 16 i (column pg, rows i = 0..7) and the channels
+// cg + BN/8 j (j = 0..7): 64 accumulators, each summed over K in order
+// (tap, then input channel) with f32 FMAs. The operands stay where TMA put
+// them: K-major rows of 128 bytes (32 channels), 16-byte chunk c of row r
+// at chunk c ^ (r % 8) (the 128-byte swizzle). A warp holds 4 pixel groups
+// x 8 channel groups; its 8 lanes of a pixel group read one 16-byte chunk
+// (a broadcast), and the rows a warp reads fall on distinct chunks, so a
+// 16-byte load costs one pass of the shared memory. Per 4 k a thread makes
+// 16 such loads for 256 FMAs.
+template <int BN>
+__global__ void __launch_bounds__(FmaRing<BN>::kThreads,
+                                  FmaRing<BN>::kMinBlocks)
+    conv3x3_fma_kernel(const __grid_constant__ CUtensorMap xmap,
+                       const __grid_constant__ CUtensorMap wmap,
+                       const float* __restrict__ bias, float* __restrict__ out,
+                       float* __restrict__ pool, float* __restrict__ part,
+                       int H, int W, int Cin, int Cout, int tiles_w,
+                       int n_blocks, float slope) {
+  using R = FmaRing<BN>;
+  constexpr int kBK = Operand<float>::kBK;
+  constexpr int kGroups = BN / 8;  // channel groups
+  extern __shared__ unsigned char smem_raw[];
+  unsigned char* smem = smem_raw + ((1024 - (smem_addr(smem_raw) & 1023)) & 1023);
+  const uint32_t ring = smem_addr(smem);
+  const uint32_t full = ring + R::kDataBytes;
+  const uint32_t empty = full + 8 * R::kStages;
+
+  const int nb = blockIdx.x % n_blocks;
+  const int tile = blockIdx.x / n_blocks;
+  const int y0 = (tile / tiles_w) * kTileRows;
+  const int x0 = (tile % tiles_w) * kTileCols;
+  const int n0 = nb * BN;
+  const int img = blockIdx.y;
+  const int chunks = Cin / kBK;
+  // Part blockIdx.z of gridDim.z sums the K steps [it0, it1).
+  const int iters = 9 * chunks, splits = gridDim.z;
+  const int it0 = (int)((int64_t)blockIdx.z * iters / splits);
+  const int it1 = (int)((int64_t)(blockIdx.z + 1) * iters / splits);
+  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
+
+  if (threadIdx.x == 0) {
+    for (int s = 0; s < R::kStages; ++s) {
+      mbar_init(full + 8 * s, 1);
+      mbar_init(empty + 8 * s, R::kConsumerWarps);  // one arrival per warp
+    }
+    asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+  }
+  __syncthreads();
+
+  if (warp == R::kConsumerWarps) {
+    if (lane == 0) {
+      produce(ring, full, empty, &xmap, &wmap, R::kStages, R::kStageBytes,
+              R::kABytes, it0, it1, chunks, kBK, Cin, x0, y0, img, n0);
+    }
+    return;
+  }
+
+  const int pg = 4 * (warp % 4) + lane / 8;
+  const int cg = lane % 8 + 8 * (warp / 4);
+  // Byte offsets inside a stage: the thread's first A row (pixel pg) and
+  // first B row (channel cg), and the swizzle of each (row % 8 is the same
+  // for all 8 rows of either: they step by 16 and by BN/8 rows).
+  const int a_row = pg * kRowBytes, b_row = R::kABytes + cg * kRowBytes;
+  const int a_swz = (pg & 7) << 4, b_swz = (cg & 7) << 4;
+  float acc[8][8];
+#pragma unroll
+  for (int i = 0; i < 8; ++i)
+#pragma unroll
+    for (int j = 0; j < 8; ++j) acc[i][j] = 0.f;
+
+  int stage = 0;
+  uint32_t phase = 0;
+  for (int it = it0; it < it1; ++it) {
+    mbar_wait(full + 8 * stage, phase);
+    const unsigned char* base = smem + stage * R::kStageBytes;
+#pragma unroll 2
+    for (int c = 0; c < kRowBytes / 16; ++c) {
+      float4 b[8];
+#pragma unroll
+      for (int j = 0; j < 8; ++j) {
+        b[j] = *reinterpret_cast<const float4*>(
+            base + b_row + j * kGroups * kRowBytes + ((c << 4) ^ b_swz));
+      }
+#pragma unroll
+      for (int i = 0; i < 8; ++i) {
+        const float4 a = *reinterpret_cast<const float4*>(
+            base + a_row + i * kTileCols * kRowBytes + ((c << 4) ^ a_swz));
+#pragma unroll
+        for (int j = 0; j < 8; ++j) {
+          acc[i][j] = fmaf(a.x, b[j].x, acc[i][j]);
+          acc[i][j] = fmaf(a.y, b[j].y, acc[i][j]);
+          acc[i][j] = fmaf(a.z, b[j].z, acc[i][j]);
+          acc[i][j] = fmaf(a.w, b[j].w, acc[i][j]);
+        }
+      }
+    }
+    // The warp has read the stage: back to the producer.
+    __syncwarp();
+    if (lane == 0) mbar_arrive(empty + 8 * stage);
+    if (++stage == R::kStages) {
+      stage = 0;
+      phase ^= 1;
+    }
+  }
+
+  if (splits > 1) {
+    // A part of K: its f32 sums to the part's plane, (N, H, W, Cout), for
+    // conv3x3_split_finish_kernel.
+    float* plane = part + (int64_t)(blockIdx.z * gridDim.y + img) * H * W * Cout;
+#pragma unroll
+    for (int i = 0; i < 8; ++i) {
+      const int yy = y0 + i, xx = x0 + pg;
+      if (yy >= H || xx >= W) continue;
+      float* row = plane + ((int64_t)yy * W + xx) * Cout + n0 + cg;
+#pragma unroll
+      for (int j = 0; j < 8; ++j) row[j * kGroups] = acc[i][j];
+    }
+    return;
+  }
+
+  // Every load has landed and been read; the ring now holds the f32 tile.
+  auto sync = [] {
+    asm volatile("bar.sync 1, %0;\n" ::"n"(R::kConsumerThreads) : "memory");
+  };
+  sync();
+  float* Cs = reinterpret_cast<float*>(smem);
+#pragma unroll
+  for (int i = 0; i < 8; ++i)
+#pragma unroll
+    for (int j = 0; j < 8; ++j) {
+      Cs[(pg + i * kTileCols) * R::kCStride + cg + j * kGroups] = acc[i][j];
+    }
+  sync();
+  epilogue<float, BN, R::kCStride>(Cs, bias, out, pool, H, W, Cout, y0, x0,
+                                   n0, img, slope, threadIdx.x,
+                                   R::kConsumerThreads, sync);
+}
+
 typedef CUresult (*EncodeTiled)(CUtensorMap*, CUtensorMapDataType, cuuint32_t,
                                 void*, const cuuint64_t*, const cuuint64_t*,
                                 const cuuint32_t*, const cuuint32_t*,
@@ -524,12 +715,16 @@ cudaError_t sm_count(int device, int* sms) {
   return err;
 }
 
-template <typename T, int BN>
-int launch_wgmma(const void* x, const void* w, const void* bias, void* out,
-                 void* pool, int N, int H, int W, int Cin, int Cout,
-                 float slope, int device, cudaStream_t stream) {
-  using R = Ring<BN>;
+// Launches one ring kernel: the wgmma kernel (kFma false) or the exact
+// f32 FMA kernel, over the same tensor maps and grid.
+template <typename T, int BN, bool kFma>
+int launch_ring(const void* x, const void* w, const void* bias, void* out,
+                void* pool, void* part, int splits, int N, int H, int W,
+                int Cin, int Cout, float slope, int device,
+                cudaStream_t stream) {
   constexpr int kBK = Operand<T>::kBK;
+  constexpr int kSmem = kFma ? FmaRing<BN>::kSmem : Ring<BN>::kSmem;
+  constexpr int kThreads = kFma ? FmaRing<BN>::kThreads : kTcThreads;
   const cuuint64_t e = sizeof(T);
   CUtensorMap xmap, wmap;
   const cuuint64_t xdims[4] = {(cuuint64_t)Cin, (cuuint64_t)W, (cuuint64_t)H,
@@ -544,7 +739,12 @@ int launch_wgmma(const void* x, const void* w, const void* bias, void* out,
       !encode<T>(&wmap, w, 2, wdims, wstrides, wbox)) {
     return (int)cudaErrorInvalidValue;
   }
-  auto kernel = conv3x3_wgmma_kernel<T, BN>;
+  const void* kernel;
+  if constexpr (kFma) {
+    kernel = reinterpret_cast<const void*>(conv3x3_fma_kernel<BN>);
+  } else {
+    kernel = reinterpret_cast<const void*>(conv3x3_wgmma_kernel<T, BN>);
+  }
   // Raised once per device for this instance (each holds its own flags).
   // Two threads that launch at once may both raise it: the same value,
   // set twice, and the flag is atomic.
@@ -552,38 +752,55 @@ int launch_wgmma(const void* x, const void* w, const void* bias, void* out,
   const bool kept = device >= 0 && device < kMaxDevices;
   if (!kept || !smem_raised[device].load(std::memory_order_relaxed)) {
     cudaError_t err = cudaFuncSetAttribute(
-        reinterpret_cast<const void*>(kernel),
-        cudaFuncAttributeMaxDynamicSharedMemorySize, R::kSmem);
+        kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, kSmem);
     if (err != cudaSuccess) return (int)err;
     if (kept) smem_raised[device].store(true, std::memory_order_relaxed);
   }
   const int tiles_w = (W + kTileCols - 1) / kTileCols;
   const int tiles_h = (H + kTileRows - 1) / kTileRows;
   const int n_blocks = Cout / BN;
-  const dim3 grid(tiles_w * tiles_h * n_blocks, N);
-  kernel<<<grid, kTcThreads, R::kSmem, stream>>>(
-      xmap, wmap, static_cast<const float*>(bias), static_cast<T*>(out),
-      static_cast<T*>(pool), H, W, Cin, Cout, tiles_w, n_blocks, slope);
+  const dim3 grid(tiles_w * tiles_h * n_blocks, N, splits);
+  if constexpr (kFma) {
+    conv3x3_fma_kernel<BN><<<grid, kThreads, kSmem, stream>>>(
+        xmap, wmap, static_cast<const float*>(bias), static_cast<float*>(out),
+        static_cast<float*>(pool), static_cast<float*>(part), H, W, Cin, Cout,
+        tiles_w, n_blocks, slope);
+  } else {
+    conv3x3_wgmma_kernel<T, BN><<<grid, kThreads, kSmem, stream>>>(
+        xmap, wmap, static_cast<const float*>(bias), static_cast<T*>(out),
+        static_cast<T*>(pool), H, W, Cin, Cout, tiles_w, n_blocks, slope);
+  }
   return (int)cudaGetLastError();
+}
+
+// Checks the arguments every route takes and reads the device's SM count;
+// returns the number of pixel tiles through `pixel_tiles`.
+int prepare(int N, int H, int W, int Cin, int Cout, int* device, int* sms,
+            int64_t* pixel_tiles) {
+  if (N < 1 || H < 1 || W < 1 || Cin < 64 || Cout < 64 || Cin % 64 != 0 ||
+      Cout % 64 != 0 || N > 65535) {
+    return (int)cudaErrorInvalidValue;
+  }
+  if (encode_tiled() == nullptr) return (int)cudaErrorSymbolNotFound;
+  *pixel_tiles = (int64_t)((W + kTileCols - 1) / kTileCols) *
+                 ((H + kTileRows - 1) / kTileRows);
+  if (*pixel_tiles * (Cout / 64) > 0x7FFFFFFF) {
+    return (int)cudaErrorInvalidValue;
+  }
+  cudaError_t err = cudaGetDevice(device);
+  if (err == cudaSuccess) err = sm_count(*device, sms);
+  return (int)err;
 }
 
 template <typename T>
 int launch_tensor_cores(const void* x, const void* w, const void* bias,
                         void* out, void* pool, int N, int H, int W, int Cin,
                         int Cout, float slope, void* stream) {
-  if (N < 1 || H < 1 || W < 1 || Cin < 64 || Cout < 64 || Cin % 64 != 0 ||
-      Cout % 64 != 0 || N > 65535) {
-    return (int)cudaErrorInvalidValue;
-  }
-  if (encode_tiled() == nullptr) return (int)cudaErrorSymbolNotFound;
-  const int64_t pixel_tiles = (int64_t)((W + kTileCols - 1) / kTileCols) *
-                              ((H + kTileRows - 1) / kTileRows);
-  if (pixel_tiles * (Cout / 64) > 0x7FFFFFFF) return (int)cudaErrorInvalidValue;
-  cudaStream_t s = static_cast<cudaStream_t>(stream);
   int device = 0, sms = 0;
-  cudaError_t err = cudaGetDevice(&device);
-  if (err == cudaSuccess) err = sm_count(device, &sms);
-  if (err != cudaSuccess) return (int)err;
+  int64_t pixel_tiles = 0;
+  const int err = prepare(N, H, W, Cin, Cout, &device, &sms, &pixel_tiles);
+  if (err != 0) return err;
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
   // The widest N tile that divides Cout (256, 128, 64): each A tile then
   // feeds the most output channels. A grid that would fill under 3/4 of
   // the card's block slots (the coarse pyramid levels: a few pixel tiles
@@ -593,140 +810,133 @@ int launch_tensor_cores(const void* x, const void* w, const void* bias,
     return 4 * pixel_tiles * N * (Cout / bn) >= 3 * (int64_t)sms * per_sm;
   };
   if (Cout % 256 == 0 && fills(256, Ring<256>::kMinBlocks)) {
-    return launch_wgmma<T, 256>(x, w, bias, out, pool, N, H, W, Cin, Cout,
-                                slope, device, s);
+    return launch_ring<T, 256, false>(x, w, bias, out, pool, nullptr, 1, N,
+                                      H, W, Cin, Cout, slope, device, s);
   }
   if (Cout % 128 == 0 && fills(128, Ring<128>::kMinBlocks)) {
-    return launch_wgmma<T, 128>(x, w, bias, out, pool, N, H, W, Cin, Cout,
-                                slope, device, s);
+    return launch_ring<T, 128, false>(x, w, bias, out, pool, nullptr, 1, N,
+                                      H, W, Cin, Cout, slope, device, s);
   }
-  return launch_wgmma<T, 64>(x, w, bias, out, pool, N, H, W, Cin, Cout, slope,
-                             device, s);
+  return launch_ring<T, 64, false>(x, w, bias, out, pool, nullptr, 1, N, H,
+                                   W, Cin, Cout, slope, device, s);
 }
 
-// ---------------------------------------------------------------------------
-// Exact f32 route: CUDA-core FMAs (taken when TF32 is not allowed).
-// ---------------------------------------------------------------------------
+// The exact route's N tile: 128 (one block an SM) where its grid fills 3/4
+// of the SMs, else 64 (two an SM), which doubles a coarse level's blocks.
+int fma_bn(int64_t pixel_tiles, int N, int Cout, int sms) {
+  return Cout % 128 == 0 && 4 * pixel_tiles * N * (Cout / 128) >= 3 * sms
+             ? 128
+             : 64;
+}
 
-constexpr int kFmaBN = 64;   // output channels per block
-constexpr int kFmaBK = 32;   // input channels per K step
-constexpr int kFmaThreads = 256;
-// Both tiles keep K innermost, as the packed weights do: rows of kFmaBK
-// floats + 16 bytes, so a quarter-warp's 16-byte row loads and stores fall
-// on distinct banks.
-constexpr int kFmaStride = kFmaBK + 4;
-constexpr int kFmaCStride = kFmaBN + 4;
-constexpr int kFmaABytes = kBM * kFmaStride * 4;
-constexpr int kFmaBBytes = kFmaBN * kFmaStride * 4;
-constexpr int kFmaCBytes = kBM * kFmaCStride * 4;
-constexpr int kFmaSmem = kFmaABytes + kFmaBBytes > kFmaCBytes
-                             ? kFmaABytes + kFmaBBytes
-                             : kFmaCBytes;
+// The parts the exact route splits K into: 1 where its blocks fill at
+// least half the SMs; else the count (at most kMaxSplits, at most one a K
+// step) that minimises the waves of blocks times the K steps a block
+// takes. A coarse level (8x8x8 and smaller in a train step) otherwise
+// leaves most SMs idle through a K loop of up to 144 steps; at 128 blocks
+// a split measured slower than none (the parts' writes and the second
+// pass). The count is chosen for a batch of kSplitBatch whatever the
+// batch is, so that a sample's sums do not depend on the batch it is in:
+// data-parallel ranks, each with a part of the batch, then compute one
+// process's bits.
+constexpr int kMaxSplits = 32;
+constexpr int kSplitBatch = 8;
 
-// Each thread owns 8 pixels (tm * 8 ...) x 4 channels (tn + 16 j), in full
-// f32 FMAs, summed over K in order. The channel stride of 16 puts the B
-// rows that a quarter-warp reads on distinct banks.
-__global__ void __launch_bounds__(kFmaThreads)
-    conv3x3_fma_kernel(const float* __restrict__ x, const float* __restrict__ w,
-                       const float* __restrict__ bias, float* __restrict__ out,
-                       float* __restrict__ pool, int H, int W, int Cin,
-                       int Cout, int tiles_w, float slope) {
-  __shared__ __align__(128) unsigned char smem[kFmaSmem];
-  float* As = reinterpret_cast<float*>(smem);
-  float* Bs = reinterpret_cast<float*>(smem + kFmaABytes);
-  float* Cs = reinterpret_cast<float*>(smem);  // reused after the K loop
-
-  const int tid = threadIdx.x;
-  const int y0 = (blockIdx.x / tiles_w) * kTileRows;
-  const int x0 = (blockIdx.x % tiles_w) * kTileCols;
-  const int n0 = blockIdx.y * kFmaBN;
-  const int64_t img = blockIdx.z;
-  const float* xb = x + img * H * (int64_t)W * Cin;
-  const int tn = tid % 16, tm = tid / 16;
-  constexpr int kParts = kFmaBK / 4;  // 16-byte parts of a K row
-
-  float acc[8][4];
-#pragma unroll
-  for (int i = 0; i < 8; ++i)
-#pragma unroll
-    for (int j = 0; j < 4; ++j) acc[i][j] = 0.f;
-
-  for (int tap = 0; tap < 9; ++tap) {
-    const int dy = tap / 3 - 1, dx = tap % 3 - 1;
-    for (int c0 = 0; c0 < Cin; c0 += kFmaBK) {
-      // A: kBM shifted input pixels x kFmaBK channels; zeros off the image.
-      for (int i = tid; i < kBM * kParts; i += kFmaThreads) {
-        const int m = i / kParts, part = i % kParts;
-        const int yy = y0 + m / kTileCols + dy;
-        const int xx = x0 + m % kTileCols + dx;
-        float4 v = make_float4(0.f, 0.f, 0.f, 0.f);
-        if (yy >= 0 && yy < H && xx >= 0 && xx < W) {
-          v = *reinterpret_cast<const float4*>(
-              xb + ((int64_t)yy * W + xx) * Cin + c0 + part * 4);
-        }
-        *reinterpret_cast<float4*>(As + m * kFmaStride + part * 4) = v;
-      }
-      // B: kFmaBN output channels x kFmaBK input channels of this tap, each
-      // row 128 contiguous bytes of the K-major (Cout, 3, 3, Cin) weights.
-      for (int i = tid; i < kFmaBN * kParts; i += kFmaThreads) {
-        const int n = i / kParts, part = i % kParts;
-        *reinterpret_cast<float4*>(Bs + n * kFmaStride + part * 4) =
-            *reinterpret_cast<const float4*>(
-                w + ((int64_t)(n0 + n) * 9 + tap) * Cin + c0 + part * 4);
-      }
-      __syncthreads();
-#pragma unroll 2
-      for (int k = 0; k < kFmaBK; k += 4) {
-        float4 b[4];
-#pragma unroll
-        for (int j = 0; j < 4; ++j) {
-          b[j] = *reinterpret_cast<const float4*>(
-              Bs + (tn + 16 * j) * kFmaStride + k);
-        }
-#pragma unroll
-        for (int i = 0; i < 8; ++i) {
-          const float4 a = *reinterpret_cast<const float4*>(
-              As + (tm * 8 + i) * kFmaStride + k);
-#pragma unroll
-          for (int j = 0; j < 4; ++j) {
-            acc[i][j] += a.x * b[j].x;
-            acc[i][j] += a.y * b[j].y;
-            acc[i][j] += a.z * b[j].z;
-            acc[i][j] += a.w * b[j].w;
-          }
-        }
-      }
-      __syncthreads();
+int fma_splits(int64_t pixel_tiles, int Cin, int Cout, int sms) {
+  const int bn = fma_bn(pixel_tiles, kSplitBatch, Cout, sms);
+  const int64_t blocks = pixel_tiles * kSplitBatch * (Cout / bn);
+  if (2 * blocks > sms) return 1;
+  const int64_t slots = (int64_t)sms * (bn == 128 ? FmaRing<128>::kMinBlocks
+                                                  : FmaRing<64>::kMinBlocks);
+  const int iters = 9 * (Cin / Operand<float>::kBK);
+  int best = 1;
+  int64_t best_cost = iters;  // one wave of all K
+  for (int split = 2; split <= kMaxSplits && split <= iters; ++split) {
+    const int64_t cost = (blocks * split + slots - 1) / slots *
+                         ((iters + split - 1) / split);
+    if (cost < best_cost) {
+      best = split;
+      best_cost = cost;
     }
   }
+  return best;
+}
 
+constexpr int kFinishThreads = 256;
+
+// The second pass of a split exact conv: each output element the sum of
+// its parts in order (part 0 first), then bias, activation, y and the 2x2
+// pool as the epilogue computes them. A thread takes 4 channels of a 2x2
+// quad of pixels.
+__global__ void __launch_bounds__(kFinishThreads)
+    conv3x3_split_finish_kernel(const float* __restrict__ part, int splits,
+                                const float* __restrict__ bias,
+                                float* __restrict__ out,
+                                float* __restrict__ pool, int N, int H, int W,
+                                int Cout, float slope) {
+  const int vecs = Cout / 4;
+  const int qh = (H + 1) / 2, qw = (W + 1) / 2;
+  const int64_t i = (int64_t)blockIdx.x * kFinishThreads + threadIdx.x;
+  if (i >= (int64_t)N * qh * qw * vecs) return;
+  const int n = (int)(i % vecs) * 4;
+  const int64_t quad = i / vecs;
+  const int qx = (int)(quad % qw), qy = (int)(quad / qw % qh);
+  const int64_t img = quad / qw / qh;
+  const int64_t plane = (int64_t)N * H * W * Cout;
+  const float4 b = *reinterpret_cast<const float4*>(bias + n);
+  float4 v[4];
 #pragma unroll
-  for (int i = 0; i < 8; ++i)
-#pragma unroll
-    for (int j = 0; j < 4; ++j) {
-      Cs[(tm * 8 + i) * kFmaCStride + tn + 16 * j] = acc[i][j];
+  for (int k = 0; k < 4; ++k) {
+    const int y = 2 * qy + k / 2, x = 2 * qx + k % 2;
+    if (y >= H || x >= W) continue;
+    const int64_t at = ((img * H + y) * W + x) * Cout + n;
+    float4 sum = *reinterpret_cast<const float4*>(part + at);
+    for (int s = 1; s < splits; ++s) {
+      const float4 p = *reinterpret_cast<const float4*>(part + s * plane + at);
+      sum.x += p.x;
+      sum.y += p.y;
+      sum.z += p.z;
+      sum.w += p.w;
     }
-  __syncthreads();
-  epilogue<float, kFmaBN, kFmaCStride>(Cs, bias, out, pool, H, W, Cout, y0,
-                                       x0, n0, img, slope, tid, kFmaThreads,
-                                       [] { __syncthreads(); });
+    v[k] = make_float4(leaky(sum.x + b.x, slope), leaky(sum.y + b.y, slope),
+                       leaky(sum.z + b.z, slope), leaky(sum.w + b.w, slope));
+    store4(out + at, v[k]);
+  }
+  if (pool == nullptr || qy >= H / 2 || qx >= W / 2) return;
+  store4(pool + ((img * (H / 2) + qy) * (W / 2) + qx) * Cout + n,
+         make_float4(0.25f * ((v[0].x + v[1].x) + (v[2].x + v[3].x)),
+                     0.25f * ((v[0].y + v[1].y) + (v[2].y + v[3].y)),
+                     0.25f * ((v[0].z + v[1].z) + (v[2].z + v[3].z)),
+                     0.25f * ((v[0].w + v[1].w) + (v[2].w + v[3].w))));
 }
 
 int launch_fma(const void* x, const void* w, const void* bias, void* out,
-               void* pool, int N, int H, int W, int Cin, int Cout, float slope,
-               void* stream) {
-  if (N < 1 || H < 1 || W < 1 || Cin % kFmaBK != 0 || Cout % kFmaBN != 0 ||
-      Cin < kFmaBK || Cout < kFmaBN || N > 65535) {
+               void* pool, void* part, int splits, int N, int H, int W,
+               int Cin, int Cout, float slope, void* stream) {
+  int device = 0, sms = 0;
+  int64_t pixel_tiles = 0;
+  const int err = prepare(N, H, W, Cin, Cout, &device, &sms, &pixel_tiles);
+  if (err != 0) return err;
+  if (splits < 1 || splits > 9 * (Cin / Operand<float>::kBK) ||
+      (splits > 1 && part == nullptr)) {
     return (int)cudaErrorInvalidValue;
   }
-  const int tiles_w = (W + kTileCols - 1) / kTileCols;
-  const int tiles_h = (H + kTileRows - 1) / kTileRows;
-  const dim3 grid(tiles_w * tiles_h, Cout / kFmaBN, N);
-  conv3x3_fma_kernel<<<grid, kFmaThreads, 0,
-                       static_cast<cudaStream_t>(stream)>>>(
-      static_cast<const float*>(x), static_cast<const float*>(w),
-      static_cast<const float*>(bias), static_cast<float*>(out),
-      static_cast<float*>(pool), H, W, Cin, Cout, tiles_w, slope);
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  const int rc =
+      fma_bn(pixel_tiles, N, Cout, sms) == 128
+          ? launch_ring<float, 128, true>(x, w, bias, out, pool, part, splits,
+                                          N, H, W, Cin, Cout, slope, device, s)
+          : launch_ring<float, 64, true>(x, w, bias, out, pool, part, splits,
+                                         N, H, W, Cin, Cout, slope, device, s);
+  if (rc != 0 || splits == 1) return rc;
+  const int64_t threads =
+      (int64_t)N * ((H + 1) / 2) * ((W + 1) / 2) * (Cout / 4);
+  conv3x3_split_finish_kernel<<<(unsigned)((threads + kFinishThreads - 1) /
+                                           kFinishThreads),
+                                kFinishThreads, 0, s>>>(
+      static_cast<const float*>(part), splits, static_cast<const float*>(bias),
+      static_cast<float*>(out), static_cast<float*>(pool), N, H, W, Cout,
+      slope);
   return (int)cudaGetLastError();
 }
 
@@ -748,9 +958,23 @@ extern "C" int fi_conv3x3_tf32(const void* x, const void* w, const void* bias,
                                     slope, stream);
 }
 
-// f32 in and out, exact f32 FMAs.
+// The number of parts fi_conv3x3_f32 splits K into at this shape on the
+// current device (1: none; 1 also when the arguments or the device are
+// refused, which fi_conv3x3_f32 then reports).
+extern "C" int fi_conv3x3_f32_splits(int N, int H, int W, int Cin, int Cout) {
+  int device = 0, sms = 0;
+  int64_t pixel_tiles = 0;
+  if (prepare(N, H, W, Cin, Cout, &device, &sms, &pixel_tiles) != 0) return 1;
+  return fma_splits(pixel_tiles, Cin, Cout, sms);
+}
+
+// f32 in and out, exact f32 FMAs. splits: as fi_conv3x3_f32_splits gives
+// it; above 1, part holds splits * N * H * W * Cout floats (its contents
+// free), else it may be NULL.
 extern "C" int fi_conv3x3_f32(const void* x, const void* w, const void* bias,
-                              void* out, void* pool, int N, int H, int W,
-                              int Cin, int Cout, float slope, void* stream) {
-  return launch_fma(x, w, bias, out, pool, N, H, W, Cin, Cout, slope, stream);
+                              void* out, void* pool, void* part, int splits,
+                              int N, int H, int W, int Cin, int Cout,
+                              float slope, void* stream) {
+  return launch_fma(x, w, bias, out, pool, part, splits, N, H, W, Cin, Cout,
+                    slope, stream);
 }

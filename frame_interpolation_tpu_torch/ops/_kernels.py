@@ -205,12 +205,20 @@ def _declare(lib: ctypes.CDLL) -> None:
   # B, H, W -> the fixed-order splat's workspace in bytes
   lib.fi_splat_fixed_workspace_bytes.argtypes = [i32, i32, i32]
   lib.fi_splat_fixed_workspace_bytes.restype = ctypes.c_longlong
-  for name in ('fi_conv3x3_bf16', 'fi_conv3x3_tf32', 'fi_conv3x3_f32'):
+  for name in ('fi_conv3x3_bf16', 'fi_conv3x3_tf32'):
     fn = getattr(lib, name)
     # x, w, bias, out, pool (or NULL), N, H, W, Cin, Cout, slope, stream
     fn.argtypes = [ptr, ptr, ptr, ptr, ptr, i32, i32, i32, i32, i32,
                    ctypes.c_float, ptr]
     fn.restype = i32
+  # N, H, W, Cin, Cout -> the parts fi_conv3x3_f32 splits K into (1: none)
+  lib.fi_conv3x3_f32_splits.argtypes = [i32, i32, i32, i32, i32]
+  lib.fi_conv3x3_f32_splits.restype = i32
+  # x, w, bias, out, pool (or NULL), part (splits * N*H*W*Cout f32, or NULL
+  # for 1 split), splits, N, H, W, Cin, Cout, slope, stream
+  lib.fi_conv3x3_f32.argtypes = [ptr, ptr, ptr, ptr, ptr, ptr, i32, i32, i32,
+                                 i32, i32, i32, ctypes.c_float, ptr]
+  lib.fi_conv3x3_f32.restype = i32
   lib.fi_error_string.argtypes = [i32]
   lib.fi_error_string.restype = ctypes.c_char_p
 

@@ -131,7 +131,8 @@ def conv3x3_leaky_kernel(x: torch.Tensor, weight: torch.Tensor,
   Cin and Cout must be multiples of 64. The OIHW weights are repacked
   K-major to (Cout, 3, 3, Cin) in x's dtype, once per weight (the copy is
   cached until the weight changes); an f32 bias is passed as it is. The
-  route follows `kernel_symbol`.
+  route follows `kernel_symbol`; the exact f32 route takes a workspace of
+  partial sums where the library splits K (`fi_conv3x3_f32_splits`).
   """
   _check(x, weight, bias)
   symbol = kernel_symbol(x.dtype, torch.backends.cudnn.allow_tf32)
@@ -153,11 +154,19 @@ def conv3x3_leaky_kernel(x: torch.Tensor, weight: torch.Tensor,
                         device=x.device) if pool else None)
   if features.numel() == 0:
     return features, pooled
-  fn = getattr(_kernels.library(), symbol)
+  lib = _kernels.library()
   stream = _kernels.stream_of(x)
-  code = fn(x.data_ptr(), packed.data_ptr(), bias32.data_ptr(),
-            features.data_ptr(), pooled.data_ptr() if pool else None,
-            n, h, w, cin, cout, negative_slope, stream)
+  args = (x.data_ptr(), packed.data_ptr(), bias32.data_ptr(),
+          features.data_ptr(), pooled.data_ptr() if pool else None)
+  if symbol == 'fi_conv3x3_f32':
+    # The exact route splits K at the coarse levels into parts summed by a
+    # second pass, in a workspace of one f32 output a part.
+    splits = lib.fi_conv3x3_f32_splits(n, h, w, cin, cout)
+    part = (torch.empty(splits * features.numel(), dtype=torch.float32,
+                        device=x.device) if splits > 1 else None)
+    args += (part.data_ptr() if part is not None else None, splits)
+  code = getattr(lib, symbol)(*args, n, h, w, cin, cout, negative_slope,
+                              stream)
   _kernels.check('conv3x3_leaky', code)
   wide = not (cin == _CHANNEL_MULTIPLE and cout == _CHANNEL_MULTIPLE)
   _kernels.count_launch('conv3x3_wide' if wide else 'conv3x3_c64', stream)

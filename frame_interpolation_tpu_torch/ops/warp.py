@@ -222,6 +222,48 @@ def splat_plain(g: torch.Tensor, flow: torch.Tensor) -> torch.Tensor:
   return acc.reshape(b, h, w, c)
 
 
+def splat_fixed_order_plain(g: torch.Tensor,
+                            flow: torch.Tensor) -> torch.Tensor:
+  """The fixed-order splat's sums as plain tensor ops (any device).
+
+  Each accumulator element is the f32 sum, from 0, of its products
+  w * g in the order of the source pixel's flat index, then the corner
+  (00, 01, 10, 11), with one rounding a product and one an add: what
+  csrc/splat.cu's fixed-order route computes, bit for bit. The weights are
+  `splat_plain`'s (the same f32 operations as the kernel's); a weight of
+  exactly 0 adds nothing and takes no entry. Returns (B, H, W, C) f32.
+  """
+  top, ay, ax, _, _ = _taps(g, flow)
+  b, h, w, c = g.shape
+  n = b * h * w
+  dest = torch.stack([top, top + 1, top + w, top + w + 1], dim=1).reshape(-1)
+  weights = torch.cat([(1.0 - ay) * (1.0 - ax), (1.0 - ay) * ax,
+                       ay * (1.0 - ax), ay * ax], dim=1).reshape(-1)
+  source = torch.arange(n, device=g.device).repeat_interleave(4)
+  keep = weights != 0
+  dest, weights, source = dest[keep], weights[keep], source[keep]
+  # The entries are in (pixel, corner) order: a stable sort by destination
+  # keeps that order inside each destination's run.
+  dest, order = torch.sort(dest, stable=True)
+  weights, source = weights[order], source[order]
+  counts = torch.bincount(dest, minlength=n)
+  rank = torch.arange(dest.numel(), device=g.device) - (
+      torch.cumsum(counts, 0) - counts)[dest]
+  # Step r adds every destination's r-th product: one add an element.
+  rank, order = torch.sort(rank, stable=True)
+  dest, weights, source = dest[order], weights[order], source[order]
+  steps = torch.bincount(rank).tolist() if rank.numel() else []
+  gf = g.reshape(n, c).float()
+  acc = torch.zeros((n, c), dtype=torch.float32, device=g.device)
+  first = 0
+  for size in steps:
+    d = dest[first:first + size]
+    acc[d] = acc[d] + (weights[first:first + size, None] *
+                       gf[source[first:first + size]])
+    first += size
+  return acc.reshape(b, h, w, c)
+
+
 def flow_cotangent_from_planes(g: torch.Tensor, du: torch.Tensor,
                                dv: torch.Tensor,
                                flow_dtype: torch.dtype) -> torch.Tensor:
@@ -349,12 +391,14 @@ def splat_kernel(g: torch.Tensor, flow: torch.Tensor) -> torch.Tensor:
 
   Returns the (B, H, W, C) f32 accumulator. Two routes: the atomic one
   (its f32 sums run in an order that changes from run to run) and the
-  fixed-order one (each element sums its products in the order of the
-  source pixel's flat index, then the corner: the same bits on every
-  run), taken exactly when `torch.are_deterministic_algorithms_enabled()`,
-  PyTorch's own switch for reproducible results. The fixed order costs
-  time (PERF.md), so it is not the default. Both count as a launch of
-  'splat'.
+  fixed-order one, taken exactly when
+  `torch.are_deterministic_algorithms_enabled()`, PyTorch's own switch for
+  reproducible results. The fixed order: each element is the f32 sum, from
+  0, of its products in the order of the source pixel's flat index, then
+  the corner (00, 01, 10, 11), one rounding a product and one an add; the
+  same bits on every run, equal to `splat_fixed_order_plain`. The fixed
+  route costs time (PERF.md), so it is not the default. Both count as a
+  launch of 'splat'.
   """
   _check_kernel_args('splat', g, flow)
   b, h, w, c = g.shape

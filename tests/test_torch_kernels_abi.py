@@ -12,7 +12,7 @@ import re
 import pytest
 import torch
 
-from frame_interpolation_tpu_torch.ops import _kernels, warp
+from frame_interpolation_tpu_torch.ops import _kernels, conv_stack, warp
 
 _C_TYPES = {'const void*': ctypes.c_void_p, 'void*': ctypes.c_void_p,
             'const void* const*': ctypes.POINTER(ctypes.c_void_p),
@@ -38,12 +38,16 @@ class _Entry:
       elif kind is ctypes.POINTER(ctypes.c_void_p):
         assert isinstance(arg, ctypes.Array) and (
             arg._type_ is ctypes.c_void_p), (self.name, args)
+      elif kind is ctypes.c_void_p and arg is None:
+        pass  # NULL
       else:
         assert isinstance(arg, int), (self.name, args)
         if kind is ctypes.c_int:
           assert -2**31 <= arg < 2**31, (self.name, args)
     self.calls.append(args)
-    return _WORKSPACE_BYTES if self.restype is ctypes.c_longlong else 0
+    if self.restype is ctypes.c_longlong:
+      return _WORKSPACE_BYTES
+    return getattr(self, 'result', 0)
 
 
 class _Library:
@@ -180,3 +184,36 @@ def test_splat_takes_the_fixed_order_entry_point_under_deterministic_mode(
     assert args[:3] == (g.data_ptr(), flow.data_ptr(), acc.data_ptr())
     assert args[4:] == (2, 5, 7, 67, 0)
   assert _kernels.LAUNCHES == {'splat': 1}
+
+
+@pytest.mark.parametrize('splits', [1, 3])
+@pytest.mark.parametrize('dtype,tf32,symbol', [
+    (torch.bfloat16, False, 'fi_conv3x3_bf16'),
+    (torch.float32, True, 'fi_conv3x3_tf32'),
+    (torch.float32, False, 'fi_conv3x3_f32')])
+def test_conv_wrapper_passes_what_the_entry_points_declare(
+    monkeypatch, dtype, tf32, symbol, splits):
+  # x, the packed weights, bias, y and the pool; the exact route also a
+  # workspace of `splits` f32 outputs (none for 1 split) and the split
+  # count it asked the library for; then N, H, W, Cin, Cout, the slope and
+  # the stream.
+  library = _stub_library(monkeypatch, ['conv3x3_c64', 'conv3x3_wide'])
+  library.fi_conv3x3_f32_splits.result = splits
+  monkeypatch.setattr(torch.backends.cudnn, 'allow_tf32', tf32)
+  x = torch.zeros(2, 6, 10, 64, dtype=dtype)
+  weight, bias = torch.zeros(128, 64, 3, 3), torch.zeros(128)
+  features, pooled = conv_stack.conv3x3_leaky_kernel(x, weight, bias, True)
+  assert features.shape == (2, 6, 10, 128) and pooled.shape == (2, 3, 5, 128)
+  calls = dict(_calls(library))
+  exact = symbol == 'fi_conv3x3_f32'
+  assert sorted(calls) == sorted([symbol] + (['fi_conv3x3_f32_splits']
+                                             if exact else []))
+  args = calls[symbol]
+  assert args[0] == x.data_ptr() and args[3:5] == (features.data_ptr(),
+                                                   pooled.data_ptr())
+  if exact:
+    assert calls['fi_conv3x3_f32_splits'] == (2, 6, 10, 64, 128)
+    assert (args[5] is None) == (splits == 1) and args[6] == splits
+    args = args[:5] + args[7:]
+  assert args[5:10] == (2, 6, 10, 64, 128)
+  assert _kernels.LAUNCHES == {'conv3x3_c64': 0, 'conv3x3_wide': 1}

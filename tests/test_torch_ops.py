@@ -323,7 +323,9 @@ def test_conv_route_follows_the_cudnn_tf32_flag(monkeypatch):
     monkeypatch.setattr(torch.backends.cudnn, 'allow_tf32', allowed)
     conv_stack.conv3x3_leaky_kernel(x, weight, bias)
     conv_stack.conv3x3_leaky_kernel(x.to(torch.bfloat16), weight, bias)
-  assert called == ['fi_conv3x3_tf32', 'fi_conv3x3_bf16', 'fi_conv3x3_f32',
+  # The exact route first asks how many parts it splits K into.
+  assert called == ['fi_conv3x3_tf32', 'fi_conv3x3_bf16',
+                    'fi_conv3x3_f32_splits', 'fi_conv3x3_f32',
                     'fi_conv3x3_bf16']
 
 

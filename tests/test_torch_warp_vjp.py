@@ -176,6 +176,66 @@ def test_splat_plain_matches_resident_splat_interpret():
   assert _max_abs(got.numpy(), want) <= 1e-5
 
 
+def _splat_order_case(shape, kind, seed=3):
+  """g and a flow for the fixed-order splat: seam (smooth flow with a
+  motion seam down the middle) or oob (most taps clamp to the edges)."""
+  b, h, w, c = shape
+  rng = np.random.RandomState(seed)
+  g = (rng.rand(b, h, w, c) - 0.5).astype(np.float32)
+  if kind == 'seam':
+    yy, xx = np.meshgrid(np.arange(h), np.arange(w), indexing='ij')
+    flow = np.stack([3 * np.sin(yy / 5.0) * np.cos(xx / 7.0),
+                     3 * np.cos(yy / 4.0) * np.sin(xx / 6.0)], axis=-1)
+    flow[:, :w // 2] += 4.0
+    flow = np.broadcast_to(flow, (b, h, w, 2)).astype(np.float32)
+  else:
+    flow = ((rng.rand(b, h, w, 2) - 0.5) * 3.0 * max(h, w)).astype(
+        np.float32)
+  return g, flow
+
+
+@pytest.mark.parametrize('dtype', [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize('kind', ['seam', 'oob'])
+@pytest.mark.parametrize('shape', [(1, 12, 20, 3), (2, 9, 14, 67),
+                                   (1, 17, 30, 8)])
+def test_splat_fixed_order_plain_matches_splat_plain(shape, kind, dtype):
+  # The ordered reference sums the same products as splat_plain (held
+  # against JAX above), in another order: f32 reassociation only.
+  g, flow = _splat_order_case(shape, kind)
+  g = _t(g).to(dtype)
+  got = warp.splat_fixed_order_plain(g, _t(flow))
+  want = warp.splat_plain(g, _t(flow))
+  assert got.dtype == torch.float32 and got.shape == want.shape
+  assert float((got - want).abs().max()) <= 1e-5 * float(want.abs().max())
+
+
+@pytest.mark.parametrize('kind', ['seam', 'oob'])
+def test_splat_fixed_order_plain_sums_in_the_documented_order(kind):
+  # Each element, from 0, adds its products source pixel by source pixel
+  # in flat order, then corner by corner, each product and each add
+  # rounded to f32: a scalar loop in numpy f32 gives the same bits.
+  g, flow = _splat_order_case((2, 5, 6, 3), kind)
+  b, h, w, c = g.shape
+  acc = np.zeros((b * h * w, c), np.float32)
+  one = np.float32(1.0)
+  for p in range(b * h * w):
+    bb, y, x = p // (h * w), (p // w) % h, p % w
+    qx = np.float32(x) + flow[bb, y, x, 0]
+    qy = np.float32(y) + flow[bb, y, x, 1]
+    fx = np.float32(min(max(np.floor(qx), 0), w - 2))
+    fy = np.float32(min(max(np.floor(qy), 0), h - 2))
+    ax = np.float32(min(max(qx - fx, 0), 1))
+    ay = np.float32(min(max(qy - fy, 0), 1))
+    top = bb * h * w + int(fy) * w + int(fx)
+    weights = ((one - ay) * (one - ax), (one - ay) * ax, ay * (one - ax),
+               ay * ax)
+    for d, wt in zip((top, top + 1, top + w, top + w + 1), weights):
+      if wt != 0:
+        acc[d] = acc[d] + np.float32(wt) * g[bb, y, x]
+  got = warp.splat_fixed_order_plain(_t(g), _t(flow))
+  np.testing.assert_array_equal(got.numpy().reshape(-1, c), acc)
+
+
 def _kernel_stand_ins(monkeypatch, module, names):
   """Replaces kernel wrappers with their plain versions run without
   autograd (as the ctypes kernels run), counting the calls."""

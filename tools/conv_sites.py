@@ -15,8 +15,9 @@ once) over HBM's rate. The timer and the bounds are chip_smoke.py's
 (utils/measure.py). The train step's sites are timed twice: with TF32
 allowed (PyTorch's default; the kernel's TF32 route) and with it off (the
 exact f32 route). Prints the host's time per kernel call, one line per
-distinct site and the totals per pair and per step, each naming the card
-and its power limit. Needs a GPU.
+distinct site (with the kernel's ratio to the library call's time and its
+share of the bound) and the totals per pair and per step, each naming the
+card and its power limit. Needs a GPU.
 
 It imports the port from the checkout it sits in, so a copy placed in
 another checkout's tools/ (an unpacked parent commit, say), with a copy of
@@ -141,11 +142,14 @@ def report(label: str, unit: str, sites: collections.Counter, tf32: bool,
       totals[key] += count * r[key]
     print(f'site {label} {n}x{h}x{w} {cin}->{cout}{"+pool" if pool else ""} '
           f'{r["kind"]} x{count}: kernel {r["ms"]:.4f} ms, library '
-          f'{r["library_ms"]:.4f} ms, bound {r["bound_ms"]:.4f} ms '
+          f'{r["library_ms"]:.4f} ms (kernel/library '
+          f'{r["ms"] / r["library_ms"]:.3f}), bound {r["bound_ms"]:.4f} ms '
           f'({r["bound_by"]}), share {r["bound_ms"] / r["ms"]:.3f}')
   print(f'total {label}: {sum(sites.values())} sites, kernel '
         f'{totals["ms"]:.3f} ms/{unit}, library {totals["library_ms"]:.3f} '
-        f'ms/{unit}, bound {totals["bound_ms"]:.3f} ms/{unit}, share '
+        f'ms/{unit} (kernel/library '
+        f'{totals["ms"] / totals["library_ms"]:.3f}), bound '
+        f'{totals["bound_ms"]:.3f} ms/{unit}, share '
         f'{totals["bound_ms"] / totals["ms"]:.3f} (CUDA events, mean of '
         f'{ITERS} per site; {card})')
 

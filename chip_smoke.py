@@ -1252,8 +1252,10 @@ def check_style(mat_path, card, l1_report, failures):
                             card))
 
   # The share of the VGG and Style losses in a step (TF32 allowed, as the
-  # speed above): each loss's forward and backward to the prediction, and
-  # the lean step with all three losses and with l1 alone, CUDA events.
+  # speed above): each loss's forward and backward to the prediction, vgg
+  # and style together as the step runs them (one tower an image,
+  # vgg19.shared_features), and the lean step with all three losses and
+  # with l1 alone, CUDA events.
   opts = train_lib.TrainingOptions()
   state = train_lib.create_train_state(model, opts)
   state.step = STYLE_STEP
@@ -1261,6 +1263,28 @@ def check_style(mat_path, card, l1_report, failures):
     image = model(batch['x0'], batch['x1'], batch['time'])['image']
   parts = {name: loss_ms(fn, batch, image)
            for name, (fn, _) in style.items()}
+  towers = {k: style[k] for k in ('k*vgg', 'k*style')}
+  parts['vgg+style'] = loss_ms(
+      lambda example, prediction: losses_lib.compute_weighted_loss(
+          towers, example, prediction, STYLE_STEP), batch, image)
+  # The towers of one eager Style step: the prediction's with grad, the
+  # reference's without.
+  calls = []
+  counted = vgg19.vgg_features
+
+  def count(image, model_filepath):
+    calls.append('grad' if torch.is_grad_enabled() else 'no_grad')
+    return counted(image, model_filepath)
+
+  vgg19.vgg_features = count
+  try:
+    train_lib.make_train_step(style, opts, with_summaries=False,
+                              graphs=False)(state, batch, torch.Generator())
+  finally:
+    vgg19.vgg_features = counted
+  if sorted(calls) != ['grad', 'no_grad']:
+    failures.append(f'film_net-Style step ran VGG-19 towers {calls}, not '
+                    f'one with grad and one without')
   steps = {}
   for label, losses in (('l1', losses_lib.training_losses(['l1'])),
                         ('style', style)):
@@ -1268,16 +1292,19 @@ def check_style(mat_path, card, l1_report, failures):
     steps[label] = measure.time_ms(
         lambda: step_fn(state, batch, torch.Generator()), iters=5,
         queued=False)
-  share = (parts['k*vgg'] + parts['k*style']) / steps['style']
+  share = parts['vgg+style'] / steps['style']
   print(f'film_net-Style step parts (CUDA events, TF32 allowed, batch '
-        f'{TRAIN_BATCH}): {steps["style"]:.3f} ms a step, {steps["l1"]:.3f} '
-        f'with l1 alone; forward + image backward of l1 '
-        f'{parts["l1"]:.3f} ms, vgg {parts["k*vgg"]:.3f}, style '
-        f'{parts["k*style"]:.3f}: vgg and style {100 * share:.1f}% of the '
-        f'step; VGG-19 .mat read in {load_s:.2f} s; L1 speed in this call '
+        f'{TRAIN_BATCH}): {steps["style"]:.3f} ms a step '
+        f'({1e3 / steps["style"]:.3f} steps/s), {steps["l1"]:.3f} with l1 '
+        f'alone; forward + image backward of l1 {parts["l1"]:.3f} ms, vgg '
+        f'{parts["k*vgg"]:.3f} alone, style {parts["k*style"]:.3f} alone, '
+        f'vgg and style sharing their towers {parts["vgg+style"]:.3f}: '
+        f'{100 * share:.1f}% of the step; towers a step {calls}; VGG-19 '
+        f'.mat read in {load_s:.2f} s; L1 speed in this call '
         f'{l1_report["steps_per_s"]:.3f} steps/s; on {card}')
   report.update(step_ms=steps, loss_ms=parts, loss_share=share,
-                vgg_load_s=load_s)
+                vgg_load_s=load_s, towers=calls,
+                style_steps_per_s=1e3 / steps['style'])
   return report
 
 
@@ -1578,10 +1605,25 @@ def run_counted(fn):
   return out, _kernels.launch_counts(), torch.cuda.max_memory_allocated()
 
 
+def live_captures(interpolator):
+  return {name: list(p.captures.values())
+          for name, p in interpolator.programs.items()}
+
+
+def new_captures(interpolator, before):
+  """The captures made since `before` (live_captures), by program: the
+  bytes each grew the pool by."""
+  made = {name: [c.pool_bytes for c in p.captures.values()
+                 if not any(c is old for old in before[name])]
+          for name, p in interpolator.programs.items()}
+  return {name: sizes for name, sizes in made.items() if sizes}
+
+
 def check_video(interpolator, eager, card, failures):
   """The frame tree of 3 1080p frames at T = 3, by both routes (through
   `interpolator`'s programs; `eager`, the same model without graphs,
-  runs the plain versions)."""
+  runs the plain versions). A route's later calls replay what its first
+  call captured."""
   frames = np.random.RandomState(0).randint(
       0, 256, (VIDEO_FRAMES, VIDEO_H, VIDEO_W, 3)).astype(np.uint8)
   frames_dev = torch.from_numpy(frames).cuda()
@@ -1591,20 +1633,32 @@ def check_video(interpolator, eager, card, failures):
       'chunked': dict(cached=False, max_batch=VIDEO_MAX_BATCH),
   }
   outputs = {}
+  pool = interpolator.programs['pair'].pool
   for name, kwargs in routes.items():
+    before, clears = live_captures(interpolator), pool.clears
     out, launches, peak = run_counted(
         lambda: interpolator.expand_tree_device(frames_dev, VIDEO_TIMES,
                                                 **kwargs))
+    captured = new_captures(interpolator, before)
+    first_clears = pool.clears - clears
     outputs[name] = out.cpu().numpy()
     want = CHUNKED_TREE_LAUNCHES if name == 'chunked' else (
         CACHED_TREE_LAUNCHES)
     if launches != want:
       failures.append(f'{name} tree launches {launches} != {want}')
     # End to end on the card: the host's lag between launches counts.
+    before, clears = live_captures(interpolator), pool.clears
     ms = measure.time_ms(lambda: interpolator.expand_tree_device(
         frames_dev, VIDEO_TIMES, **kwargs), iters=2, queued=False)
+    recaptured = new_captures(interpolator, before)
+    if recaptured or pool.clears != clears:
+      failures.append(f'{name} tree: later calls captured {recaptured}, '
+                      f'{pool.clears - clears} clears')
     report[name] = {'launches': launches, 'peak_bytes': peak,
-                    'ms': ms, 'ms_per_frame': ms / VIDEO_OUTPUTS}
+                    'ms': ms, 'ms_per_frame': ms / VIDEO_OUTPUTS,
+                    'captured_bytes': captured, 'clears': first_clears,
+                    'recaptured_bytes': recaptured,
+                    'pool_bytes': pool.bytes}
   cached, chunked = outputs['cached'], outputs['chunked']
   if cached.shape != (VIDEO_OUTPUTS, VIDEO_H, VIDEO_W, 3) or not np.isfinite(
       cached).all():
@@ -1652,13 +1706,19 @@ def check_video(interpolator, eager, card, failures):
   stream_u8_ms = 1e3 * (time.perf_counter() - start)
   if not np.array_equal(np.stack(written), outputs['cached_uint8']):
     failures.append('streaming uint8 frames differ from the uint8 tree')
+  gib = lambda sizes: [round(n / 2**30, 2) for n in sizes]
   for name in routes:
     r = report[name]
     print(f'video tree {name} (3 1080p uint8 frames, T = {VIDEO_TIMES}, '
           f'{VIDEO_OUTPUTS} frames, bf16 policy): '
           f'{r["ms_per_frame"]:.3f} ms per output frame on the device '
           f'({r["ms"]:.3f} ms a tree), peak memory '
-          f'{r["peak_bytes"] / 2**30:.2f} GiB, launches {r["launches"]}')
+          f'{r["peak_bytes"] / 2**30:.2f} GiB, launches {r["launches"]}; '
+          f'the first call captured '
+          f'{ {k: gib(v) for k, v in r["captured_bytes"].items()} } GiB '
+          f'with {r["clears"]} clears, the next three '
+          f'{ {k: gib(v) for k, v in r["recaptured_bytes"].items()} }; pool '
+          f'{r["pool_bytes"] / 2**30:.2f} GiB')
   print(f'video tree checks: chunked vs cached min frame PSNR '
         f'{chunked_psnr:.2f} dB (bound {TREE_PSNR_DB}); uint8 vs host '
         f'quantization {levels} levels (bound {UINT8_LEVELS}); kernels vs '
@@ -2500,21 +2560,20 @@ def graph_mixed(card, failures):
   torch.cuda.reset_peak_memory_stats()
   calls, largest, grown, worst_abs, worst_db = [], 0, 0, 0.0, float('inf')
   for key in MIXED_KEYS:
-    before = list(graphs.programs['pair'].captures.values())
+    before = live_captures(graphs)
     out = graphs.interpolate_device(*inputs[key])
     torch.cuda.synchronize()
     out = out.cpu()
     worst_abs = max(worst_abs, float((out - wants[key]).abs().max()))
     worst_db = min(worst_db, psnr_db(out.numpy(), wants[key].numpy()))
     del out
-    for c in graphs.programs['pair'].captures.values():
-      if not any(c is old for old in before):
-        largest = max(largest, c.pool_bytes)
-        grown += c.pool_bytes
+    captured = new_captures(graphs, before).get('pair', [])
+    largest = max([largest] + captured)
+    grown += sum(captured)
     held = torch.cuda.memory_reserved() - base
     calls.append({'key': key, 'held_bytes': held, 'pool_bytes': pool.bytes,
                   'graphs': len(graphs.programs['pair'].captures),
-                  'clears': pool.clears})
+                  'clears': pool.clears, 'captured_bytes': captured})
   peak = torch.cuda.max_memory_reserved() - base
   held_bound = budget + largest + MIXED_SLACK_BYTES
   peak_bound = budget + max(largest, eager_peak) + MIXED_SLACK_BYTES
@@ -2529,9 +2588,12 @@ def graph_mixed(card, failures):
   print(f'graphs: mixed serving through one default Interpolator (released '
         f'config, bf16; (H, W, batch) {list(MIXED_KEYS)}): vs eager max-abs '
         f'{worst_abs:.1e}, {worst_db:.2f} dB (bound {GRAPH_PSNR_DB}); memory held beyond the start after each call '
-        f'{[gib(c["held_bytes"]) for c in calls]} GiB, the pool '
+        f'{[gib(c["held_bytes"]) for c in calls]} GiB, each call\'s '
+        f'captures grew the pool by '
+        f'{[[gib(b) for b in c["captured_bytes"]] for c in calls]}, the pool '
         f'{[gib(c["pool_bytes"]) for c in calls]}, graphs '
-        f'{[c["graphs"] for c in calls]}, emptied {pool.clears} times by its '
+        f'{[c["graphs"] for c in calls]}, clears after each call '
+        f'{[c["clears"] for c in calls]}: emptied {pool.clears} times by its '
         f'budget of {gib(budget)} GiB; most held {gib(held)} GiB (bound '
         f'{gib(held_bound)}: budget + largest graph {gib(largest)} + '
         f'{gib(MIXED_SLACK_BYTES)}), peak {gib(peak)} (bound '

@@ -188,9 +188,12 @@ def aggregate_batch_losses(
 
 def compute_weighted_loss(losses: Mapping[str, Tuple[LossFn, WeightFn]],
                           example, prediction, step) -> torch.Tensor:
-  """Sum of weight(step) * loss(example, prediction) over all losses."""
+  """Sum of weight(step) * loss(example, prediction) over all losses; the
+  perceptual losses share each image's VGG-19 tower
+  (vgg19.shared_features)."""
   total = torch.zeros((), dtype=torch.float32,
                       device=prediction['image'].device)
-  for loss_fn, weight_fn in losses.values():
-    total = total + weight_fn(step) * loss_fn(example, prediction)
+  with vgg19.shared_features():
+    for loss_fn, weight_fn in losses.values():
+      total = total + weight_fn(step) * loss_fn(example, prediction)
   return total

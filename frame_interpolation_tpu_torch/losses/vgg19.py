@@ -28,10 +28,22 @@ NCHW, permuted once at its input. The reference image's features carry no
 gradient: the losses differentiate with respect to the prediction only, as
 JAX's do. The tower is plain convs and the Gram matrix a matmul, outside
 any kernel of the JAX package.
+
+Both losses of one objective read the same towers: under `jax.jit` XLA
+merges their identical `vgg_features` calls, so the JAX package's Style
+step runs one tower forward per image and back-propagates through one.
+Inside a `shared_features()` scope the port does the same: each image's
+features are computed once per (input tensor, weights file, grad mode)
+and handed to every loss that asks, so autograd sums the vgg and style
+cotangents into one backward through the prediction's tower. The train
+step, `losses.compute_weighted_loss` and eval's metrics open the scope;
+outside it every call computes its own towers.
 """
 from __future__ import annotations
 
+import contextlib
 import functools
+import threading
 from typing import Dict, Optional, Sequence, Tuple
 
 import numpy as np
@@ -149,10 +161,46 @@ def _layer_mask(mask: torch.Tensor, like: torch.Tensor) -> torch.Tensor:
   return resized.permute(0, 3, 1, 2)
 
 
+# The open scope's features on this thread: (id of the [0, 1] input, file,
+# grad mode) -> (the input, its features); None outside a scope.
+_scope = threading.local()
+
+
+@contextlib.contextmanager
+def shared_features():
+  """Within the scope the losses compute each image's tower once per
+  (input tensor, weights file, grad mode) and share it; the cache ends
+  with the scope. A scope opened inside another joins it. Safe under
+  CUDA-graph capture: the scope lives for one Python call of the
+  captured function."""
+  if getattr(_scope, 'cache', None) is not None:
+    yield
+    return
+  _scope.cache = {}
+  try:
+    yield
+  finally:
+    _scope.cache = None
+
+
+def _features(image: torch.Tensor,
+              model_filepath: str) -> Dict[str, torch.Tensor]:
+  """The features of a [0, 1] image (scaled to [0, 255] here), shared
+  within a `shared_features()` scope. The cache holds the input, so its
+  id stays its own while the scope lives."""
+  cache = getattr(_scope, 'cache', None)
+  if cache is None:
+    return vgg_features(image * 255.0, model_filepath)
+  key = (id(image), model_filepath, torch.is_grad_enabled())
+  if key not in cache:
+    cache[key] = (image, vgg_features(image * 255.0, model_filepath))
+  return cache[key][1]
+
+
 def _reference_features(reference: torch.Tensor,
                         model_filepath: str) -> Dict[str, torch.Tensor]:
   with torch.no_grad():
-    return vgg_features(reference * 255.0, model_filepath)
+    return _features(reference, model_filepath)
 
 
 def vgg_loss(image: torch.Tensor,
@@ -164,7 +212,7 @@ def vgg_loss(image: torch.Tensor,
   if not weights:
     weights = _DEFAULT_WEIGHTS
   feats_ref = _reference_features(reference, vgg_model_file)
-  feats_img = vgg_features(image * 255.0, vgg_model_file)
+  feats_img = _features(image, vgg_model_file)
   total = 0.0
   for name, weight in zip(_LOSS_LAYERS, weights):
     diff = (feats_ref[name] - feats_img[name]).abs()
@@ -193,7 +241,7 @@ def style_loss(image: torch.Tensor,
   if not weights:
     weights = _DEFAULT_WEIGHTS
   feats_ref = _reference_features(reference, vgg_model_file)
-  feats_img = vgg_features(image * 255.0, vgg_model_file)
+  feats_img = _features(image, vgg_model_file)
   total = 0.0
   for name, weight in zip(_LOSS_LAYERS, weights):
     with torch.no_grad():

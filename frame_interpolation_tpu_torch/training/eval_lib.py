@@ -25,6 +25,7 @@ import numpy as np
 import torch
 
 from .. import losses as losses_lib
+from ..losses import vgg19
 from ..models.film_net import FilmNet
 from ..utils import programs
 from . import metrics_lib
@@ -54,8 +55,11 @@ def eval_loop(model: FilmNet,
     """The prediction's image and every metric, stacked in `names`'
     order."""
     prediction = model(example['x0'], example['x1'], example['time'])
-    values = torch.stack([metrics_fns[name](example, prediction, step)
-                          .float().reshape(()) for name in names])
+    # The training loss and the test losses share each image's VGG-19
+    # tower, as the JAX package's one jitted program does.
+    with vgg19.shared_features():
+      values = torch.stack([metrics_fns[name](example, prediction, step)
+                            .float().reshape(()) for name in names])
     return values, prediction['image']
 
   program = (programs.Program(forward, device, 'eval')

@@ -71,6 +71,7 @@ import torch
 from .. import losses as losses_lib
 from ..data import augmentations as augmentations_lib
 from ..io import params_io
+from ..losses import vgg19
 from ..models.film_net import FilmNet, init_params
 from ..options import Options
 from ..parallel import distributed
@@ -219,10 +220,13 @@ def make_train_step(
     predictions = model(batch['x0'], batch['x1'], batch['time'])
     per_loss = {}
     total = torch.zeros((), dtype=torch.float32, device=batch['y'].device)
-    for (name, (loss_fn, _)), weight in zip(losses.items(), weights):
-      value = loss_fn(batch, predictions)
-      per_loss[name] = value.detach()
-      total = total + weight * value
+    # One VGG-19 tower per image for every perceptual loss, as XLA's CSE
+    # gives the JAX step.
+    with vgg19.shared_features():
+      for (name, (loss_fn, _)), weight in zip(losses.items(), weights):
+        value = loss_fn(batch, predictions)
+        per_loss[name] = value.detach()
+        total = total + weight * value
     optimizer.zero_grad(set_to_none=True)
     total.backward()
     if data_parallel:

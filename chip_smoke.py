@@ -141,10 +141,14 @@ graphs=False on the same weights and inputs:
   * the summary step as its own program in the lean step's pool: from
     one state against the eager summary step (the step bounds), its
     images equal, the pool's bytes of each variant;
-  * determinism: under torch.use_deterministic_algorithms(True) (the
-    splat's fixed-order route), two replayed film_net-L1 graph steps from
+  * determinism: under torch.use_deterministic_algorithms(True) (cuDNN's
+    deterministic algorithms), two replayed film_net-L1 graph steps from
     one state bit-equal in the loss, the gradients and the parameters,
-    and two film_net-Style steps; steps/s with and without the mode;
+    and two film_net-Style steps; steps/s with and without the mode, and
+    the splat's device ms a step in each; two film_net-L1 steps from the
+    same state in the default mode, reported and not gated: bit-equal or
+    not, the parameters whose gradients differ, and then two with cuDNN's
+    deterministic switch alone;
   * the patch-sharded pair on [cuda:0] * 4 with and without graphs, and
     the row-sharded pair on [cuda:0] * 2 and * 4 as one program: >= 50 dB
     against one device, max-abs against its eager path, the launches, no
@@ -155,12 +159,11 @@ The 1080p pair's check also holds the all-outputs program (every output
 of the forward) against eager, max-abs 0; the eval phase holds its
 program against eager (1e-4) and times both over 10 batches; the
 world-size-1 NCCL step is captured, under deterministic mode, and must
-equal one process's captured step bit for bit. The splat's fixed-order
-route is checked at 8x256x256x67 f32 (seam and out-of-bounds flows),
-8x128x128x195 f32 and 1088x1920x67 bf16: two launches bit-equal, within
-the splat's bounds of its plain version, timed beside the atomic route;
-and bit-equal to its ordered reference (warp.splat_fixed_order_plain) at
-four small shapes with seam and out-of-bounds flows, f32 and bf16.
+equal one process's captured step bit for bit. The splat sums in a
+fixed order, its one route: at each of its shapes and flows two launches
+must be bit-equal in the default mode, and at four small shapes with seam
+and out-of-bounds flows, f32 and bf16, it must equal its ordered
+reference (warp.splat_fixed_order_plain) bit for bit.
 `--kernels_only` stops after the kernels' checks.
 
 Each phase prints its lines; the second-to-last line is the per-kernel JSON
@@ -260,7 +263,7 @@ VGG_CHANNELS = (64, 64, 128, 128, 256, 256, 256, 256, 512, 512, 512, 512,
 GIN_STEPS, PROFILE_START, PROFILE_STEPS = 16, 10, 5
 # Substrings of our kernels' names in a trace: the conv (TF32 wgmma), the
 # warp and its planes (vector and run routes), the splat.
-TRACE_KERNELS = ('conv3x3_wgmma_kernel', 'warp_', 'splat_tile_kernel')
+TRACE_KERNELS = ('conv3x3_wgmma_kernel', 'warp_', 'splat_tile_sum_kernel')
 # film_net-Style.gin as the reference lays it out, the weights file
 # filled in.
 STYLE_GIN = '''
@@ -374,7 +377,8 @@ DDP_TIMEOUT_S = 600
 # (utils/programs.py) against graphs=False on the same weights and
 # inputs. The same kernels run in the same order, so the pair and the
 # tree should agree bit for bit; the gates are the trees' and sharding's.
-# A train step runs the splat's atomics in another order each run. From
+# Outside deterministic mode a train step is not promised the same bits on
+# each run (cuDNN picks its algorithms freely there). From
 # one state, copied into both sides after the capture, the replayed
 # step's loss is held to the step-parity loss bound, its gradients to the
 # step-parity gradient bound, and each side's parameters after its own
@@ -401,7 +405,6 @@ REPLACES = {
     'warp': 'frame_interpolation_tpu/ops/warp_window.py:134',
     'warp_planes': 'frame_interpolation_tpu/ops/warp_window.py:134',
     'splat': 'frame_interpolation_tpu/ops/warp_splat.py:67',
-    'splat_fixed': 'frame_interpolation_tpu/ops/warp_splat.py:67',
     'conv3x3_c64': 'frame_interpolation_tpu/ops/conv_stack.py:141',
     'conv3x3_wide': 'frame_interpolation_tpu/ops/conv_stack_wide.py:124',
     'warp_rows': 'frame_interpolation_tpu/ops/warp_window.py:134',
@@ -410,7 +413,6 @@ SOURCES = {
     'warp': 'frame_interpolation_tpu_torch/csrc/warp.cu',
     'warp_planes': 'frame_interpolation_tpu_torch/csrc/warp.cu',
     'splat': 'frame_interpolation_tpu_torch/csrc/splat.cu',
-    'splat_fixed': 'frame_interpolation_tpu_torch/csrc/splat.cu',
     'conv3x3_c64': 'frame_interpolation_tpu_torch/csrc/conv3x3.cu',
     'conv3x3_wide': 'frame_interpolation_tpu_torch/csrc/conv3x3.cu',
     'warp_rows': 'frame_interpolation_tpu_torch/csrc/warp.cu',
@@ -648,17 +650,23 @@ def check_planes(rng, b, h, w, c, dtype, bound, flow_kind, timed):
 
 
 def check_splat(rng, b, h, w, c, dtype, bound, flow_kind, timed):
+  """The splat against its plain version within `bound`, and two launches
+  on one input bit-equal: its sums run in a fixed order (C13) in the
+  default mode, where the train step runs it."""
   g = torch.from_numpy((rng.rand(b, h, w, c) - 0.5).astype(np.float32)).to(
       'cuda', dtype)
   flow = training_flow(flow_kind, b, h, w)
   got = warp.splat_kernel(g, flow)
+  again = warp.splat_kernel(g, flow)
   want = warp.splat_plain(g, flow)
   torch.cuda.synchronize()
+  repeat_equal = torch.equal(got, again)
   err = (got - want).abs().max().item()
   rel = err / want.abs().max().item()
   result = {'shape': f'{b}x{h}x{w}x{c}', 'flow': flow_kind,
             'dtype': str(dtype).split('.')[-1], 'max_abs_err': err,
-            'rel_err': rel, 'bound': bound, 'ok': rel <= bound}
+            'rel_err': rel, 'bound': bound, 'repeat_bit_equal': repeat_equal,
+            'ok': rel <= bound and repeat_equal}
   if timed:
     # The library call: the image gradient of grid_sample's backward
     # (bilinear, border, align_corners=True) under the warp's grid, made
@@ -680,44 +688,6 @@ def check_splat(rng, b, h, w, c, dtype, bound, flow_kind, timed):
                lambda: warp.splat_plain(g, flow), library, 8.0 * g.numel(),
                g.numel() * (g.element_size() + 4) + flow.numel() * 4,
                measure.PEAK_FLOPS['float32'])
-  return result
-
-
-def check_splat_fixed(rng, b, h, w, c, dtype, bound, flow_kind):
-  """The splat's fixed-order route (C13), which the splat takes under
-  torch.use_deterministic_algorithms(True): two launches on one input
-  equal bit for bit, within `bound` of the plain version; timed with the
-  splat's bound beside the atomic route on the same input. No library
-  call: grid_sampler_2d_backward, the atomic route's yardstick, raises
-  under the deterministic mode."""
-  g = torch.from_numpy((rng.rand(b, h, w, c) - 0.5).astype(np.float32)).to(
-      'cuda', dtype)
-  flow = training_flow(flow_kind, b, h, w)
-  with deterministic():
-    first = warp.splat_kernel(g, flow)
-    second = warp.splat_kernel(g, flow)
-  want = warp.splat_plain(g, flow)
-  torch.cuda.synchronize()
-  repeat_equal = torch.equal(first, second)
-  err = (first - want).abs().max().item()
-  rel = err / want.abs().max().item()
-  result = {'shape': f'{b}x{h}x{w}x{c}', 'flow': flow_kind,
-            'dtype': str(dtype).split('.')[-1], 'max_abs_err': err,
-            'rel_err': rel, 'bound': bound, 'repeat_bit_equal': repeat_equal,
-            'ok': rel <= bound and repeat_equal}
-  # The mode also fills every new tensor with NaN (PyTorch's
-  # fill_uninitialized_memory); the route's time is taken without.
-  fill = torch.utils.deterministic.fill_uninitialized_memory
-  torch.utils.deterministic.fill_uninitialized_memory = False
-  try:
-    with deterministic():
-      add_timing(result, lambda: warp.splat_kernel(g, flow),
-                 lambda: warp.splat_plain(g, flow), None, 8.0 * g.numel(),
-                 g.numel() * (g.element_size() + 4) + flow.numel() * 4,
-                 measure.PEAK_FLOPS['float32'])
-  finally:
-    torch.utils.deterministic.fill_uninitialized_memory = fill
-  result['atomic_ms'] = measure.time_ms(lambda: warp.splat_kernel(g, flow))
   return result
 
 
@@ -2294,7 +2264,7 @@ def ddp_world1(device):
   """World size 1 over NCCL: the data-parallel step captured (its
   all-reduce inside the graph) against the step of one process without
   the group, also captured, both under torch.use_deterministic_algorithms
-  (the splat's fixed order), from the same seed: two steps each, the
+  (cuDNN's deterministic algorithms), from the same seed: two steps each, the
   first the warm-up, the second a replay, so the replays' loss and
   gradients must match bit for bit; the NCCL all-reduce of the replay's
   gradients must return their bits. Then steps/s of the data-parallel
@@ -3021,17 +2991,67 @@ def deterministic():
     torch.use_deterministic_algorithms(saved)
 
 
-def determinism_step(label, config, losses, step0, card, failures):
-  """Under torch.use_deterministic_algorithms(True) (the splat's
-  fixed-order route, cuDNN's deterministic algorithms): two replays of
-  the captured step from one state, bit for bit in the loss, every
-  gradient and every parameter; launches a step; steps/s with and without
-  the mode in turns (released config, f32, batch 8 of 256x256, the
-  augmentations, TF32 allowed)."""
+def replays_from_one_state(state, model, step_fn, batches, snapshot, step):
+  """Two replays of the captured step from the state `snapshot` holds:
+  each run's loss, gradients, parameters and launches. The caller has
+  captured the step under the switches in force."""
+  runs = []
+  for _ in range(2):
+    copy_tensors(train_state_tensors(state), snapshot)
+    state.step = step
+    (metrics, _), launches, _ = run_counted(
+        lambda: step_fn(state, batches[1], train_lib.step_generator(0, step)))
+    runs.append({'loss': metrics['training_loss'].clone(),
+                 'grads': [p.grad.detach().clone()
+                           for p in model.parameters()],
+                 'params': [p.detach().clone() for p in model.parameters()],
+                 'launches': launches})
+  return runs
+
+
+def compare_runs(a, b, names):
+  """Bit-equality of two runs' loss, gradients and parameters; the
+  parameters whose gradients differ, in the model's order, with the
+  max-abs of each."""
+  differ = [(n, float((x - y).abs().max()))
+            for n, x, y in zip(names, a['grads'], b['grads'])
+            if not torch.equal(x, y)]
+  return {'loss_equal': torch.equal(a['loss'], b['loss']),
+          'grads_equal': not differ,
+          'params_equal': all(torch.equal(x, y)
+                              for x, y in zip(a['params'], b['params'])),
+          'grad_max_abs': max(float((x - y).abs().max())
+                              for x, y in zip(a['grads'], b['grads'])),
+          'grads_differ': differ}
+
+
+def describe_differ(result, count) -> str:
+  differ = result['grads_differ']
+  if not differ:
+    return f'all {count} gradients bit-equal'
+  largest = max(differ, key=lambda d: d[1])
+  first = ', '.join(f'{n} ({v:.1e})' for n, v in differ[:5])
+  return (f'{len(differ)} of {count} gradients differ, first in the '
+          f"model's order: {first}; largest {largest[0]} ({largest[1]:.1e})")
+
+
+def determinism_step(label, config, losses, step0, card, failures,
+                     default_mode=False):
+  """Under torch.use_deterministic_algorithms(True) (cuDNN's deterministic
+  algorithms; the splat sums in its fixed order in every mode): two
+  replays of the captured step from one state, bit for bit in the loss,
+  every gradient and every parameter; launches a step; steps/s with and
+  without the mode in turns (released config, f32, batch 8 of 256x256,
+  the augmentations, TF32 allowed). With `default_mode`, also two replays
+  from the same state without the mode, reported and not gated: where
+  they differ, the parameters whose gradients differ, and two replays
+  with torch.backends.cudnn.deterministic alone, which names cuDNN's
+  default algorithms if they are then bit-equal."""
   augs = tuple(config.augmentations)
   opts = train_lib.TrainingOptions()
   model = init_params(create_model(config.model),
                       torch.Generator().manual_seed(0)).cuda()
+  names = [n for n, _ in model.named_parameters()]
   state = train_lib.create_train_state(model, opts)
   step_fn = train_lib.make_train_step(losses, opts, augs,
                                       with_summaries=False)
@@ -3039,37 +3059,62 @@ def determinism_step(label, config, losses, step0, card, failures):
   batches = [train_lib.batch_to_device(square_batch(rng),
                                        torch.device('cuda'))
              for _ in range(2)]
-  runs = []
   with tf32_allowed(True), deterministic():
     state.step = step0
     step_fn(state, batches[0], train_lib.step_generator(0, state.step))
-    snapshot = [t.clone() for t in train_state_tensors(state)]
+    # Detached: a clone of a parameter would keep its gradient
+    # accumulator, made on this stream, alive into the next capture.
+    snapshot = [t.detach().clone() for t in train_state_tensors(state)]
     step = state.step
-    for _ in range(2):
-      copy_tensors(train_state_tensors(state), snapshot)
-      state.step = step
-      (metrics, _), launches, _ = run_counted(
-          lambda: step_fn(state, batches[1],
-                          train_lib.step_generator(0, step)))
-      runs.append({'loss': metrics['training_loss'].clone(),
-                   'grads': [p.grad.detach().clone()
-                             for p in model.parameters()],
-                   'params': [p.detach().clone()
-                              for p in model.parameters()],
-                   'launches': launches})
+    runs = replays_from_one_state(state, model, step_fn, batches, snapshot,
+                                  step)
   a, b = runs
-  loss_equal = torch.equal(a['loss'], b['loss'])
-  grads_equal = all(torch.equal(x, y) for x, y in zip(a['grads'], b['grads']))
-  params_equal = all(torch.equal(x, y)
-                     for x, y in zip(a['params'], b['params']))
-  grad_diff = max(float((x - y).abs().max())
-                  for x, y in zip(a['grads'], b['grads']))
-  if not (loss_equal and grads_equal and params_equal) or any(
-      r['launches'] != STEP_LAUNCHES for r in runs):
+  report = compare_runs(a, b, names)
+  report['launches'] = a['launches']
+  if not (report['loss_equal'] and report['grads_equal'] and
+          report['params_equal']) or any(
+              r['launches'] != STEP_LAUNCHES for r in runs):
     failures.append(f'{label} deterministic graph steps: loss equal '
-                    f'{loss_equal}, gradients equal {grads_equal} (max-abs '
-                    f'{grad_diff:.3e}), parameters equal {params_equal}, '
-                    f'launches {[r["launches"] for r in runs]}')
+                    f'{report["loss_equal"]}, gradients equal '
+                    f'{report["grads_equal"]} (max-abs '
+                    f'{report["grad_max_abs"]:.3e}), parameters equal '
+                    f'{report["params_equal"]}, launches '
+                    f'{[r["launches"] for r in runs]}')
+  if default_mode:
+    # The default mode's step, captured under its own key from the same
+    # state; then, where its replays differ, cuDNN's switch alone.
+    report['default'] = {}
+    for variant in ('default', 'cudnn_deterministic'):
+      with tf32_allowed(True), (
+          contextlib.nullcontext() if variant == 'default' else
+          torch.backends.cudnn.flags(enabled=True, benchmark=False,
+                                     deterministic=True, allow_tf32=True)):
+        copy_tensors(train_state_tensors(state), snapshot)
+        state.step = step
+        step_fn(state, batches[0], train_lib.step_generator(0, step))
+        pair = replays_from_one_state(state, model, step_fn, batches,
+                                      snapshot, step)
+      result = compare_runs(*pair, names)
+      result['vs_deterministic_loss_equal'] = torch.equal(pair[0]['loss'],
+                                                          a['loss'])
+      result['vs_deterministic_grad_max_abs'] = max(
+          float((x - y).abs().max())
+          for x, y in zip(pair[0]['grads'], a['grads']))
+      result['launches'] = pair[0]['launches']
+      report['default'][variant] = result
+      print(f'determinism: {label} in the {variant.replace("_", ".")} mode '
+            f'(no torch.use_deterministic_algorithms; TF32 allowed, from '
+            f'step {step0}): two replayed graph steps from one state, loss '
+            f'bit-equal {result["loss_equal"]}, '
+            f'{describe_differ(result, len(names))} (max-abs '
+            f'{result["grad_max_abs"]:.1e}), parameters bit-equal '
+            f'{result["params_equal"]}; against the deterministic mode\'s '
+            f'replay: loss bit-equal {result["vs_deterministic_loss_equal"]}, '
+            f'gradients max-abs {result["vs_deterministic_grad_max_abs"]:.1e};'
+            f' launches {result["launches"]}; on {card}')
+      if result['grads_equal'] and result['loss_equal']:
+        break
+    del pair
   del runs, snapshot
   rates = {'deterministic': [], 'default': []}
   batch_iter = (train_lib.batch_to_device(b, torch.device('cuda'))
@@ -3080,8 +3125,8 @@ def determinism_step(label, config, losses, step0, card, failures):
       with (deterministic() if turn == 'deterministic'
             else contextlib.nullcontext()):
         rates[turn].append(steps_per_second(state, step_fn, batch_iter))
-    # The splat's device ms a step by route (its kernels' names start with
-    # splat_), beside the step's busy ms: the fixed order's share.
+    # The splat's device ms a step in each mode (its kernels' names start
+    # with splat_; one route in both), beside the step's busy ms.
     for turn in ('deterministic', 'default'):
       with (deterministic() if turn == 'deterministic'
             else contextlib.nullcontext()):
@@ -3089,29 +3134,22 @@ def determinism_step(label, config, losses, step0, card, failures):
             lambda: step_fn(state, batches[1], torch.Generator()),
             GRAPH_IDLE_STEPS, named=('splat_',))
   splat_ms = {k: v['named']['splat_'] for k, v in profiles.items()}
-  fixed_share = ((splat_ms['deterministic'] - splat_ms['default']) /
-                 profiles['default']['busy_ms'])
-  report = {'loss_equal': loss_equal, 'grads_equal': grads_equal,
-            'params_equal': params_equal, 'grad_max_abs': grad_diff,
-            'launches': a['launches'], 'steps_per_s': rates,
-            'splat_ms': splat_ms, 'fixed_share': fixed_share,
-            'busy_ms': {k: v['busy_ms'] for k, v in profiles.items()}}
+  report.update(steps_per_s=rates, splat_ms=splat_ms,
+                busy_ms={k: v['busy_ms'] for k, v in profiles.items()})
   print(f'determinism: {label} (released config, f32, batch {TRAIN_BATCH}x'
         f'{TRAIN_CROP}x{TRAIN_CROP}, {list(augs)}, TF32 allowed, from step '
         f'{step0}) under torch.use_deterministic_algorithms(True): two '
-        f'replayed graph steps from one state, loss bit-equal {loss_equal}, '
-        f'{len(a["grads"])} gradients bit-equal {grads_equal} (max-abs '
-        f'{grad_diff:.1e}), parameters bit-equal {params_equal}; launches '
-        f'{a["launches"]} (the splat by its fixed-order route); graph '
+        f'replayed graph steps from one state, loss bit-equal '
+        f'{report["loss_equal"]}, {describe_differ(report, len(names))} '
+        f'(max-abs {report["grad_max_abs"]:.1e}), parameters bit-equal '
+        f'{report["params_equal"]}; launches {report["launches"]}; graph '
         f'steps/s {mean(rates["deterministic"]):.3f} deterministic, '
         f'{mean(rates["default"]):.3f} default (turns d/D/D/d: {rates}); '
         f'the splat\'s device ms a step (torch.profiler, '
         f'{GRAPH_IDLE_STEPS} replays) {splat_ms["deterministic"]:.3f} '
-        f'fixed-order, {splat_ms["default"]:.3f} atomic, of '
-        f'{profiles["default"]["busy_ms"]:.3f} ms busy a default step: the '
-        f'fixed order costs {100 * fixed_share:.2f}% of the step; busy ms '
-        f'a deterministic step {profiles["deterministic"]["busy_ms"]:.3f}; '
-        f'on {card}')
+        f'deterministic, {splat_ms["default"]:.3f} default, of '
+        f'{report["busy_ms"]["deterministic"]:.3f} and '
+        f'{report["busy_ms"]["default"]:.3f} ms busy a step; on {card}')
   del state, step_fn, model
   release_memory()
   return report
@@ -3119,11 +3157,11 @@ def determinism_step(label, config, losses, step0, card, failures):
 
 def check_determinism(mat_path, card, failures):
   """Reproducible training (ROADMAP C13): film_net-L1 and -Style graph
-  steps under deterministic mode."""
+  steps under deterministic mode, and film_net-L1 in the default mode."""
   l1 = configs.get_experiment('film_net-L1')
   report = {'film_net-L1': determinism_step(
       'film_net-L1', l1, losses_lib.training_losses(['l1']), 0, card,
-      failures)}
+      failures, default_mode=True)}
   style = configs.get_experiment('film_net-Style', mat_path)
   report['film_net-Style'] = determinism_step(
       'film_net-Style', style, losses_lib.training_losses(
@@ -3384,7 +3422,7 @@ def main() -> int:
   # 8 of 256x256 crops: the two finest fusion warps, a middle and a coarse
   # flow-estimator warp) and at 1080p in bf16, each with four flows; timed
   # with the seam flow, and the splat also with the oob flow at the finest
-  # fusion warp, where every tile takes its global-atomic route.
+  # fusion warp, where the frame's edge tiles take long source lists.
   checks['warp_planes'], checks['splat'] = [], []
   for b, h, w, c, dtype in ((8, 256, 256, 67, torch.float32),
                             (8, 128, 128, 195, torch.float32),
@@ -3414,19 +3452,10 @@ def main() -> int:
                                  WARP_F32_BOUND)):
     checks['warp_rows'].extend(check_warp_rows(
         rng, h, w, c, dtype, bound, ((4, 'seam'), (2, 'far'))))
-  # The splat's fixed-order route (C13) at the four timed shapes of the
-  # atomic route: repeats bit-equal, both routes timed.
-  checks['splat_fixed'] = [
-      check_splat_fixed(rng, b, h, w, c, dtype, bound, flow_kind)
-      for b, h, w, c, dtype, bound, flow_kind in (
-          (8, 256, 256, 67, torch.float32, SPLAT_F32_BOUND, 'seam'),
-          (8, 256, 256, 67, torch.float32, SPLAT_F32_BOUND, 'oob'),
-          (8, 128, 128, 195, torch.float32, SPLAT_F32_BOUND, 'seam'),
-          (1, 1088, 1920, 67, torch.bfloat16, SPLAT_BF16_BOUND, 'seam'))]
-  # Its order, bit for bit: both flows, both dtypes, a C of two channel
-  # passes, and oob flow on a whole 256x256 frame, whose edge tiles hold
-  # more entries than a block sorts in shared memory.
-  checks['splat_fixed'] += [
+  # The splat's order, bit for bit: both flows, both dtypes, a C of two
+  # channel passes, and oob flow on a whole 256x256 frame, whose edge tiles
+  # hold more entries than a block sorts in shared memory.
+  checks['splat'] += [
       check_splat_order(rng, b, h, w, c, dtype, flow_kind)
       for b, h, w, c, dtype, flow_kind in (
           (2, 64, 96, 67, torch.float32, 'seam'),
@@ -3445,8 +3474,8 @@ def main() -> int:
              if 'library_rel_err' in r else '') +
             (f' (whole-frame rows max-abs {r["full_err"]:.1e})'
              if 'full_err' in r else '') +
-            (f' (two launches bit-equal {r["repeat_bit_equal"]}; atomic '
-             f'route {r["atomic_ms"]:.3f} ms)' if 'atomic_ms' in r else '') +
+            (f' (two launches bit-equal {r["repeat_bit_equal"]})'
+             if 'repeat_bit_equal' in r else '') +
             (f' (bit-equal to the ordered reference {r["order_bit_equal"]})'
              if 'order_bit_equal' in r else '') +
             f' (bound {r["bound"]:.1e}) {"ok" if r["ok"] else "FAILED"}' +
@@ -3582,15 +3611,10 @@ def main() -> int:
   # shards for the row mode. Times: the serving kernels' bf16 shapes, the
   # backward kernels' every timed shape.
   record = {'kernels': []}
-  # The fixed-order splat counts as 'splat': its launches are those of a
-  # deterministic film_net-L1 graph step.
-  fixed_launches = {'splat_fixed': graphs_report['determinism'][
-      'film_net-L1']['launches']['splat']}
-  for name in ('warp', 'warp_planes', 'splat', 'splat_fixed', 'conv3x3_c64',
-               'conv3x3_wide', 'warp_rows'):
-    backward = name in ('warp_planes', 'splat', 'splat_fixed')
-    main_launches = (fixed_launches if name == 'splat_fixed' else
-                     train_launches if backward else spatial_launches
+  for name in ('warp', 'warp_planes', 'splat', 'conv3x3_c64', 'conv3x3_wide',
+               'warp_rows'):
+    backward = name in ('warp_planes', 'splat')
+    main_launches = (train_launches if backward else spatial_launches
                      if name == 'warp_rows' else launches)
     timed = [r for r in checks[name]
              if 'ms' in r and (backward or r['dtype'] == 'bfloat16')]

@@ -1,6 +1,6 @@
 // Helpers shared by warp.cu and splat.cu: dtype conversions, the warp's
 // query under the tfa clamp rule, and the walk over the flat (pixel,
-// channel) elements of a run that both kernels take.
+// channel) elements of a run that warp.cu's run route takes.
 #pragma once
 
 #include <cuda_bf16.h>

@@ -298,3 +298,12 @@ def apply_data_augmentation(augmentations: Sequence[Augmentation],
   first = next(batch[k] for k in _IMAGE_KEYS if k in batch)
   draws = draw_augmentations(augmentations, generator, first.shape[0])
   return apply_drawn(augmentations, draws.to(first.device), batch)
+
+
+def augment_batch(generator: torch.Generator, batch: Batch,
+                  names: Sequence[str]) -> Batch:
+  """`apply_data_augmentation` keyed by augmentation names: the step's
+  draws from `generator`, then their application on the batch's device
+  (frame_interpolation_tpu/data/augmentations.py augment_batch)."""
+  return apply_data_augmentation(data_augmentations(tuple(names)), generator,
+                                 batch)

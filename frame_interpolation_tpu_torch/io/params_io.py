@@ -140,6 +140,10 @@ def is_jax_bundle(path: str) -> bool:
           os.path.isfile(os.path.join(path, PARAMS_FILE)))
 
 
+# The JAX package's name for the same test.
+is_native_bundle = is_jax_bundle
+
+
 def is_tf_saved_model(path: str) -> bool:
   """Whether `path` is a TF2 SavedModel directory (io/tf_import reads its
   variables)."""

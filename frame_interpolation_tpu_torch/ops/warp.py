@@ -49,9 +49,8 @@ _ROWS_DTYPES = {torch.bfloat16: 'fi_warp_rows_bf16',
                 torch.float32: 'fi_warp_rows_f32'}
 _PLANES_DTYPES = {torch.bfloat16: 'fi_warp_planes_bf16',
                   torch.float32: 'fi_warp_planes_f32'}
-_SPLAT_DTYPES = {torch.bfloat16: 'fi_splat_bf16', torch.float32: 'fi_splat_f32'}
-_SPLAT_FIXED_DTYPES = {torch.bfloat16: 'fi_splat_fixed_bf16',
-                       torch.float32: 'fi_splat_fixed_f32'}
+_SPLAT_DTYPES = {torch.bfloat16: 'fi_splat_fixed_bf16',
+                 torch.float32: 'fi_splat_fixed_f32'}
 
 
 def _check_shapes(image: torch.Tensor, flow: torch.Tensor) -> None:
@@ -224,12 +223,13 @@ def splat_plain(g: torch.Tensor, flow: torch.Tensor) -> torch.Tensor:
 
 def splat_fixed_order_plain(g: torch.Tensor,
                             flow: torch.Tensor) -> torch.Tensor:
-  """The fixed-order splat's sums as plain tensor ops (any device).
+  """The splat kernel's sums in its fixed order, as plain tensor ops (any
+  device).
 
   Each accumulator element is the f32 sum, from 0, of its products
   w * g in the order of the source pixel's flat index, then the corner
   (00, 01, 10, 11), with one rounding a product and one an add: what
-  csrc/splat.cu's fixed-order route computes, bit for bit. The weights are
+  csrc/splat.cu computes, bit for bit. The weights are
   `splat_plain`'s (the same f32 operations as the kernel's); a weight of
   exactly 0 adds nothing and takes no entry. Returns (B, H, W, C) f32.
   """
@@ -389,36 +389,27 @@ def warp_planes_kernel(image: torch.Tensor, flow: torch.Tensor
 def splat_kernel(g: torch.Tensor, flow: torch.Tensor) -> torch.Tensor:
   """The splat through csrc/splat.cu. CUDA tensors only; raises otherwise.
 
-  Returns the (B, H, W, C) f32 accumulator. Two routes: the atomic one
-  (its f32 sums run in an order that changes from run to run) and the
-  fixed-order one, taken exactly when
-  `torch.are_deterministic_algorithms_enabled()`, PyTorch's own switch for
-  reproducible results. The fixed order: each element is the f32 sum, from
-  0, of its products in the order of the source pixel's flat index, then
-  the corner (00, 01, 10, 11), one rounding a product and one an add; the
-  same bits on every run, equal to `splat_fixed_order_plain`. The fixed
-  route costs time (PERF.md), so it is not the default. Both count as a
-  launch of 'splat'.
+  Returns the (B, H, W, C) f32 accumulator, summed in a fixed order: each
+  element is the f32 sum, from 0, of its products in the order of the
+  source pixel's flat index, then the corner (00, 01, 10, 11), one
+  rounding a product and one an add; the same bits on every run, equal to
+  `splat_fixed_order_plain`, as the TPU kernels' sequential grid gives
+  the JAX package. There is one route, whatever
+  `torch.are_deterministic_algorithms_enabled()` says. The kernels write
+  every element, and take a workspace of the size the library reports.
   """
   _check_kernel_args('splat', g, flow)
   b, h, w, c = g.shape
+  acc = torch.empty(g.shape, dtype=torch.float32, device=g.device)
+  if acc.numel() == 0:
+    return acc
   lib = _kernels.library()
   stream = _kernels.stream_of(g)
-  if torch.are_deterministic_algorithms_enabled():
-    acc = torch.empty(g.shape, dtype=torch.float32, device=g.device)
-    if acc.numel() == 0:
-      return acc
-    words = -(-lib.fi_splat_fixed_workspace_bytes(b, h, w) // 4)
-    workspace = torch.empty(words, dtype=torch.int32, device=g.device)
-    code = getattr(lib, _SPLAT_FIXED_DTYPES[g.dtype])(
-        g.data_ptr(), flow.data_ptr(), acc.data_ptr(), workspace.data_ptr(),
-        b, h, w, c, stream)
-  else:
-    acc = torch.zeros(g.shape, dtype=torch.float32, device=g.device)
-    if acc.numel() == 0:
-      return acc
-    code = getattr(lib, _SPLAT_DTYPES[g.dtype])(
-        g.data_ptr(), flow.data_ptr(), acc.data_ptr(), b, h, w, c, stream)
+  words = -(-lib.fi_splat_fixed_workspace_bytes(b, h, w) // 4)
+  workspace = torch.empty(words, dtype=torch.int32, device=g.device)
+  code = getattr(lib, _SPLAT_DTYPES[g.dtype])(
+      g.data_ptr(), flow.data_ptr(), acc.data_ptr(), workspace.data_ptr(),
+      b, h, w, c, stream)
   _kernels.check('splat', code)
   _kernels.count_launch('splat', stream)
   return acc

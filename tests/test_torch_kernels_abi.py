@@ -25,10 +25,10 @@ _WORKSPACE_BYTES = 4 * 1234 + 2
 
 class _Entry:
   """Stands in for a ctypes function: records its declaration and checks
-  each call against it."""
+  each call against it; the calls go into the library's log, in order."""
 
-  def __init__(self, name):
-    self.name, self.calls = name, []
+  def __init__(self, name, log):
+    self.name, self.log = name, log
 
   def __call__(self, *args):
     assert len(args) == len(self.argtypes), (self.name, args)
@@ -44,7 +44,7 @@ class _Entry:
         assert isinstance(arg, int), (self.name, args)
         if kind is ctypes.c_int:
           assert -2**31 <= arg < 2**31, (self.name, args)
-    self.calls.append(args)
+    self.log.append((self.name, args))
     if self.restype is ctypes.c_longlong:
       return _WORKSPACE_BYTES
     return getattr(self, 'result', 0)
@@ -52,12 +52,12 @@ class _Entry:
 
 class _Library:
   def __init__(self):
-    self.entries = {}
+    self.entries, self.log = {}, []
 
   def __getattr__(self, name):
     if name.startswith('__'):
       raise AttributeError(name)
-    return self.entries.setdefault(name, _Entry(name))
+    return self.entries.setdefault(name, _Entry(name, self.log))
 
 
 def _declared():
@@ -107,10 +107,17 @@ def test_kernel_wrappers_pass_what_the_entry_points_declare(
   image = torch.zeros(2, 5, 7, 67, dtype=dtype)
   flow = torch.zeros(2, 5, 7, 2)
   wrapper(image, flow)
-  calls = [(e.name, c) for e in library.entries.values() for c in e.calls]
+  calls = library.log
+  suffix = 'bf16' if dtype == torch.bfloat16 else 'f32'
+  if launch == 'splat':
+    # The splat asks for its workspace's size first, then launches.
+    assert [name for name, _ in calls] == ['fi_splat_fixed_workspace_bytes',
+                                           f'fi_splat_fixed_{suffix}']
+    assert calls[0][1] == (2, 5, 7)
+    calls = calls[1:]
   assert len(calls) == 1
   name, args = calls[0]
-  assert name.endswith('bf16' if dtype == torch.bfloat16 else 'f32')
+  assert name.endswith(suffix)
   assert args[:2] == (image.data_ptr(), flow.data_ptr())
   assert _kernels.LAUNCHES == {launch: 1}
 
@@ -126,10 +133,6 @@ def _stub_library(monkeypatch, launches):
   return library
 
 
-def _calls(library):
-  return [(e.name, c) for e in library.entries.values() for c in e.calls]
-
-
 @pytest.mark.parametrize('dtype', [torch.float32, torch.bfloat16])
 def test_rows_kernel_wrapper_passes_the_row_arguments(monkeypatch, dtype):
   # fi_warp_rows_*: the table of the slabs' addresses, their count and
@@ -140,7 +143,7 @@ def test_rows_kernel_wrapper_passes_the_row_arguments(monkeypatch, dtype):
   flow = torch.zeros(2, 8, 7, 2)
   out = warp.backward_warp_rows_kernel(slabs, flow, 16, 32)
   assert tuple(out.shape) == (2, 8, 7, 67) and out.dtype == dtype
-  calls = _calls(library)
+  calls = library.log
   suffix = 'bf16' if dtype == torch.bfloat16 else 'f32'
   assert [name for name, _ in calls] == [f'fi_warp_rows_{suffix}']
   args = calls[0][1]
@@ -155,11 +158,11 @@ def test_rows_kernel_wrapper_passes_the_row_arguments(monkeypatch, dtype):
 
 @pytest.mark.parametrize('dtype', [torch.float32, torch.bfloat16])
 @pytest.mark.parametrize('mode', ['deterministic', 'default'])
-def test_splat_takes_the_fixed_order_entry_point_under_deterministic_mode(
+def test_splat_takes_the_fixed_order_entry_point_in_every_mode(
     monkeypatch, dtype, mode):
-  # torch.use_deterministic_algorithms(True) sends the splat to
-  # fi_splat_fixed_*, with a workspace of the size the library reports;
-  # otherwise it takes the atomic fi_splat_*. Either counts as 'splat'.
+  # The splat has one route: fi_splat_fixed_*, with a workspace of the
+  # size the library reports, whether or not
+  # torch.use_deterministic_algorithms(True) is set.
   library = _stub_library(monkeypatch, ['splat'])
   g = torch.zeros(2, 5, 7, 67, dtype=dtype)
   flow = torch.zeros(2, 5, 7, 2)
@@ -171,18 +174,14 @@ def test_splat_takes_the_fixed_order_entry_point_under_deterministic_mode(
     torch.use_deterministic_algorithms(saved)
   assert acc.shape == g.shape and acc.dtype == torch.float32
   suffix = 'bf16' if dtype == torch.bfloat16 else 'f32'
-  calls = dict(_calls(library))
-  if mode == 'default':
-    assert list(calls) == [f'fi_splat_{suffix}']
-    assert calls[f'fi_splat_{suffix}'][:3] == (
-        g.data_ptr(), flow.data_ptr(), acc.data_ptr())
-  else:
-    assert sorted(calls) == sorted(['fi_splat_fixed_workspace_bytes',
-                                    f'fi_splat_fixed_{suffix}'])
-    assert calls['fi_splat_fixed_workspace_bytes'] == (2, 5, 7)
-    args = calls[f'fi_splat_fixed_{suffix}']
-    assert args[:3] == (g.data_ptr(), flow.data_ptr(), acc.data_ptr())
-    assert args[4:] == (2, 5, 7, 67, 0)
+  calls = library.log
+  assert [name for name, _ in calls] == ['fi_splat_fixed_workspace_bytes',
+                                         f'fi_splat_fixed_{suffix}']
+  assert calls[0][1] == (2, 5, 7)
+  args = calls[1][1]
+  assert args[:3] == (g.data_ptr(), flow.data_ptr(), acc.data_ptr())
+  # The workspace's address, then B, H, W, C and the stream.
+  assert isinstance(args[3], int) and args[4:] == (2, 5, 7, 67, 0)
   assert _kernels.LAUNCHES == {'splat': 1}
 
 
@@ -204,7 +203,7 @@ def test_conv_wrapper_passes_what_the_entry_points_declare(
   weight, bias = torch.zeros(128, 64, 3, 3), torch.zeros(128)
   features, pooled = conv_stack.conv3x3_leaky_kernel(x, weight, bias, True)
   assert features.shape == (2, 6, 10, 128) and pooled.shape == (2, 3, 5, 128)
-  calls = dict(_calls(library))
+  calls = dict(library.log)
   exact = symbol == 'fi_conv3x3_f32'
   assert sorted(calls) == sorted([symbol] + (['fi_conv3x3_f32_splits']
                                              if exact else []))

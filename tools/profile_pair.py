@@ -56,7 +56,8 @@ TRAIN_STEPS = 3  # train steps under torch.profiler
 # Kernel groups, first match wins; matched against the demangled name. The
 # warp has two routes, warp_vector_kernel<T, planes> (C a multiple of the
 # 16-byte vector) and warp_run_kernel<T, planes> (any other C); the planes
-# mode of either is B4. The splat is splat_tile_kernel<T>.
+# mode of either is B4. The splat is five kernels, splat_index_kernel,
+# splat_scan_kernel, splat_tile_sum_kernel<T>, splat_long_sum_kernel<T>.
 GROUPS = (
     ('conv3x3_wgmma_kernel (ours, B2+B3)', r'conv3x3_wgmma_kernel'),
     ('conv3x3_fma_kernel (ours, B2+B3, exact f32)', r'conv3x3_fma_kernel'),
@@ -64,7 +65,7 @@ GROUPS = (
      r'warp_(vector|run)_kernel<[^,<>]+, true>'),
     ('warp_vector_kernel (ours, B1)', r'warp_vector_kernel<[^,<>]+, false>'),
     ('warp_run_kernel, odd C (ours, B1)', r'warp_run_kernel<[^,<>]+, false>'),
-    ('splat_tile_kernel (ours, B5+B6)', r'splat_tile_kernel'),
+    ('splat kernels (ours, B5+B6)', r'splat_'),
     ('torch.cat copies', r'CatArray'),
     ('cuDNN layout and channel padding', r'nhwcAddPadding|tensorTransform|'
      r'nchwToNhwc|nhwcToNchw'),

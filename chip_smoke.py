@@ -1285,7 +1285,7 @@ def adam_kernels_by_step(events, kernels):
   the correlation of its cudaGraphLaunch, so a captured step counts as an
   eager one does."""
   spans = sorted((e['ts'], e['ts'] + e['dur']) for e in events
-                 if e.get('name') == 'train_step' and
+                 if e.get('name') == 'fi.train.step' and
                  e.get('cat') == 'user_annotation')
   step_of = {}
   for e in events:
@@ -1349,7 +1349,7 @@ def check_gin_loop(mat_path, card, failures):
     return sum(1 for e in events
                if e.get('name') == name and e.get('cat') == 'user_annotation')
 
-  traced_steps = annotations('train_step')
+  traced_steps = annotations('fi.train.step')
   adam_steps = annotations('Optimizer.step#Adam.step')
   adam_kernels = adam_kernels_by_step(events, kernels)
   ours = {}

@@ -23,6 +23,10 @@ defaults to cuda and raises when no GPU is visible.
 visible GPU (parallel.ShardedVideoInterpolator: the chunked tree); it
 takes the device frame tree alone, without --streaming or patches. With
 one visible GPU it logs so and runs on it alone.
+`--profile_dir` writes a torch.profiler trace of every directory's
+interpolation to `<dir>/trace.json`, with the port's spans
+(utils/profiling.span): `fi.chunk` and `fi.fetch_wait` of the device frame
+tree, `fi.upload` and the programs' `fi.replay.*` and `fi.capture.*`.
 Not carried over from the JAX CLI: --warp_impl, --fold_convs and
 --conv_stack choose between TPU execution layouts, which the port does not
 have.
@@ -89,6 +93,9 @@ def _parser() -> argparse.ArgumentParser:
   parser.add_argument('--mesh', default='none', choices=['none', 'data'],
                       help="'data' splits each frame-tree chunk over every "
                       'visible GPU; outputs match one device.')
+  parser.add_argument('--profile_dir', default=None,
+                      help='If set, write a torch.profiler trace of the '
+                      'interpolation to <dir>/trace.json.')
   return parser
 
 
@@ -167,8 +174,10 @@ def main(argv: Optional[Sequence[str]] = None) -> None:
       args.params, args.align, (args.block_height, args.block_width), device)
   interpolator = to_mesh_interpolator(interpolator, args.mesh, args.align,
                                       kind='video')
-  for directory in directories:
-    process_directory(directory, interpolator, args)
+  from ..utils import profiling
+  with profiling.trace_if(args.profile_dir):
+    for directory in directories:
+      process_directory(directory, interpolator, args)
 
 
 if __name__ == '__main__':

@@ -19,6 +19,11 @@ visible GPU (parallel.ShardedInterpolator); `--mesh spatial` splits the
 rows of one full-frame forward over them (parallel.
 SpatialShardedInterpolator), with the full-frame forward's output. With
 one visible GPU both log so and run on it alone.
+
+`--profile_dir` writes a torch.profiler trace of the interpolation to
+`<dir>/trace.json`: the kernels and copies, and the port's `fi.upload`,
+`fi.replay.pair` (`fi.capture.pair` on a first call) and `fi.download`
+spans (utils/profiling.span).
 """
 from __future__ import annotations
 
@@ -63,6 +68,9 @@ def _parser() -> argparse.ArgumentParser:
                       help="Over every visible GPU: 'data' splits the "
                       "patches, 'spatial' the rows of one full-frame "
                       'forward. Outputs match one device.')
+  parser.add_argument('--profile_dir', default=None,
+                      help='If set, write a torch.profiler trace of the '
+                      'interpolation to <dir>/trace.json.')
   return parser
 
 
@@ -75,6 +83,7 @@ def main(argv: Optional[Sequence[str]] = None) -> None:
     parser.error(f'--time {args.time}: film_net predicts the midpoint '
                  '(0.5) only')
   from ..io import images
+  from ..utils import profiling
   interpolator = load_interpolator_from_flag(
       args.params, args.align, (args.block_height, args.block_width),
       device_from_flag(args.device), dtype_policy=args.dtype_policy)
@@ -87,8 +96,9 @@ def main(argv: Optional[Sequence[str]] = None) -> None:
     raise ValueError(
         f'Frame shapes differ: {image_1.shape} vs {image_2.shape}')
   batch_dt = np.full((1,), args.time, dtype=np.float32)
-  mid_frame = interpolator(image_1[np.newaxis], image_2[np.newaxis],
-                           batch_dt)[0]
+  with profiling.trace_if(args.profile_dir):
+    mid_frame = interpolator(image_1[np.newaxis], image_2[np.newaxis],
+                             batch_dt)[0]
   images.write_image(args.output_frame, mid_frame)
   print(f'Wrote {args.output_frame}')
 

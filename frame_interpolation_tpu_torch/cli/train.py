@@ -20,7 +20,7 @@ when no GPU is visible; `--device cpu` runs the plain versions of the
 kernels on the host. `--eval_files` with as many `--eval_names` evaluates
 those datasets at each save interval (training/eval_lib.py; summaries
 under `<run>/eval`). `--profile_dir` writes a torch.profiler trace of
-steps [10, 15) there.
+steps [10, 15) there, each step an `fi.train.step` span.
 
 Data-parallel training over several processes (parallel/distributed.py):
 start one process per rank with the same flags plus
@@ -96,8 +96,8 @@ def _parser() -> argparse.ArgumentParser:
   parser.add_argument('--eval_max_examples', type=int, default=-1,
                       help='Max examples per eval dataset; -1 = all.')
   parser.add_argument('--profile_dir', default=None,
-                      help='If set, write a torch.profiler trace of a few '
-                      'steps here.')
+                      help='If set, write a torch.profiler trace of steps '
+                      '[10, 15) here, each step an fi.train.step span.')
   parser.add_argument('--device', default='cuda',
                       help="Torch device: 'cuda' (default) or 'cpu'.")
   parser.add_argument('--coordinator_address', default=None,

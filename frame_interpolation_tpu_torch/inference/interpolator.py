@@ -37,6 +37,11 @@ is the eager path, the one the CPU always takes. The graphs hold their
 memory in one pool, bounded as utils/programs.py says (a new shape past
 the pool's budget drops the others); a capture or replay that fails
 raises.
+
+Under a profiler (utils/profiling.span) each crossing to the device is an
+`fi.upload` span and each numpy result of a pair an `fi.download` span,
+opened once the device has computed the result, so that it times the
+copy and not the device's work.
 """
 from __future__ import annotations
 
@@ -52,7 +57,7 @@ from ..io import params_io, tf_import
 from ..models.film_net import FilmNet, Features
 from ..ops import tiling
 from ..options import Options
-from ..utils import programs
+from ..utils import profiling, programs
 from . import cached_tree
 
 # The correctly rounded v / 255 of every byte value: numpy's f32 division,
@@ -174,13 +179,30 @@ class Interpolator:
     return (self._block_shape is not None and
             int(np.prod(self._block_shape)) > 1)
 
+  def _on_device(self, x: Any) -> bool:
+    return isinstance(x, torch.Tensor) and (
+        x.device.type == self._device.type and
+        self._device.index in (None, x.device.index))
+
   def to_device(self, x: Any) -> torch.Tensor:
     """numpy or tensor -> f32 tensor on the device; uint8 frames cross as
-    uint8 and convert there, exactly as read_image does."""
-    if not isinstance(x, torch.Tensor):
-      x = torch.from_numpy(np.ascontiguousarray(x))
-    x = x.to(self._device)
-    return u8_to_unit_f32(x) if x.dtype == torch.uint8 else x.float()
+    uint8 and convert there, exactly as read_image does. A crossing is
+    one `fi.upload` span."""
+    if self._on_device(x):
+      return u8_to_unit_f32(x) if x.dtype == torch.uint8 else x.float()
+    with profiling.span('fi.upload'):
+      if not isinstance(x, torch.Tensor):
+        x = torch.from_numpy(np.ascontiguousarray(x))
+      x = x.to(self._device)
+      return u8_to_unit_f32(x) if x.dtype == torch.uint8 else x.float()
+
+  def _to_host(self, out: torch.Tensor) -> np.ndarray:
+    """A result as numpy, once the device has computed it: the copy alone
+    is the `fi.download` span."""
+    if out.is_cuda:
+      torch.cuda.current_stream(out.device).synchronize()
+    with profiling.span('fi.download'):
+      return out.cpu().numpy()
 
   # ---- pairs -----------------------------------------------------------------
 
@@ -242,13 +264,13 @@ class Interpolator:
     """Pad -> forward -> crop, numpy in and out (no patch tiling)."""
     out = self.interpolate_device(self.to_device(x0), self.to_device(x1),
                                   self.to_device(dt))
-    return out.cpu().numpy()
+    return self._to_host(out)
 
   def __call__(self, x0: np.ndarray, x1: np.ndarray,
                dt: np.ndarray) -> np.ndarray:
     out = self.call_device(self.to_device(x0), self.to_device(x1),
                            self.to_device(dt))
-    return out.cpu().numpy()
+    return self._to_host(out)
 
   # ---- the feature-cached steps ----------------------------------------------
 

@@ -15,7 +15,10 @@ pair: (n-1) * 2^T + 1 frames.
     chunked tree with FI_TREE_CACHED=0), one fetch.
   * `interpolate_frontier_streaming`: the same over chunks of consecutive
     pairs, with device memory bounded whatever the sequence's length; the
-    fetch of a chunk overlaps the compute of the next ones.
+    fetch of a chunk overlaps the compute of the next ones. Under a
+    profiler (utils/profiling.span) each chunk's host work is an
+    `fi.chunk` span and each wait for a fetched chunk an `fi.fetch_wait`
+    span; neither is open while a frame is yielded.
 """
 from __future__ import annotations
 
@@ -28,6 +31,7 @@ import numpy as np
 import torch
 
 from ..io import images
+from ..utils import profiling
 from .cached_tree import quantize_u8
 from .interpolator import Interpolator
 
@@ -308,11 +312,12 @@ def interpolate_frontier_streaming(
   stream = _fetch_stream(interpolator)
   pending = collections.deque()  # (fetch, is_last, n_chunk_inputs)
   for chunk, last in chunks():
-    out = interpolator.expand_tree_device(
-        _stack_inputs(chunk), times_to_interpolate, max_batch=max_batch,
-        as_uint8=as_uint8)
-    pending.append((_Fetch(out, stream), last, len(chunk)))
-    del out
+    with profiling.span('fi.chunk'):
+      out = interpolator.expand_tree_device(
+          _stack_inputs(chunk), times_to_interpolate, max_batch=max_batch,
+          as_uint8=as_uint8)
+      pending.append((_Fetch(out, stream), last, len(chunk)))
+      del out
     if len(pending) > pipeline_depth:
       yield from _fetched_frames(*pending.popleft(), progress)
   while pending:
@@ -325,7 +330,8 @@ def _fetched_frames(fetch: _Fetch, last: bool, n_chunk_inputs: int,
   """One expanded chunk's frames in time order. The final frame is dropped
   unless `last`: it is the next chunk's first input, which that chunk
   emits again."""
-  stacked = fetch.result()
+  with profiling.span('fi.fetch_wait'):
+    stacked = fetch.result()
   if progress is not None:
     progress(stacked.shape[0] - n_chunk_inputs)
   stop = stacked.shape[0] if last else stacked.shape[0] - 1

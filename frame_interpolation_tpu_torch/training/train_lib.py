@@ -18,8 +18,9 @@ reference's training/train.py and train_lib.py):
     CLI fills with training/eval_lib.eval_loop (train_lib.py:313-314);
   * a profiler trace of a window of steps when `profile_dir` is set: steps
     [profile_start_step, profile_start_step + profile_num_steps), written
-    by utils/profiling as `<profile_dir>/steps_<first>_<end>.json`, closed
-    early when the run ends (or fails) inside the window.
+    by utils/profiling as `<profile_dir>/steps_<first>_<end>.json`, each
+    step an `fi.train.step` span, closed early when the run ends (or
+    fails) inside the window.
 
 The model, the batch and the augmentations live on one device; on CUDA the
 warp and the extractor's conv stacks run the hand-written kernels forward
@@ -466,8 +467,9 @@ def train_loop(
       will_log = (next_step % opts.save_interval == 0 or
                   next_step == opts.num_steps)
       # A replayed step calls nothing in Python that a trace would name
-      # (Adam's own annotation among them): the window marks each step.
-      with torch.profiler.record_function('train_step'):
+      # (Adam's own annotation among them): an `fi.train.step` span marks
+      # each step of the window.
+      with profiling.span('fi.train.step'):
         metrics, summaries = (summary_step_fn if will_log else step_fn)(
             state, batch, step_generator(seed, state.step))
       if trace is not None and (

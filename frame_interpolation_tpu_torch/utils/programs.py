@@ -49,6 +49,11 @@ captured last.
 Nothing falls back: a capture or replay that fails raises. A program
 exists only on a CUDA device; on the CPU the eager function is the path,
 and the callers decide (`resolve`).
+
+Under a profiler (utils/profiling.span) a replay is one
+`fi.replay.<program>` span (the copies into the static buffers, the
+replay, the output clones) and a first call one `fi.capture.<program>`
+span (making room, the warm-up, the capture).
 """
 from __future__ import annotations
 
@@ -65,6 +70,7 @@ from typing import Any, Callable, Dict, Optional
 import torch
 
 from ..ops import _kernels
+from . import profiling
 
 # Graphs kept a pool, least recently used dropped first: the bound of the
 # JAX package's compile cache (utils/xla_options.py's LRU of 16).
@@ -262,6 +268,8 @@ class Program:
     if self.device.index is None:
       self.device = torch.device('cuda', torch.cuda.current_device())
     self.name = name
+    self._replay_span = f'fi.replay.{name}'
+    self._capture_span = f'fi.capture.{name}'
     self.pool = pool or Pool()
     self._fn = fn
     self._serial = next(Program._serials)
@@ -294,47 +302,49 @@ class Program:
       self.pool.clear()
 
   def _first_call(self, key, args, static):
-    pool = self.pool
-    pool.make_room(self._budget)
-    if pool.stream is None:
-      pool.stream = torch.cuda.Stream(self.device)
-    if pool.handle is None:
-      pool.handle = torch.cuda.graph_pool_handle()
-      pool.done = torch.cuda.Event()
-    stream = pool.stream
-    current = torch.cuda.current_stream(self.device)
-    inputs = tree_map(
-        lambda t: torch.empty(t.shape, dtype=t.dtype,
-                              device=self.device).copy_(t), args)
-    # The warm-up: this call's result, computed eagerly.
-    stream.wait_stream(current)
-    with torch.cuda.stream(stream):
-      result = tree_map(torch.clone, self._fn(*inputs, **static))
-    current.wait_stream(stream)
-    graph = torch.cuda.CUDAGraph()
-    start = time.perf_counter()
-    with _CAPTURE_LOCK, expandable_segments():
-      with torch.cuda.graph(graph, pool=pool.handle, stream=stream,
-                            capture_error_mode='thread_local'):
-        reserved = torch.cuda.memory_reserved(self.device)
-        with _kernels.recording(stream.cuda_stream) as launches:
-          outputs = self._fn(*inputs, **static)
-        pool_bytes = torch.cuda.memory_reserved(self.device) - reserved
-    pool.add(key, Capture(graph=graph, inputs=inputs, outputs=outputs,
-                          launches=dict(launches),
-                          capture_seconds=time.perf_counter() - start,
-                          pool_bytes=pool_bytes))
-    pool.done.record(current)
-    return result
+    with profiling.span(self._capture_span):
+      pool = self.pool
+      pool.make_room(self._budget)
+      if pool.stream is None:
+        pool.stream = torch.cuda.Stream(self.device)
+      if pool.handle is None:
+        pool.handle = torch.cuda.graph_pool_handle()
+        pool.done = torch.cuda.Event()
+      stream = pool.stream
+      current = torch.cuda.current_stream(self.device)
+      inputs = tree_map(
+          lambda t: torch.empty(t.shape, dtype=t.dtype,
+                                device=self.device).copy_(t), args)
+      # The warm-up: this call's result, computed eagerly.
+      stream.wait_stream(current)
+      with torch.cuda.stream(stream):
+        result = tree_map(torch.clone, self._fn(*inputs, **static))
+      current.wait_stream(stream)
+      graph = torch.cuda.CUDAGraph()
+      start = time.perf_counter()
+      with _CAPTURE_LOCK, expandable_segments():
+        with torch.cuda.graph(graph, pool=pool.handle, stream=stream,
+                              capture_error_mode='thread_local'):
+          reserved = torch.cuda.memory_reserved(self.device)
+          with _kernels.recording(stream.cuda_stream) as launches:
+            outputs = self._fn(*inputs, **static)
+          pool_bytes = torch.cuda.memory_reserved(self.device) - reserved
+      pool.add(key, Capture(graph=graph, inputs=inputs, outputs=outputs,
+                            launches=dict(launches),
+                            capture_seconds=time.perf_counter() - start,
+                            pool_bytes=pool_bytes))
+      pool.done.record(current)
+      return result
 
   def _replay(self, capture: Capture, args):
-    current = torch.cuda.current_stream(self.device)
-    # A caller on another stream may still be reading the pool.
-    current.wait_event(self.pool.done)
-    for dst, src in zip(tree_tensors(capture.inputs), tree_tensors(args)):
-      dst.copy_(src, non_blocking=True)
-    capture.graph.replay()
-    _kernels.add_replay(capture.launches)
-    result = tree_map(torch.clone, capture.outputs)
-    self.pool.done.record(current)
-    return result
+    with profiling.span(self._replay_span):
+      current = torch.cuda.current_stream(self.device)
+      # A caller on another stream may still be reading the pool.
+      current.wait_event(self.pool.done)
+      for dst, src in zip(tree_tensors(capture.inputs), tree_tensors(args)):
+        dst.copy_(src, non_blocking=True)
+      capture.graph.replay()
+      _kernels.add_replay(capture.launches)
+      result = tree_map(torch.clone, capture.outputs)
+      self.pool.done.record(current)
+      return result

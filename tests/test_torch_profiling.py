@@ -1,8 +1,9 @@
 """The port's profiling helpers and the train loop's trace window, on the
 CPU: `trace_if` writes a torch.profiler Chrome trace; `StepTimer` keeps the
 JAX package's semantics; the window of `train_lib.train_loop` opens at
-`profile_start_step`, closes after `profile_num_steps` steps, and closes
-early when the run ends or fails inside it. No JAX compile.
+`profile_start_step`, closes after `profile_num_steps` steps (each an
+`fi.train.step` span), and closes early when the run ends or fails inside
+it. No JAX compile.
 """
 import json
 import os
@@ -28,10 +29,11 @@ def _events(path):
     return json.load(f)['traceEvents']
 
 
-def _steps_in(path):
-  """Adam updates recorded in a trace: one per train step."""
+def _steps_in(path, name=_ADAM):
+  """Adam updates recorded in a trace (or the trainer's `fi.train.step`
+  spans): one per train step."""
   return sum(1 for e in _events(path)
-             if e.get('name') == _ADAM and e.get('cat') == 'user_annotation')
+             if e.get('name') == name and e.get('cat') == 'user_annotation')
 
 
 def test_trace_if_writes_a_trace(tmp_path):
@@ -107,6 +109,7 @@ def test_train_loop_trace_window(num_steps, window, tmp_path):
                    f'{path}']
   assert os.listdir(str(prof)) == [f'steps_{first}_{end}.json']
   assert _steps_in(path) == end - first
+  assert _steps_in(path, 'fi.train.step') == end - first
 
 
 def test_train_loop_trace_closes_on_failure(tmp_path):

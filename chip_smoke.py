@@ -86,7 +86,7 @@ kernels, then the sharded serving paths, and after training the eval loop:
 Then the slice that completes the port:
 
   * the split-concat convs (Options.split_convs): the 1080p bf16 pair split
-    against concat (>= 50 dB, 22/14/48 launches in both forms, ms a pair
+    against concat (>= 50 dB, 12/20/14/48 launches in both forms, ms a pair
     of each in turns, the form 'auto' picks on CUDA), the pair in f32 at
     544x960 (1e-4), one film_net-L1 step in each form under the
     step-parity bounds, the row-sharded pair with split convs on
@@ -111,7 +111,13 @@ of the frame's slabs, as the row-sharded forward runs it) is held bit
 for bit against the whole-frame warp's rows, and against its plain
 version, at 1088x1920x67 and x64 bf16 and 544x960x195 f32 over 2 and 4
 slabs, under the seam flow and the seam flow moved a third of the frame
-down.
+down. Its slice mode (B1-slice: the warp into a slice of channels of the
+fusion's input) is held at the fusion's level-0 slices of a 1080p pair
+(1088x1920x64 at channels 0 and 64 and x3 at 128 and 131 of a 144-channel
+bf16 buffer, timed, against the plain warp and F.grid_sample each copied
+into the slice) and in f32 at the coarsest level's: bit for bit against
+the contiguous warp, within the warp's bound of the plain warp, every
+channel outside the slice keeping its sentinel.
 
 Every path above takes the port's default on the card: its entry points
 run as captured CUDA graphs (utils/programs.py), so the serving, video,
@@ -226,6 +232,7 @@ from frame_interpolation_tpu_torch.utils import measure, programs
 
 WARP_BF16_BOUND = 2 * 2.0**-8  # max-abs, images in [0, 1)
 WARP_F32_BOUND = 1e-5          # max-abs
+WARP_SENTINEL = -7.0           # exact in bf16, outside the warp's [0, 1)
 CONV_BF16_BOUND = 1e-2         # max|k - p| / max|p|
 CONV_F32_BOUND = 1e-4          # same, TF32 off on the plain side
 # Same, the kernel in TF32 against the plain version in exact f32: TF32
@@ -242,16 +249,20 @@ REPEAT_BOUND = 1e-6            # max-abs between repeated requests
 LOSS_REL_BOUND = 1e-5          # train step, kernels vs plain (TF32 off)
 GRAD_REL_BOUND = 1e-3          # per tensor max|g_k - g_p| / max|g_p|
 REQUESTS = 3
-# Launches per 1080p pair (released config): 12 flow-estimator warps + 10
-# fusion warps; per frame 7 C=64 second convs and 15 wider second convs +
-# 9 rectangular first convs, and each frame is extracted separately.
-PAIR_LAUNCHES = {'warp': 22, 'warp_planes': 0, 'splat': 0,
-                 'conv3x3_c64': 14, 'conv3x3_wide': 48, 'warp_rows': 0}
-# Launches per train step: the forward's, plus one planes and one splat
-# launch per warp in the backward (every warp's image and flow need a
-# gradient); the conv backward is plain PyTorch.
+# Launches per 1080p pair (released config): 12 flow-estimator warps and
+# 20 warps into the fusion's input (each frame's features and image at 5
+# levels); per frame 7 C=64 second convs and 15 wider second convs + 9
+# rectangular first convs, and each frame is extracted separately.
+PAIR_LAUNCHES = {'warp': 12, 'warp_planes': 0, 'splat': 0,
+                 'conv3x3_c64': 14, 'conv3x3_wide': 48, 'warp_rows': 0,
+                 'warp_slice': 20}
+# Launches per train step: the forward's, whose fusion input is the
+# concat's (12 + 10 warps), plus one planes and one splat launch per warp
+# in the backward (every warp's image and flow need a gradient); the conv
+# backward is plain PyTorch.
 STEP_LAUNCHES = {'warp': 22, 'warp_planes': 22, 'splat': 22,
-                 'conv3x3_c64': 14, 'conv3x3_wide': 48, 'warp_rows': 0}
+                 'conv3x3_c64': 14, 'conv3x3_wide': 48, 'warp_rows': 0,
+                 'warp_slice': 0}
 TRAIN_BATCH, TRAIN_CROP = 8, 256
 TRAIN_STEPS, RESUME_STEPS, SAVE_INTERVAL = 20, 25, 10
 WARMUP_STEPS, TIMED_STEPS = 3, 10
@@ -300,20 +311,20 @@ style.vgg_model_file = '{mat}'
 VIDEO_FRAMES, VIDEO_TIMES, VIDEO_MAX_BATCH = 3, 3, 3
 VIDEO_H, VIDEO_W = 1080, 1920
 VIDEO_OUTPUTS = (VIDEO_FRAMES - 1) * 2**VIDEO_TIMES + 1
-# The cached DFS: 22 warps a midpoint; 9 extractions (3 inputs + 6
+# The cached DFS: 12 + 20 warps a midpoint; 9 extractions (3 inputs + 6
 # midpoints that are not final-depth leaves) of 7 C=64 and 24 wide convs.
-CACHED_TREE_LAUNCHES = {'warp': 14 * 22, 'warp_planes': 0, 'splat': 0,
+CACHED_TREE_LAUNCHES = {'warp': 14 * 12, 'warp_planes': 0, 'splat': 0,
                         'conv3x3_c64': 9 * 7, 'conv3x3_wide': 9 * 24,
-                        'warp_rows': 0}
+                        'warp_rows': 0, 'warp_slice': 14 * 20}
 # The chunked tree at max_batch 3: 6 forwards (a batch of 2 at depth 1,
 # 3+3 and 3+3+3 with filler pairs at depths 2 and 3); a launch covers the
-# whole batch, so each forward launches a pair's 22/14/48.
+# whole batch, so each forward launches a pair's 12/20/14/48.
 CHUNKED_TREE_LAUNCHES = {k: 6 * v for k, v in PAIR_LAUNCHES.items()}
 # The tiled tree of a pair at T = 1 in 2x2 patches: each patch's cached
 # tree extracts its 2 frames and makes one midpoint.
-TILED_TREE_LAUNCHES = {'warp': 4 * 22, 'warp_planes': 0, 'splat': 0,
+TILED_TREE_LAUNCHES = {'warp': 4 * 12, 'warp_planes': 0, 'splat': 0,
                        'conv3x3_c64': 4 * 2 * 7, 'conv3x3_wide': 4 * 2 * 24,
-                       'warp_rows': 0}
+                       'warp_rows': 0, 'warp_slice': 4 * 20}
 # Sharded serving on one card, the pair padded to 1088x1920. Every shard
 # runs every conv site (on its slab or the whole level), so 14n C=64 and
 # 48n wide launches. A level splits when its rows divide into even slabs:
@@ -321,16 +332,17 @@ TILED_TREE_LAUNCHES = {'warp': 4 * 22, 'warp_planes': 0, 'splat': 0,
 # over 2 the levels of 1088..68 rows, not 34. A shard warps a split level
 # in row mode: the flow estimator warps levels 0-5 and the fusion levels
 # 0-4, each in two directions, so over 4 shards 8 + 8 row-mode and 4 + 2
-# whole warps a shard, over 2 shards 10 + 10 and 2 + 0.
+# whole warps a shard, over 2 shards 10 + 10 and 2 + 0. A shard builds the
+# fusion's input by concats, so no warp into it.
 SPATIAL_LAUNCHES = {
     4: {'warp': 4 * 6, 'warp_planes': 0, 'splat': 0, 'conv3x3_c64': 4 * 14,
-        'conv3x3_wide': 4 * 48, 'warp_rows': 4 * 16},
+        'conv3x3_wide': 4 * 48, 'warp_rows': 4 * 16, 'warp_slice': 0},
     2: {'warp': 2 * 2, 'warp_planes': 0, 'splat': 0, 'conv3x3_c64': 2 * 14,
-        'conv3x3_wide': 2 * 48, 'warp_rows': 2 * 20},
+        'conv3x3_wide': 2 * 48, 'warp_rows': 2 * 20, 'warp_slice': 0},
 }
 SHARDS = 4
 # The 2x2 patches of a pair over 4 shards: each shard's one-patch forward
-# launches a pair's 22/14/48.
+# launches a pair's 12/20/14/48.
 SHARDED_PATCH_LAUNCHES = {k: SHARDS * v for k, v in PAIR_LAUNCHES.items()}
 # The 17-frame tree over 4 shards, one node a shard: chunks of 4 nodes,
 # 1 + 1 + 2 of them at depths 1-3 (2, 4 and 8 pairs), so 16 one-node
@@ -391,10 +403,14 @@ DDP_TIMEOUT_S = 600
 GRAPH_PSNR_DB = 50.0
 GRAPH_STEP_REL_BOUND = 1e-5
 # (H, W, batch) of the pairs one Interpolator serves in turn: frame sizes
-# and batch sizes whose graphs together outgrow the pool's budget.
+# and batch sizes whose graphs together outgrow the pool's budget. The
+# first nine fit in it (the pool holds 17.62 GiB of its 19.79 after the
+# 4K pair); the 4K pair at batch 2 takes the pool past it, and the
+# capture of the next new key empties it.
 MIXED_KEYS = ((1080, 1920, 1), (1080, 1920, 2), (1440, 2560, 1),
               (720, 1280, 1), (720, 1280, 3), (1080, 1920, 3),
-              (2160, 3840, 1), (1080, 1920, 1), (720, 1280, 1))
+              (2160, 3840, 1), (1080, 1920, 1), (720, 1280, 1),
+              (2160, 3840, 2), (720, 1280, 2))
 # Device memory beyond the pool's: the graphs' static inputs and the
 # allocator's rounding.
 MIXED_SLACK_BYTES = 2**30
@@ -408,6 +424,7 @@ REPLACES = {
     'conv3x3_c64': 'frame_interpolation_tpu/ops/conv_stack.py:141',
     'conv3x3_wide': 'frame_interpolation_tpu/ops/conv_stack_wide.py:124',
     'warp_rows': 'frame_interpolation_tpu/ops/warp_window.py:134',
+    'warp_slice': 'frame_interpolation_tpu/ops/warp_window.py:134',
 }
 SOURCES = {
     'warp': 'frame_interpolation_tpu_torch/csrc/warp.cu',
@@ -416,6 +433,7 @@ SOURCES = {
     'conv3x3_c64': 'frame_interpolation_tpu_torch/csrc/conv3x3.cu',
     'conv3x3_wide': 'frame_interpolation_tpu_torch/csrc/conv3x3.cu',
     'warp_rows': 'frame_interpolation_tpu_torch/csrc/warp.cu',
+    'warp_slice': 'frame_interpolation_tpu_torch/csrc/warp.cu',
 }
 
 
@@ -488,6 +506,55 @@ def check_warp(rng, h, w, c, dtype, bound, batch=1, timed=True):
                    align_corners=True),
                # Three lerps a channel, 3 FLOPs each.
                9.0 * image.numel(), nbytes, measure.PEAK_FLOPS['float32'])
+  return result
+
+
+def check_warp_into(rng, h, w, c, pitch, channel, dtype, bound, timed=True):
+  """B1-slice: the warp into channels [channel, channel + c) of a buffer of
+  `pitch` channels filled with a sentinel, under the seam flow: the slice
+  within `bound` of the plain warp and bit for bit the contiguous kernel's
+  warp, every other channel still the sentinel. Timed against the plain
+  warp copied into the slice and F.grid_sample with a copy into the slice;
+  the bytes are the image and flow read and the slice written."""
+  image = torch.from_numpy(rng.rand(1, h, w, c).astype(np.float32)).to(
+      'cuda', dtype)
+  flow = smooth_seam_flow(h, w)
+  out = torch.full((1, h, w, pitch), WARP_SENTINEL, dtype=dtype,
+                   device='cuda')
+  warp.backward_warp_into_kernel(image, flow, out, channel)
+  got = out[..., channel:channel + c]
+  want = warp.backward_warp_plain(image, flow)
+  contiguous = warp.backward_warp_kernel(image, flow)
+  torch.cuda.synchronize()
+  err = (got.float() - want.float()).abs().max().item()
+  outside = torch.cat([out[..., :channel], out[..., channel + c:]], -1)
+  kept = bool((outside == WARP_SENTINEL).all().item())
+  bit_equal = torch.equal(got, contiguous)
+  result = {
+      'shape': f'1x{h}x{w}x{c} into {pitch} at {channel}',
+      'dtype': str(dtype).split('.')[-1], 'max_abs_err': err, 'bound': bound,
+      'sentinels_kept': kept, 'contiguous_bit_equal': bit_equal,
+      'ok': err <= bound and kept and bit_equal,
+  }
+  if timed:
+    grid = measure.bilinear_grid(flow).to(dtype)
+    nchw = image.permute(0, 3, 1, 2)
+    piece = out[..., channel:channel + c]
+
+    def plain():
+      piece.copy_(warp.backward_warp_plain(image, flow))
+
+    def library():
+      piece.copy_(torch.nn.functional.grid_sample(
+          nchw, grid, mode='bilinear', padding_mode='border',
+          align_corners=True).permute(0, 2, 3, 1))
+
+    nbytes = 2 * image.numel() * image.element_size() + flow.numel() * 4
+    add_timing(result,
+               lambda: warp.backward_warp_into_kernel(image, flow, out,
+                                                      channel),
+               plain, library, 9.0 * image.numel(), nbytes,
+               measure.PEAK_FLOPS['float32'])
   return result
 
 
@@ -715,6 +782,11 @@ def _plain_warp(image, flow):
   return warp.BackwardWarp.apply(image, flow, True)
 
 
+def _plain_warp_into(image, flow, out, channel):
+  out[..., channel:channel + image.shape[-1]] = warp.backward_warp_plain(
+      image, flow)
+
+
 def _plain_conv(x, weight, bias, pool=False, negative_slope=0.2):
   out = conv_stack.Conv3x3Leaky.apply(x, weight, bias, pool, negative_slope,
                                       True)
@@ -724,14 +796,18 @@ def _plain_conv(x, weight, bias, pool=False, negative_slope=0.2):
 @contextlib.contextmanager
 def plain_versions():
   """Routes the model's warp and conv-stack calls to the plain versions,
-  forward and backward (the same autograd Functions, plain=True)."""
-  saved = warp.backward_warp, conv_stack.conv3x3_leaky
+  forward and backward (the same autograd Functions, plain=True), and its
+  warps into the fusion's input to the plain warp's copy."""
+  saved = (warp.backward_warp, warp.backward_warp_into,
+           conv_stack.conv3x3_leaky)
   warp.backward_warp = _plain_warp
+  warp.backward_warp_into = _plain_warp_into
   conv_stack.conv3x3_leaky = _plain_conv
   try:
     yield
   finally:
-    warp.backward_warp, conv_stack.conv3x3_leaky = saved
+    (warp.backward_warp, warp.backward_warp_into,
+     conv_stack.conv3x3_leaky) = saved
 
 
 def square_frame(cy, cx, size=TRAIN_CROP, half=32):
@@ -3350,9 +3426,9 @@ def main() -> int:
   # Phase 3: each kernel against its plain version at main-path shapes.
   # The warp has two routes: 16-byte channel vectors where C allows them
   # (the flow estimator's C = 64 ... 960) and runs of flat (pixel, channel)
-  # elements where it does not (the fusion's C = 67 ... 963); each is
-  # checked, the run route also at the train step's two finest fusion
-  # warps.
+  # elements where it does not (the train step's fusion warps, C = 67 ...
+  # 963); each is checked, the run route also at the train step's two
+  # finest fusion warps.
   rng = np.random.RandomState(0)
   checks = {
       'warp': [check_warp(rng, 1088, 1920, 67, torch.bfloat16,
@@ -3452,6 +3528,18 @@ def main() -> int:
                                  WARP_F32_BOUND)):
     checks['warp_rows'].extend(check_warp_rows(
         rng, h, w, c, dtype, bound, ((4, 'seam'), (2, 'far'))))
+  # The warp's slice mode (B1-slice) at the fusion's level-0 slices of a
+  # 1080p pair (each frame's features at 0 and 64, vector route; its image
+  # at 128 and 131, run route; timed, their sum a level-0 assembly's
+  # warps), and in f32 at the coarsest level's widths.
+  checks['warp_slice'] = [
+      check_warp_into(rng, 1088, 1920, c, 144, channel, torch.bfloat16,
+                      WARP_BF16_BOUND)
+      for c, channel in ((64, 0), (64, 64), (3, 128), (3, 131))]
+  checks['warp_slice'] += [
+      check_warp_into(rng, 17, 30, c, 1936, channel, torch.float32,
+                      WARP_F32_BOUND, timed=False)
+      for c, channel in ((960, 960), (3, 1923))]
   # The splat's order, bit for bit: both flows, both dtypes, a C of two
   # channel passes, and oob flow on a whole 256x256 frame, whose edge tiles
   # hold more entries than a block sorts in shared memory.
@@ -3474,6 +3562,9 @@ def main() -> int:
              if 'library_rel_err' in r else '') +
             (f' (whole-frame rows max-abs {r["full_err"]:.1e})'
              if 'full_err' in r else '') +
+            (f' (sentinels kept {r["sentinels_kept"]}, bit-equal to the '
+             f'contiguous warp {r["contiguous_bit_equal"]})'
+             if 'sentinels_kept' in r else '') +
             (f' (two launches bit-equal {r["repeat_bit_equal"]})'
              if 'repeat_bit_equal' in r else '') +
             (f' (bit-equal to the ordered reference {r["order_bit_equal"]})'
@@ -3612,7 +3703,7 @@ def main() -> int:
   # backward kernels' every timed shape.
   record = {'kernels': []}
   for name in ('warp', 'warp_planes', 'splat', 'conv3x3_c64', 'conv3x3_wide',
-               'warp_rows'):
+               'warp_rows', 'warp_slice'):
     backward = name in ('warp_planes', 'splat')
     main_launches = (train_launches if backward else spatial_launches
                      if name == 'warp_rows' else launches)

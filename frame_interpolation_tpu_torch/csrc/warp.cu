@@ -7,7 +7,8 @@
 // backward_warp_window) is fi_warp_*; the planes mode (emit_planes on,
 // reached through the window VJP's _bwd) is fi_warp_planes_*; the primal
 // on a slab of output rows (_forward with row_offset and clamp_h, reached
-// through backward_warp_window_rows) is fi_warp_rows_*.
+// through backward_warp_window_rows) is fi_warp_rows_*. fi_warp_into_* is
+// the primal written into a slice of channels of a wider buffer (below).
 //
 //   out[b, y, x, c] = bilerp(image[b], y + flow[b,y,x,1], x + flow[b,y,x,0])
 //
@@ -27,23 +28,38 @@
 // layout exist to get taps into VMEM; here the image stays NHWC, so each
 // tap is one contiguous C-vector in device memory, and the kernel has two
 // routes over it.
-//  * Vector route, where C is a multiple of the 16-byte vector (8 bf16 or
-//    4 f32: the flow estimator's C = 64 ... 960) and the pointers are
-//    16-byte aligned: one thread per output pixel and 16-byte piece of
-//    channels, one uint4 load per tap; neighbouring threads read
-//    neighbouring pieces of one tap.
-//  * Run route, for every other C (the fusion's image+feature warps,
-//    C = 67, 195, 451, 963): a block of 128 threads takes a run of up to 32
-//    consecutive output pixels, computes each pixel's tap offset and alphas
-//    once into shared memory, and its threads then stride over the run's
-//    flat (pixel, channel) elements, two consecutive elements a thread. A
-//    warp's lanes read consecutive channels of a tap (one or two contiguous
-//    pieces where the warp straddles two pixels), and its stores are one
-//    contiguous piece of the output, since the run's output is contiguous
-//    in NHWC. Taps at odd C lie at any alignment, so the loads are one
-//    element wide; in bf16 the route runs eight times the vector route's
-//    load instructions for the same bytes, and that, not the bytes, is
-//    what it runs into first.
+//  * Vector route, where C and the output's pitch are multiples of the
+//    16-byte vector (8 bf16 or 4 f32: the flow estimator's C = 64 ... 960
+//    and the fusion's feature warps) and the pointers are 16-byte aligned:
+//    one thread per output pixel and 16-byte piece of channels, one uint4
+//    load per tap; neighbouring threads read neighbouring pieces of one
+//    tap.
+//  * Run route, for every other C (the fusion's image warps, C = 3; the
+//    training step's image+feature warps, C = 67, 195, 451, 963): a block
+//    of 128 threads takes a run of up to 32 consecutive output pixels,
+//    computes each pixel's tap offset and alphas once into shared memory,
+//    and its threads then stride over the run's flat (pixel, channel)
+//    elements, two consecutive elements a thread. A warp's lanes read
+//    consecutive channels of a tap (one or two contiguous pieces where the
+//    warp straddles two pixels), and its stores are one contiguous piece
+//    of the output where the run's output is contiguous in NHWC. A pair
+//    of elements is stored as one where its two outputs are adjacent and
+//    the first is pair-aligned, else as two: into a slice (below) a pair
+//    that spans two pixels, or starts at an odd channel, is two stores.
+//    Taps at odd C lie at any alignment, so the loads are one element
+//    wide; in bf16 the route runs eight times the vector route's load
+//    instructions for the same bytes, and that, not the bytes, is what it
+//    runs into first.
+//
+// Slice mode (fi_warp_into_*): the output is channels [k, k + C) of a
+// buffer of `pitch` channels a pixel, and the launch writes those and no
+// others: the fusion's input (models/film_net.py) is one buffer a level
+// whose channel slices the warps of both frames' features and images
+// write in place, so no concat copies them again. The store of pixel p's
+// channel c goes to out + p * pitch + c, `out` pointing at channel k of
+// pixel 0; every other mode has pitch = C. At the fusion's layout the
+// feature slices start on 16-byte boundaries and the pitch is a multiple
+// of 8, so the feature warps take the vector route.
 //
 // Row mode: the row-sharded forward (ops/warp.py backward_warp_rows) warps
 // each shard's slab of H_out output rows, whose first row is global row
@@ -179,7 +195,7 @@ __global__ void __launch_bounds__(kVectorThreads)
     warp_vector_kernel(const T* __restrict__ image,
                        const float2* __restrict__ flow, T* __restrict__ out,
                        T* __restrict__ dv_out, Rows rows, int W, int C,
-                       int pieces, int64_t total) {
+                       int pitch, int pieces, int64_t total) {
   constexpr int kVec = 16 / sizeof(T);
   const int64_t idx = (int64_t)blockIdx.x * blockDim.x + threadIdx.x;
   if (idx >= total) return;
@@ -215,8 +231,8 @@ __global__ void __launch_bounds__(kVectorThreads)
       er[j] = from_float<T>(blend(q.ax, q.ay, s00, s01, s10, s11));
     }
   }
-  *reinterpret_cast<uint4*>(out + p * C + c0) = r;
-  if (kPlanes) *reinterpret_cast<uint4*>(dv_out + p * C + c0) = rv;
+  *reinterpret_cast<uint4*>(out + p * pitch + c0) = r;
+  if (kPlanes) *reinterpret_cast<uint4*>(dv_out + p * pitch + c0) = rv;
 }
 
 // Run route: block `blockIdx.x` takes output pixels [p0, p0 + run) of the
@@ -225,17 +241,26 @@ __global__ void __launch_bounds__(kVectorThreads)
 // arithmetic and one aligned two-element store; the second element is the
 // next channel of the same pixel, or channel 0 of the next pixel where the
 // pair spans two (a select, not a branch, so the warp does not diverge).
+// Where the output is contiguous (pitch = C, `out` pair-aligned: every mode
+// but the slice) element e of the run lies at p0 * C + e. Into a slice
+// (kPitched) the outputs of element (i, c) lie at (p0 + i) * pitch + c; a
+// pair whose two outputs are adjacent and whose first is pair-aligned
+// takes one store, any other pair two. The contiguous form is kept apart
+// because the slice's address arithmetic costs the run route up to 16%
+// on an H100 (1088x1920x67 bf16), whose one-element loads leave it no
+// slack.
 struct alignas(16) RunPixel {
   int64_t tap, below;  // offsets of the top-left tap and the tap below it
   float ax, ay;
 };
 
-template <typename T, bool kPlanes>
+template <typename T, bool kPlanes, bool kPitched>
 __global__ void __launch_bounds__(kRunThreads)
     warp_run_kernel(const T* __restrict__ image,
                     const float2* __restrict__ flow, T* __restrict__ out,
                     T* __restrict__ dv_out, Rows rows, int W, int C,
-                    int64_t pixels, int run) {
+                    int pitch, int64_t pixels, int run) {
+  static_assert(!(kPlanes && kPitched), "the planes are contiguous");
   __shared__ RunPixel s_px[kMaxRun];
   __shared__ float2 s_cg[kPlanes ? kMaxRun : 1];  // clip gradients (x, y)
   const int tid = threadIdx.x;
@@ -256,11 +281,13 @@ __global__ void __launch_bounds__(kRunThreads)
   FlatWalk walk(2 * tid, 2 * kRunThreads, C);
   for (int e0 = 2 * tid; e0 < total; e0 += 2 * kUnroll * kRunThreads) {
     int px[kUnroll], qx[kUnroll];  // the pixels of the pair's elements
+    int cx[kUnroll];               // the channel of its first element
     float2 t[kUnroll][4];
 #pragma unroll
     for (int u = 0; u < kUnroll; ++u) {
       const bool live = e0 + 2 * u * kRunThreads < total;
       const int c = walk.c;
+      cx[u] = c;
       px[u] = min(walk.i, n - 1);
       qx[u] = c + 1 < C ? px[u] : min(px[u] + 1, n - 1);
       walk.next();
@@ -297,7 +324,18 @@ __global__ void __launch_bounds__(kRunThreads)
         r.x = blend(P.ax, P.ay, t[u][0].x, t[u][1].x, t[u][2].x, t[u][3].x);
         r.y = blend(Q.ax, Q.ay, t[u][0].y, t[u][1].y, t[u][2].y, t[u][3].y);
       }
-      if (e + 1 < total) {
+      const bool two = e + 1 < total;  // the pair's second element is live
+      if constexpr (kPitched) {
+        const int64_t a = (p0 + px[u]) * pitch + cx[u];
+        const int64_t b = cx[u] + 1 < C ? a + 1 : (p0 + qx[u]) * pitch;
+        if (two && b == a + 1 &&
+            reinterpret_cast<uintptr_t>(out + a) % (2 * sizeof(T)) == 0) {
+          store2(out + a, r);
+        } else {
+          out[a] = from_float<T>(r.x);
+          if (two) out[b] = from_float<T>(r.y);
+        }
+      } else if (two) {
         store2(o + e, r);
         if (kPlanes) store2(v + e, rv);
       } else {
@@ -309,11 +347,12 @@ __global__ void __launch_bounds__(kRunThreads)
 }
 
 // dv_out is NULL for the warp and the dv plane for the planes mode (where
-// `out` takes du).
+// `out` takes du). `pitch`: elements from one output pixel to the next.
 template <typename T, bool kPlanes>
 int launch_warp(const void* image, const void* flow, void* out, void* dv_out,
-                int B, Rows rows, int W, int C, void* stream) {
+                int B, Rows rows, int W, int C, int pitch, void* stream) {
   if (rows.clamp_h < 2 || W < 2 || C < 1 || B < 1 || rows.h_out < 1 ||
+      pitch < C ||
       rows.row_offset < 0 || rows.row_offset + rows.h_out > rows.clamp_h ||
       rows.n_slabs < 1 || rows.n_slabs > kMaxSlabs || rows.slab_rows < 1 ||
       (int64_t)rows.n_slabs * rows.slab_rows != rows.clamp_h) {
@@ -331,7 +370,7 @@ int launch_warp(const void* image, const void* flow, void* out, void* dv_out,
     slabs_aligned = slabs_aligned &&
         (reinterpret_cast<uintptr_t>(in + rows.slab[k]) % 16 == 0);
   }
-  const bool vector = C % kVec == 0 && slabs_aligned &&
+  const bool vector = C % kVec == 0 && pitch % kVec == 0 && slabs_aligned &&
                       reinterpret_cast<uintptr_t>(out) % 16 == 0 &&
                       reinterpret_cast<uintptr_t>(dv_out) % 16 == 0;
   if (vector) {
@@ -340,20 +379,29 @@ int launch_warp(const void* image, const void* flow, void* out, void* dv_out,
     const int64_t blocks = (total + kVectorThreads - 1) / kVectorThreads;
     if (blocks > 0x7fffffffLL) return (int)cudaErrorInvalidConfiguration;
     warp_vector_kernel<T, kPlanes><<<(unsigned)blocks, kVectorThreads, 0, s>>>(
-        in, fl, o, v, rows, W, C, pieces, total);
+        in, fl, o, v, rows, W, C, pitch, pieces, total);
   } else {
-    // The run route stores aligned pairs: p0 * C is even and so must be
-    // the outputs' addresses in elements (the wrapper's fresh tensors are).
-    if (C > 0x7fffffff / kMaxRun ||
-        reinterpret_cast<uintptr_t>(out) % (2 * sizeof(T)) != 0 ||
-        reinterpret_cast<uintptr_t>(dv_out) % (2 * sizeof(T)) != 0) {
+    // The contiguous form stores aligned pairs: p0 * C is even and so
+    // must be the outputs' addresses in elements (the wrapper's fresh
+    // tensors are). The planes take no other form.
+    const bool pairs =
+        reinterpret_cast<uintptr_t>(out) % (2 * sizeof(T)) == 0 &&
+        reinterpret_cast<uintptr_t>(dv_out) % (2 * sizeof(T)) == 0;
+    if (C > 0x7fffffff / kMaxRun || (kPlanes && (pitch != C || !pairs))) {
       return (int)cudaErrorInvalidValue;
     }
     const int run = std::max(2, std::min(kMaxRun, kRunElements / C)) & ~1;
     const int64_t blocks = (pixels + run - 1) / run;
     if (blocks > 0x7fffffffLL) return (int)cudaErrorInvalidConfiguration;
-    warp_run_kernel<T, kPlanes><<<(unsigned)blocks, kRunThreads, 0, s>>>(
-        in, fl, o, v, rows, W, C, pixels, run);
+    if (pitch == C && pairs) {
+      warp_run_kernel<T, kPlanes, false>
+          <<<(unsigned)blocks, kRunThreads, 0, s>>>(in, fl, o, v, rows, W, C,
+                                                    pitch, pixels, run);
+    } else if constexpr (!kPlanes) {
+      warp_run_kernel<T, false, true>
+          <<<(unsigned)blocks, kRunThreads, 0, s>>>(in, fl, o, v, rows, W, C,
+                                                    pitch, pixels, run);
+    }
   }
   return (int)cudaGetLastError();
 }
@@ -398,7 +446,7 @@ int launch_warp_rows(const void* const* slabs, int n_slabs, int slab_rows,
                               clamp_h, &rows);
   if (code != 0) return code;
   return launch_warp<T, false>(slabs[0], flow, out, nullptr, B, rows, W, C,
-                               stream);
+                               C, stream);
 }
 
 }  // namespace
@@ -406,13 +454,30 @@ int launch_warp_rows(const void* const* slabs, int n_slabs, int slab_rows,
 extern "C" int fi_warp_bf16(const void* image, const void* flow, void* out,
                             int B, int H, int W, int C, void* stream) {
   return launch_warp<__nv_bfloat16, false>(image, flow, out, nullptr, B,
-                                           frame_rows(H), W, C, stream);
+                                           frame_rows(H), W, C, C, stream);
 }
 
 extern "C" int fi_warp_f32(const void* image, const void* flow, void* out,
                            int B, int H, int W, int C, void* stream) {
   return launch_warp<float, false>(image, flow, out, nullptr, B,
-                                   frame_rows(H), W, C, stream);
+                                   frame_rows(H), W, C, C, stream);
+}
+
+// Slice mode: `out` points at the slice's first channel of pixel 0 of a
+// buffer with out_pitch >= C channels a pixel; only the slice is written.
+extern "C" int fi_warp_into_bf16(const void* image, const void* flow,
+                                 void* out, int out_pitch, int B, int H,
+                                 int W, int C, void* stream) {
+  return launch_warp<__nv_bfloat16, false>(image, flow, out, nullptr, B,
+                                           frame_rows(H), W, C, out_pitch,
+                                           stream);
+}
+
+extern "C" int fi_warp_into_f32(const void* image, const void* flow,
+                                void* out, int out_pitch, int B, int H,
+                                int W, int C, void* stream) {
+  return launch_warp<float, false>(image, flow, out, nullptr, B,
+                                   frame_rows(H), W, C, out_pitch, stream);
 }
 
 // slabs: a host array of n_slabs device pointers, each slab (B, slab_rows,
@@ -439,7 +504,7 @@ extern "C" int fi_warp_planes_bf16(const void* image, const void* flow,
                                    int C, void* stream) {
   if (dv == nullptr) return (int)cudaErrorInvalidValue;
   return launch_warp<__nv_bfloat16, true>(image, flow, du, dv, B,
-                                          frame_rows(H), W, C, stream);
+                                          frame_rows(H), W, C, C, stream);
 }
 
 extern "C" int fi_warp_planes_f32(const void* image, const void* flow,
@@ -447,7 +512,7 @@ extern "C" int fi_warp_planes_f32(const void* image, const void* flow,
                                   int C, void* stream) {
   if (dv == nullptr) return (int)cudaErrorInvalidValue;
   return launch_warp<float, true>(image, flow, du, dv, B, frame_rows(H), W,
-                                  C, stream);
+                                  C, C, stream);
 }
 
 extern "C" const char* fi_error_string(int code) {

@@ -10,6 +10,15 @@ Port of frame_interpolation_tpu/models/film_net.py:
   -> backward warp of the concat(image, features) pyramids
   -> aligned-pyramid concat -> fusion decoder -> RGB + aux outputs.
 
+Where no gradient is asked for (autograd records nothing, or nothing
+that reaches the fusion requires grad) and no row shard is installed
+(ops/rows.py), the fusion builds the aligned pyramid in place instead
+(models/fusion.py `Fusion.forward_in_place`: one buffer a level, whose
+channels the warps, the flows and a fill of the pad write), so no concat
+copies a warped level again. Training and the row-sharded forward keep
+the concat path: a warp into a buffer carries no gradient, and a shard's
+slab is warped in row mode. The route is chosen from that state alone.
+
 Parameter names follow the flax tree (feat_net/sub_extractor/cfeat_conv_k,
 predict_flow/flow_predictor_{i,shared}/conv_k, fusion/conv_{i}_{j},
 fusion/output_conv), so io/params_io.py maps one tree onto the other.
@@ -22,6 +31,7 @@ import torch
 from torch import nn
 
 from ..ops import pyramid as pyramid_ops
+from ..ops import rows
 from ..options import Options
 from .feature_extractor import FeatureExtractor
 from .flow_estimator import PyramidFlowEstimator
@@ -84,32 +94,44 @@ class FilmNet(nn.Module):
     forward_flow = pyramid_ops.multiply_pyramid(forward_flow_pyramid,
                                                 1.0 - mid_time)
 
-    pyramids_to_warp = [
-        pyramid_ops.concatenate_pyramids(image_pyramids[0][:levels],
-                                         feature_pyramids[0][:levels]),
-        pyramid_ops.concatenate_pyramids(image_pyramids[1][:levels],
-                                         feature_pyramids[1][:levels]),
-    ]
-    # Backward warping: the backward flow reads from image 0, the forward
-    # flow from image 1.
-    forward_warped_pyramid = pyramid_ops.pyramid_warp(pyramids_to_warp[0],
-                                                      backward_flow)
-    backward_warped_pyramid = pyramid_ops.pyramid_warp(pyramids_to_warp[1],
-                                                       forward_flow)
+    image_pyramids = [p[:levels] for p in image_pyramids]
+    feature_pyramids = [p[:levels] for p in feature_pyramids]
+    inputs = (*image_pyramids[0], *image_pyramids[1], *feature_pyramids[0],
+              *feature_pyramids[1], *backward_flow, *forward_flow,
+              *self.fusion.parameters())
+    if rows.current() is None and not (
+        torch.is_grad_enabled() and any(t.requires_grad for t in inputs)):
+      prediction, x0_warped, x1_warped = self.fusion.forward_in_place(
+          image_pyramids, feature_pyramids, backward_flow, forward_flow)
+    else:
+      pyramids_to_warp = [
+          pyramid_ops.concatenate_pyramids(image_pyramids[0],
+                                           feature_pyramids[0]),
+          pyramid_ops.concatenate_pyramids(image_pyramids[1],
+                                           feature_pyramids[1]),
+      ]
+      # Backward warping: the backward flow reads from image 0, the forward
+      # flow from image 1.
+      forward_warped_pyramid = pyramid_ops.pyramid_warp(pyramids_to_warp[0],
+                                                        backward_flow)
+      backward_warped_pyramid = pyramid_ops.pyramid_warp(pyramids_to_warp[1],
+                                                         forward_flow)
 
-    aligned_pyramid = pyramid_ops.concatenate_pyramids(
-        forward_warped_pyramid, backward_warped_pyramid)
-    aligned_pyramid = pyramid_ops.concatenate_pyramids(
-        aligned_pyramid, [f.to(compute_dtype) for f in backward_flow])
-    aligned_pyramid = pyramid_ops.concatenate_pyramids(
-        aligned_pyramid, [f.to(compute_dtype) for f in forward_flow])
+      aligned_pyramid = pyramid_ops.concatenate_pyramids(
+          forward_warped_pyramid, backward_warped_pyramid)
+      aligned_pyramid = pyramid_ops.concatenate_pyramids(
+          aligned_pyramid, [f.to(compute_dtype) for f in backward_flow])
+      aligned_pyramid = pyramid_ops.concatenate_pyramids(
+          aligned_pyramid, [f.to(compute_dtype) for f in forward_flow])
 
-    prediction = self.fusion(aligned_pyramid)
+      prediction = self.fusion(aligned_pyramid)
+      x0_warped = forward_warped_pyramid[0][..., 0:3]
+      x1_warped = backward_warped_pyramid[0][..., 0:3]
     outputs = {'image': prediction[..., :3].float()}
     if config.use_aux_outputs:
       outputs.update({
-          'x0_warped': forward_warped_pyramid[0][..., 0:3].float(),
-          'x1_warped': backward_warped_pyramid[0][..., 0:3].float(),
+          'x0_warped': x0_warped.float(),
+          'x1_warped': x1_warped.float(),
           'forward_residual_flow_pyramid': forward_residual_flow_pyramid,
           'backward_residual_flow_pyramid': backward_residual_flow_pyramid,
           'forward_flow_pyramid': forward_flow_pyramid,

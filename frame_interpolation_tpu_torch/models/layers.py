@@ -15,12 +15,14 @@ list (the split form of the JAX package's ops/folded_conv.FoldableConv):
 it convolves each piece with its slice of the weight's input channels,
 sums the partial outputs in the compute dtype and adds the bias once, so
 the concat is never written. `should_split` says which form a call site
-takes.
+takes. `Conv.conv` may also be given a weight a piece in place of the
+slices of its own (models/fusion.py, whose inference input holds its
+channels in another order than the weight's).
 """
 from __future__ import annotations
 
 import math
-from typing import List, Sequence, Union
+from typing import List, Optional, Sequence, Union
 
 import torch
 import torch.nn.functional as F
@@ -107,20 +109,25 @@ class Conv(nn.Module):
     ext = shard.halo(x, above, k - 1 - above)
     return self.conv(ext)[:, above:above + first.shape[1]]
 
-  def conv(self, x: Pieces) -> torch.Tensor:
+  def conv(self, x: Pieces,
+           weights: Optional[Sequence[torch.Tensor]] = None) -> torch.Tensor:
     """The conv of `x` (or of its pieces) alone, as if it were the whole
-    frame."""
+    frame; `weights`, one a piece, replace the slices of the layer's
+    weight."""
     if isinstance(x, torch.Tensor):
-      return self._conv(x, self.weight, self.bias)
+      weight = self.weight if weights is None else weights[0]
+      return self._conv(x, weight, self.bias)
     # JAX's order: the partial outputs summed in the compute dtype, then
     # the bias (ops/folded_conv.FoldableConv's split branch).
     y, offset = None, 0
-    for piece in x:
+    for k, piece in enumerate(x):
       c = piece.shape[-1]
-      part = self._conv(piece, self.weight[:, offset:offset + c], None)
+      weight = (self.weight[:, offset:offset + c] if weights is None
+                else weights[k])
+      part = self._conv(piece, weight, None)
       y = part if y is None else y + part
       offset += c
-    if offset != self.weight.shape[1]:
+    if weights is None and offset != self.weight.shape[1]:
       raise ValueError(f'pieces of {offset} channels for a conv of '
                        f'{self.weight.shape[1]} input channels')
     return y + self.bias.to(self.compute_dtype)

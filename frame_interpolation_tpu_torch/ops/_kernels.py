@@ -51,11 +51,13 @@ NVCC_FLAGS = (*ARCH_FLAGS, '-std=c++17', '-O3', '-Xcompiler', '-fPIC',
 # kernels (B5, B6); conv3x3_c64: the C=64 stack of ops/conv_stack.py (B2);
 # conv3x3_wide: the C>=128 flat stack of ops/conv_stack_wide.py (B3);
 # warp_rows: the window warp on a slab of output rows, as
-# backward_warp_window_rows runs it (B1-rows). All names in the JAX
-# package.
+# backward_warp_window_rows runs it (B1-rows); warp_slice: the window warp
+# written into a slice of channels of the fusion's input (B1-slice, which
+# the JAX package does not have: it concatenates). All other names in the
+# JAX package.
 LAUNCHES: Dict[str, int] = {'warp': 0, 'warp_planes': 0, 'splat': 0,
                             'conv3x3_c64': 0, 'conv3x3_wide': 0,
-                            'warp_rows': 0}
+                            'warp_rows': 0, 'warp_slice': 0}
 
 # Filled by the first library() call: 'path', 'seconds' (0.0 when the
 # library was already built) and 'log' (nvcc's -Xptxas -v report).
@@ -176,6 +178,12 @@ def _declare(lib: ctypes.CDLL) -> None:
     fn = getattr(lib, name)
     # image, flow, out, B, H, W, C, stream
     fn.argtypes = [ptr, ptr, ptr, i32, i32, i32, i32, ptr]
+    fn.restype = i32
+  for name in ('fi_warp_into_bf16', 'fi_warp_into_f32'):
+    fn = getattr(lib, name)
+    # image, flow, out (the slice's first channel of pixel 0), out_pitch
+    # (the buffer's channels), B, H, W, C, stream
+    fn.argtypes = [ptr, ptr, ptr, i32, i32, i32, i32, i32, ptr]
     fn.restype = i32
   for name in ('fi_warp_rows_bf16', 'fi_warp_rows_f32'):
     fn = getattr(lib, name)

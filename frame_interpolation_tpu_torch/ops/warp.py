@@ -32,7 +32,10 @@ tensor takes the plain versions and a CUDA tensor the kernels, and there is
 no other route. Inside a shard of a row-sharded forward (ops/rows.py) it
 warps the shard's slab of a split level by `backward_warp_rows`, the
 counterpart of ops/warp_window.py backward_warp_window_rows, which runs
-the fourth (inference only, as in JAX).
+the fourth (inference only, as in JAX). `backward_warp_into` writes the
+warp into a slice of channels of a wider buffer (csrc/warp.cu, slice
+mode), where models/film_net.py builds the fusion's input in place
+(inference only).
 """
 from __future__ import annotations
 
@@ -45,6 +48,8 @@ from . import _kernels
 from . import rows as rows_lib
 
 _KERNEL_DTYPES = {torch.bfloat16: 'fi_warp_bf16', torch.float32: 'fi_warp_f32'}
+_INTO_DTYPES = {torch.bfloat16: 'fi_warp_into_bf16',
+                torch.float32: 'fi_warp_into_f32'}
 _ROWS_DTYPES = {torch.bfloat16: 'fi_warp_rows_bf16',
                 torch.float32: 'fi_warp_rows_f32'}
 _PLANES_DTYPES = {torch.bfloat16: 'fi_warp_planes_bf16',
@@ -366,6 +371,61 @@ def backward_warp_kernel(image: torch.Tensor,
   _kernels.check('backward_warp', code)
   _kernels.count_launch('warp', stream)
   return out
+
+
+def _check_into(image: torch.Tensor, out: torch.Tensor, channel: int) -> None:
+  if out.dim() != 4 or out.shape[:3] != image.shape[:3]:
+    raise ValueError(f'backward_warp_into: out {tuple(out.shape)} does not '
+                     f'match image {tuple(image.shape)} in B, H, W')
+  if not 0 <= channel <= out.shape[-1] - image.shape[-1]:
+    raise ValueError(f'backward_warp_into: channels [{channel}, '
+                     f'{channel + image.shape[-1]}) leave out\'s '
+                     f'{out.shape[-1]}')
+  if out.dtype != image.dtype or out.device != image.device:
+    raise ValueError(f'backward_warp_into: out is {out.dtype} on '
+                     f'{out.device}, image {image.dtype} on {image.device}')
+  if not out.is_contiguous():
+    raise ValueError('backward_warp_into: out must be contiguous')
+
+
+def backward_warp_into_kernel(image: torch.Tensor, flow: torch.Tensor,
+                              out: torch.Tensor, channel: int) -> None:
+  """`backward_warp_into` through csrc/warp.cu's slice mode. CUDA tensors
+  only; raises otherwise."""
+  _check_kernel_args('backward_warp_into', image, flow)
+  _check_into(image, out, channel)
+  _kernels.require_cuda('backward_warp_into', out)
+  b, h, w, c = image.shape
+  if image.numel() == 0:
+    return
+  fn = getattr(_kernels.library(), _INTO_DTYPES[image.dtype])
+  stream = _kernels.stream_of(image)
+  code = fn(image.data_ptr(), flow.data_ptr(),
+            out.data_ptr() + channel * out.element_size(), out.shape[-1], b,
+            h, w, c, stream)
+  _kernels.check('backward_warp_into', code)
+  _kernels.count_launch('warp_slice', stream)
+
+
+def backward_warp_into(image: torch.Tensor, flow: torch.Tensor,
+                       out: torch.Tensor, channel: int) -> None:
+  """Backward-warps `image` (B, H, W, C) with `flow` into channels
+  [channel, channel + C) of `out` (B, H, W, P), a contiguous buffer of the
+  image's dtype on its device, and writes no other channel of it.
+
+  The values are `backward_warp`'s, bit for bit; nothing is recorded for
+  autograd, so the caller takes this route only where no gradient is
+  asked for. A CUDA tensor runs the kernel's slice mode, which stores
+  each pixel's C values at their place in the buffer (one `warp_slice`
+  launch); a CPU tensor copies the plain warp into the slice.
+  """
+  if image.device.type != 'cpu':
+    backward_warp_into_kernel(image, flow, out, channel)
+    return
+  _check_shapes(image, flow)
+  _check_into(image, out, channel)
+  out[..., channel:channel + image.shape[-1]] = backward_warp_plain(image,
+                                                                    flow)
 
 
 def warp_planes_kernel(image: torch.Tensor, flow: torch.Tensor

@@ -157,6 +157,30 @@ def test_rows_kernel_wrapper_passes_the_row_arguments(monkeypatch, dtype):
 
 
 @pytest.mark.parametrize('dtype', [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize('channel', [0, 64, 131])
+def test_slice_kernel_wrapper_passes_the_slice_and_the_pitch(
+    monkeypatch, dtype, channel):
+  # fi_warp_into_*: the image, the flow, the address of the slice's first
+  # channel (the buffer's plus `channel` elements), the buffer's channels
+  # as the pitch, then B, H, W, the image's C and the stream.
+  library = _stub_library(monkeypatch, ['warp_slice'])
+  c = 3 if channel == 131 else 64
+  image = torch.zeros(2, 5, 7, c, dtype=dtype)
+  flow = torch.zeros(2, 5, 7, 2)
+  out = torch.zeros(2, 5, 7, 144, dtype=dtype)
+  warp.backward_warp_into_kernel(image, flow, out, channel)
+  suffix = 'bf16' if dtype == torch.bfloat16 else 'f32'
+  assert [name for name, _ in library.log] == [f'fi_warp_into_{suffix}']
+  args = library.log[0][1]
+  assert args[:3] == (image.data_ptr(), flow.data_ptr(),
+                      out.data_ptr() + channel * out.element_size())
+  assert args[3:] == (144, 2, 5, 7, c, 0)
+  assert _kernels.LAUNCHES == {'warp_slice': 1}
+  with pytest.raises(ValueError, match='leave'):
+    warp.backward_warp_into_kernel(image, flow, out, 144 - c + 1)
+
+
+@pytest.mark.parametrize('dtype', [torch.float32, torch.bfloat16])
 @pytest.mark.parametrize('mode', ['deterministic', 'default'])
 def test_splat_takes_the_fixed_order_entry_point_in_every_mode(
     monkeypatch, dtype, mode):

@@ -240,6 +240,14 @@ CONV_F32_BOUND = 1e-4          # same, TF32 off on the plain side
 # about 2^-10 relative; over the sums of 576-4608 terms that leaves about
 # 1e-3 of max|p|. Half the bf16 bound.
 CONV_TF32_BOUND = 5e-3
+# The kernel in TF32 against the plain version on its operands rounded to
+# nearest TF32 (ties away, as cuDNN and cvt.rna.tf32.f32 round), TF32 off:
+# products of TF32 values are exact in f32, so only the sums differ, and
+# the tensor cores' accumulation drifts about 2.4e-9 a term of K = 9 Cin
+# (1.4e-6 at K = 576, 1.07e-5 at 4608 on an H100). Relative RMS, bound
+# twice that drift: at most 2.3e-5, where operands truncated instead of
+# rounded read about 8e-4 at every K.
+CONV_TF32_ROUNDED_BOUND_PER_K = 5e-9
 PLANES_BF16_BOUND = 2 * 2.0**-8  # max-abs, images in [0, 1)
 PLANES_F32_BOUND = 1e-5          # max-abs
 SPLAT_BF16_BOUND = 1e-2        # max|k - p| / max|p|, bf16 cotangent
@@ -252,17 +260,19 @@ REQUESTS = 3
 # Launches per 1080p pair (released config): 12 flow-estimator warps and
 # 20 warps into the fusion's input (each frame's features and image at 5
 # levels); per frame 7 C=64 second convs and 15 wider second convs + 9
-# rectangular first convs, and each frame is extracted separately.
+# rectangular first convs, and each frame is extracted separately. None of
+# the convs takes the TF32 route in bf16 (conv3x3_tf32; `under_tf32` gives
+# an f32 run's counts while TF32 is allowed).
 PAIR_LAUNCHES = {'warp': 12, 'warp_planes': 0, 'splat': 0,
                  'conv3x3_c64': 14, 'conv3x3_wide': 48, 'warp_rows': 0,
-                 'warp_slice': 20}
+                 'warp_slice': 20, 'conv3x3_tf32': 0}
 # Launches per train step: the forward's, whose fusion input is the
 # concat's (12 + 10 warps), plus one planes and one splat launch per warp
 # in the backward (every warp's image and flow need a gradient); the conv
 # backward is plain PyTorch.
 STEP_LAUNCHES = {'warp': 22, 'warp_planes': 22, 'splat': 22,
                  'conv3x3_c64': 14, 'conv3x3_wide': 48, 'warp_rows': 0,
-                 'warp_slice': 0}
+                 'warp_slice': 0, 'conv3x3_tf32': 0}
 TRAIN_BATCH, TRAIN_CROP = 8, 256
 TRAIN_STEPS, RESUME_STEPS, SAVE_INTERVAL = 20, 25, 10
 WARMUP_STEPS, TIMED_STEPS = 3, 10
@@ -315,7 +325,8 @@ VIDEO_OUTPUTS = (VIDEO_FRAMES - 1) * 2**VIDEO_TIMES + 1
 # midpoints that are not final-depth leaves) of 7 C=64 and 24 wide convs.
 CACHED_TREE_LAUNCHES = {'warp': 14 * 12, 'warp_planes': 0, 'splat': 0,
                         'conv3x3_c64': 9 * 7, 'conv3x3_wide': 9 * 24,
-                        'warp_rows': 0, 'warp_slice': 14 * 20}
+                        'warp_rows': 0, 'warp_slice': 14 * 20,
+                        'conv3x3_tf32': 0}
 # The chunked tree at max_batch 3: 6 forwards (a batch of 2 at depth 1,
 # 3+3 and 3+3+3 with filler pairs at depths 2 and 3); a launch covers the
 # whole batch, so each forward launches a pair's 12/20/14/48.
@@ -324,7 +335,8 @@ CHUNKED_TREE_LAUNCHES = {k: 6 * v for k, v in PAIR_LAUNCHES.items()}
 # tree extracts its 2 frames and makes one midpoint.
 TILED_TREE_LAUNCHES = {'warp': 4 * 12, 'warp_planes': 0, 'splat': 0,
                        'conv3x3_c64': 4 * 2 * 7, 'conv3x3_wide': 4 * 2 * 24,
-                       'warp_rows': 0, 'warp_slice': 4 * 20}
+                       'warp_rows': 0, 'warp_slice': 4 * 20,
+                       'conv3x3_tf32': 0}
 # Sharded serving on one card, the pair padded to 1088x1920. Every shard
 # runs every conv site (on its slab or the whole level), so 14n C=64 and
 # 48n wide launches. A level splits when its rows divide into even slabs:
@@ -336,9 +348,11 @@ TILED_TREE_LAUNCHES = {'warp': 4 * 12, 'warp_planes': 0, 'splat': 0,
 # fusion's input by concats, so no warp into it.
 SPATIAL_LAUNCHES = {
     4: {'warp': 4 * 6, 'warp_planes': 0, 'splat': 0, 'conv3x3_c64': 4 * 14,
-        'conv3x3_wide': 4 * 48, 'warp_rows': 4 * 16, 'warp_slice': 0},
+        'conv3x3_wide': 4 * 48, 'warp_rows': 4 * 16, 'warp_slice': 0,
+        'conv3x3_tf32': 0},
     2: {'warp': 2 * 2, 'warp_planes': 0, 'splat': 0, 'conv3x3_c64': 2 * 14,
-        'conv3x3_wide': 2 * 48, 'warp_rows': 2 * 20, 'warp_slice': 0},
+        'conv3x3_wide': 2 * 48, 'warp_rows': 2 * 20, 'warp_slice': 0,
+        'conv3x3_tf32': 0},
 }
 SHARDS = 4
 # The 2x2 patches of a pair over 4 shards: each shard's one-patch forward
@@ -470,6 +484,13 @@ def tf32_allowed(allowed: bool):
     yield
   finally:
     torch.backends.cudnn.allow_tf32 = saved
+
+
+def under_tf32(launches):
+  """The counts `launches` of an f32 run made while TF32 is allowed: every
+  conv launch also takes the TF32 route (`conv3x3_tf32`)."""
+  return dict(launches, conv3x3_tf32=launches['conv3x3_c64'] +
+              launches['conv3x3_wide'])
 
 
 def smooth_seam_flow(h: int, w: int) -> torch.Tensor:
@@ -621,10 +642,22 @@ def check_warp_rows(rng, h, w, c, dtype, bound, timed_cases):
   return results
 
 
+def tf32_rounded(x: torch.Tensor) -> torch.Tensor:
+  """f32 `x` rounded to nearest TF32 (11 significant bits), ties away from
+  zero, by f64 arithmetic on the significand rather than by f32 bits."""
+  mantissa, exponent = torch.frexp(x.double())
+  scaled = mantissa * 2048.0
+  kept = torch.sign(scaled) * torch.floor(scaled.abs() + 0.5)
+  return torch.ldexp(kept / 2048.0, exponent).float()
+
+
 def check_conv(rng, h, w, cin, cout, pool, dtype, bound, batch=1,
                timed=True, tf32=False):
   """The conv kernel against its plain version in exact f32 (TF32 off); the
-  kernel and the library call run with TF32 allowed when `tf32`."""
+  kernel and the library call run with TF32 allowed when `tf32`, and the
+  kernel is then also held to the plain version on TF32-rounded operands
+  (CONV_TF32_ROUNDED_BOUND_PER_K), which a kernel that truncates them
+  fails."""
   x = torch.from_numpy(
       (rng.rand(batch, h, w, cin) * 2 - 1).astype(np.float32))
   x = x.to('cuda', dtype)
@@ -656,6 +689,20 @@ def check_conv(rng, h, w, cin, cout, pool, dtype, bound, batch=1,
       'dtype': kind, 'route': conv_stack.kernel_symbol(dtype, tf32),
       'max_abs_err': err, 'rel_err': rel, 'bound': bound, 'ok': rel <= bound,
   }
+  if kind == 'tf32':
+    rounded = conv_stack.conv3x3_leaky_plain(
+        tf32_rounded(x), tf32_rounded(weight), bias, pool)
+    rms = 0.0
+    for g, p in zip(got, rounded):
+      if p is None:
+        continue
+      diff = g.double() - p.double()
+      rms = max(rms, (diff.square().sum() /
+                      p.double().square().sum()).sqrt().item())
+    del rounded
+    rounded_bound = CONV_TF32_ROUNDED_BOUND_PER_K * 9 * cin
+    result.update(rounded_rel_rms=rms, rounded_bound=rounded_bound,
+                  ok=result['ok'] and rms <= rounded_bound)
   if timed:
     # F.conv2d with bias on channels-last tensors, through cuDNN: the conv
     # and bias only, without the activation and the pool.
@@ -1015,11 +1062,13 @@ def check_training(card, failures):
     built_same = all(torch.equal(v, built.model.state_dict()[k])
                      for k, v in state.model.state_dict().items())
     del state, trained, built, interpolator
-  if first['launches'] != {k: TRAIN_STEPS * v
-                           for k, v in STEP_LAUNCHES.items()}:
+  # train_speed left TF32 allowed, as PyTorch's default has it.
+  if first['launches'] != under_tf32({k: TRAIN_STEPS * v
+                                      for k, v in STEP_LAUNCHES.items()}):
     failures.append(f'train launches {first["launches"]}')
-  if resumed['launches'] != {k: (RESUME_STEPS - TRAIN_STEPS) * v
-                             for k, v in STEP_LAUNCHES.items()}:
+  if resumed['launches'] != under_tf32(
+      {k: (RESUME_STEPS - TRAIN_STEPS) * v
+       for k, v in STEP_LAUNCHES.items()}):
     failures.append(f'resumed train launches {resumed["launches"]}')
   if len(losses) != 3 or not all(np.isfinite(losses)):
     failures.append(f'train losses {losses}')
@@ -1436,7 +1485,8 @@ def check_gin_loop(mat_path, card, failures):
   busy_ms = sum(e.get('dur', 0.0) for e in kernels) / 1e3
   logged = (f'Wrote profiler trace for steps [{PROFILE_START}, {end}) to '
             f'{trace_path}')
-  if launches != {k: GIN_STEPS * v for k, v in STEP_LAUNCHES.items()}:
+  if launches != under_tf32({k: GIN_STEPS * v
+                             for k, v in STEP_LAUNCHES.items()}):
     failures.append(f'gin loop launches {launches}')
   if logged not in lines or traced_steps != PROFILE_STEPS or not all(
       v['launches'] for v in ours.values()) or len(adam_kernels) != (
@@ -2049,11 +2099,21 @@ def check_split(state, frames, dt, card, failures):
 
   small = np.random.RandomState(6).rand(2, 1, SPLIT_H, SPLIT_W, 3).astype(
       np.float32)
+  f32_interps = form_interpolators(state, 'float32')
   f32 = {form: interp(small[0], small[1], dt)
-         for form, interp in form_interpolators(state, 'float32').items()}
+         for form, interp in f32_interps.items()}
   f32_err = float(np.abs(f32['on'] - f32['off']).max())
   if not f32_err <= SPLIT_F32_BOUND:
     failures.append(f'split vs concat f32 max-abs {f32_err:.3e}')
+  # The f32 pair under PyTorch's default TF32 switch, as the CLI serves a
+  # release: all 62 conv sites take the TF32 route (none did above, TF32
+  # off, nor in the bf16 pairs).
+  with tf32_allowed(True):
+    _, tf32_launches, _ = run_counted(
+        lambda: f32_interps['on'](small[0], small[1], dt))
+  if tf32_launches != under_tf32(PAIR_LAUNCHES):
+    failures.append(f'f32 pair under TF32 launches {tf32_launches}')
+  del f32_interps
 
   # One film_net-L1 step in each form, TF32 and cuDNN off (as the step
   # parity runs), held to the step-parity bounds.
@@ -2093,7 +2153,8 @@ def check_split(state, frames, dt, card, failures):
     if launches != STEP_LAUNCHES:
       failures.append(f'split_convs={form} step launches {launches}')
   print(f'split convs, f32: the 544x960 pair split vs concat max-abs '
-        f'{f32_err:.2e} (bound {SPLIT_F32_BOUND:.0e}); one film_net-L1 step '
+        f'{f32_err:.2e} (bound {SPLIT_F32_BOUND:.0e}); under TF32 its '
+        f'launches {tf32_launches}; one film_net-L1 step '
         f'(batch 8x256x256, TF32 and cuDNN off): loss {steps["on"][0]:.7f} '
         f'split, {steps["off"][0]:.7f} concat, rel {loss_rel:.2e} (bound '
         f'{LOSS_REL_BOUND:.0e}); worst grad rel {worst[1]:.3e} ({worst[0]}, '
@@ -2118,7 +2179,7 @@ def check_split(state, frames, dt, card, failures):
         f'launches {launches}; on {card}')
   report.update(psnr=psnr, auto=auto, f32_err=f32_err, loss_rel=loss_rel,
                 grad_rel=worst[1], step_launches=steps['on'][2],
-                rows_psnr=rows_psnr)
+                rows_psnr=rows_psnr, f32_tf32_launches=tf32_launches)
   return report
 
 
@@ -2250,7 +2311,9 @@ def check_builders(card, failures):
           model, {'middlebury': ds}, metrics, 0, log_fn=lambda _: None))
       results[name] = (got['middlebury'], launches)
   del model
-  want_launches = {k: BUILDER_CLIPS * v for k, v in PAIR_LAUNCHES.items()}
+  # The f32 model's eval after the training phases: TF32 allowed.
+  want_launches = under_tf32({k: BUILDER_CLIPS * v
+                              for k, v in PAIR_LAUNCHES.items()})
   errors = {}
   for name, value in results['memory'][0].items():
     diff = abs(results['records'][0][name] - value)
@@ -2806,7 +2869,7 @@ def graph_step(label, config, losses, step0, card, failures):
                                  train_lib.step_generator(0, step)))
       grads[turn] = [p.grad.detach().clone()
                      for p in state.model.parameters()]
-      if launches[turn] != STEP_LAUNCHES:
+      if launches[turn] != under_tf32(STEP_LAUNCHES):
         failures.append(f'{label} {turn} step launches {launches[turn]}')
     # Each side's parameters after its own step.
     free_rel, free_worst = max_rel(states['graphs'].model,
@@ -2908,7 +2971,8 @@ def graph_step(label, config, losses, step0, card, failures):
       ((p - runs['eager']['params'][n]).abs().max() /
        runs['eager']['params'][n].abs().max().clamp_min(1e-30)).item()
       for n, p in runs['graphs']['params'].items())
-  want_launches = {k: GRAPH_LOOP_STEPS * v for k, v in STEP_LAUNCHES.items()}
+  want_launches = under_tf32({k: GRAPH_LOOP_STEPS * v
+                              for k, v in STEP_LAUNCHES.items()})
   if len(runs['graphs']['losses']) != 2 or not (
       track_rel <= GRAPH_TRACK_REL_BOUND):
     failures.append(f'{label} loop losses {runs["graphs"]["losses"]} vs '
@@ -3028,7 +3092,7 @@ def graph_summary_step(card, failures):
           and param_rel <= GRAPH_STEP_REL_BOUND) or (
               images_g.keys() != images_e.keys() or
               max(image_abs.values()) != 0.0) or (
-                  launches['graphs'] != STEP_LAUNCHES):
+                  launches['graphs'] != under_tf32(STEP_LAUNCHES)):
     failures.append(f'graph summary step vs eager: loss rel {loss_rel:.3e}, '
                     f'gradients rel {grad_rel:.3e} ({grad_worst}), '
                     f'parameters rel {param_rel:.3e} ({param_worst}), '
@@ -3149,7 +3213,7 @@ def determinism_step(label, config, losses, step0, card, failures,
   report['launches'] = a['launches']
   if not (report['loss_equal'] and report['grads_equal'] and
           report['params_equal']) or any(
-              r['launches'] != STEP_LAUNCHES for r in runs):
+              r['launches'] != under_tf32(STEP_LAUNCHES) for r in runs):
     failures.append(f'{label} deterministic graph steps: loss equal '
                     f'{report["loss_equal"]}, gradients equal '
                     f'{report["grads_equal"]} (max-abs '
@@ -3469,6 +3533,17 @@ def main() -> int:
       checks[name].append(check_conv(rng, h, h, cin, cout, pool,
                                      torch.float32, bound, batch=TRAIN_BATCH,
                                      tf32=tf32))
+  # The site shapes of a UHD pair in f32 (2176x3840 after padding), as the
+  # CLI serves a release: TF32 allowed, the TF32 route at every site, timed.
+  for h, w, cin, cout, pool in ((2176, 3840, 64, 64, True),
+                                (1088, 1920, 128, 128, True),
+                                (544, 960, 128, 256, False),
+                                (544, 960, 256, 256, True),
+                                (272, 480, 256, 512, False),
+                                (272, 480, 512, 512, False)):
+    name = 'conv3x3_c64' if cin == cout == 64 else 'conv3x3_wide'
+    checks[name].append(check_conv(rng, h, w, cin, cout, pool,
+                                   torch.float32, CONV_TF32_BOUND, tf32=True))
   # Edges the main path also reaches: odd extents (the 17x30 coarsest
   # level, 34x60 next to it), batches (patch tiling), both warp paths in f32;
   # the exact route splits K at 17x30 and at the train step's 8x8x8 (a
@@ -3558,6 +3633,8 @@ def main() -> int:
       print(f'kernel {name} {r["shape"]} {r["dtype"]}{flow_kind}: max_abs_err '
             f'{r["max_abs_err"]:.3e}' +
             (f' rel_err {r["rel_err"]:.3e}' if 'rel_err' in r else '') +
+            (f' (rounded operands rel RMS {r["rounded_rel_rms"]:.2e}, bound '
+             f'{r["rounded_bound"]:.1e})' if 'rounded_rel_rms' in r else '') +
             (f' (library rel_err {r["library_rel_err"]:.1e})'
              if 'library_rel_err' in r else '') +
             (f' (whole-frame rows max-abs {r["full_err"]:.1e})'

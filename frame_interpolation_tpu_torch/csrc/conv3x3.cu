@@ -44,6 +44,17 @@
 //     issue wgmma.mma_async (bf16: m64nBNk16; f32 under TF32: m64nBNk8, f32
 //     accumulators), keep one wgmma group in flight and release the
 //     previous stage to the producer.
+//   * TF32 operands are rounded to nearest (ties away), as cuDNN's are:
+//     wgmma's .tf32 reads the top 19 bits of each f32 and drops the rest,
+//     which truncates (every product shrinks by about 7e-4 on average).
+//     The weights (B) come rounded by the caller. A, the activations that
+//     TMA lands, is read from shared memory into registers in wgmma's A
+//     fragment layout and rounded there (cvt.rna.tf32.f32), and the TF32
+//     wgmma takes A from registers: no pass over the tile, no proxy fence,
+//     no barrier, and the same shared-memory traffic as a descriptor's
+//     read. A stage's 4 K steps go as commit groups of 2 (BN = 64) or 1,
+//     so that the A registers of the group in flight are held apart from
+//     those being loaded; one group stays in flight as before.
 //   * The epilogue stages the f32 tile in shared memory (the ring's space),
 //     adds the bias, applies the activation, writes y, and pools 2x2 from
 //     the same f32 values; stores are masked at the ragged edge.
@@ -71,8 +82,9 @@
 // runs the epilogue.
 //
 // Weights come repacked by the caller as (Cout, 3, 3, Cin) in the input
-// dtype (K-major, one packing for every route); bias is f32. Cin and Cout
-// must be multiples of 64.
+// dtype (K-major, one layout for every route; for fi_conv3x3_tf32 each
+// value rounded to TF32); bias is f32. Cin and Cout must be multiples of
+// 64.
 #include <cuda.h>
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
@@ -257,12 +269,32 @@ __device__ __forceinline__ uint64_t smem_desc(uint32_t addr) {
          (static_cast<uint64_t>(1) << 62);
 }
 
+// The f32 at shared address `addr`, rounded to the nearest TF32 value
+// (ties away from zero): its bits, the 13 below TF32's mantissa cleared.
+// Volatile, so that it stays after the mbarrier wait that guards it.
+__device__ __forceinline__ uint32_t load_tf32(uint32_t addr) {
+  uint32_t r;
+  asm volatile(
+      "{\n.reg .f32 v;\nld.shared.f32 v, [%1];\n"
+      "cvt.rna.tf32.f32 %0, v;\nand.b32 %0, %0, 0xFFFFE000;\n}\n"
+      : "=r"(r)
+      : "r"(addr));
+  return r;
+}
+
 // Keeps the compiler from moving accumulator reads or writes across the
 // asynchronous wgmma that owns the registers.
 template <int N>
 __device__ __forceinline__ void fence_acc(float (&d)[N]) {
 #pragma unroll
   for (int i = 0; i < N; ++i) asm volatile("" : "+f"(d[i])::"memory");
+}
+// The same for A fragments in registers: keeps them live, and unmoved,
+// until this point (a wgmma in flight reads them).
+template <int N>
+__device__ __forceinline__ void fence_regs(uint32_t (&a)[N]) {
+#pragma unroll
+  for (int i = 0; i < N; ++i) asm volatile("" : "+r"(a[i])::"memory");
 }
 
 #define FI_R0_31                                                         \
@@ -284,8 +316,7 @@ __device__ __forceinline__ void fence_acc(float (&d)[N]) {
       "+f"(d[i + 4]), "+f"(d[i + 5]), "+f"(d[i + 6]), "+f"(d[i + 7])
 #define FI_ACC32(i) FI_ACC8(i), FI_ACC8(i + 8), FI_ACC8(i + 16), FI_ACC8(i + 24)
 // One wgmma: d (64 x N f32, N/2 registers a thread) += A x B, both operands
-// K-major in shared memory. bf16 takes the transpose immediates (0, 0);
-// tf32 has none (K-major only).
+// K-major in shared memory. bf16 takes the transpose immediates (0, 0).
 #define FI_WGMMA(SHAPE_TYPES, REGS, DA, DB, SCALE, TAIL, ...)              \
   asm volatile(                                                          \
       "{\n.reg .pred p;\nsetp.ne.b32 p, %" #SCALE ", 0;\n"                  \
@@ -321,31 +352,46 @@ struct Wgmma<__nv_bfloat16, 256> {
              FI_ACC32(0), FI_ACC32(32), FI_ACC32(64), FI_ACC32(96));
   }
 };
+// One TF32 wgmma with A from registers: a holds the thread's 4 A elements
+// of one K step (wgmma's m64nNk8 .tf32 A fragment: rows l / 4 and l / 4 +
+// 8 of the warp's 16, columns l % 4 and l % 4 + 4, as a0 (r, c), a1 (r +
+// 8, c), a2 (r, c + 4), a3 (r + 8, c + 4)); B from shared memory, K-major.
+#define FI_WGMMA_RS(SHAPE, REGS, AREGS, DB, SCALE, ...)                    \
+  asm volatile(                                                          \
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %" #SCALE ", 0;\n"                  \
+      "wgmma.mma_async.sync.aligned." SHAPE ".f32.tf32.tf32 {" REGS "}, {" \
+      AREGS "}, %" #DB ", p, 1, 1;\n}\n"                                   \
+      : __VA_ARGS__                                                      \
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(b), "r"(1))
+
+template <int N>
+struct WgmmaTf32;
 template <>
-struct Wgmma<float, 64> {
-  __device__ __forceinline__ static void run(float (&d)[32], uint64_t a,
-                                             uint64_t b) {
-    FI_WGMMA("m64n64k8.f32.tf32.tf32", FI_R0_31, 32, 33, 34, "",
-             FI_ACC32(0));
+struct WgmmaTf32<64> {
+  __device__ __forceinline__ static void run(float (&d)[32],
+                                             const uint32_t* a, uint64_t b) {
+    FI_WGMMA_RS("m64n64k8", FI_R0_31, "%32, %33, %34, %35", 36, 37,
+                FI_ACC32(0));
   }
 };
 template <>
-struct Wgmma<float, 128> {
-  __device__ __forceinline__ static void run(float (&d)[64], uint64_t a,
-                                             uint64_t b) {
-    FI_WGMMA("m64n128k8.f32.tf32.tf32", FI_R0_31 ", " FI_R32_63, 64, 65, 66,
-             "", FI_ACC32(0), FI_ACC32(32));
+struct WgmmaTf32<128> {
+  __device__ __forceinline__ static void run(float (&d)[64],
+                                             const uint32_t* a, uint64_t b) {
+    FI_WGMMA_RS("m64n128k8", FI_R0_31 ", " FI_R32_63, "%64, %65, %66, %67",
+                68, 69, FI_ACC32(0), FI_ACC32(32));
   }
 };
 template <>
-struct Wgmma<float, 256> {
-  __device__ __forceinline__ static void run(float (&d)[128], uint64_t a,
-                                             uint64_t b) {
-    FI_WGMMA("m64n256k8.f32.tf32.tf32",
-             FI_R0_31 ", " FI_R32_63 ", " FI_R64_127, 128, 129, 130, "",
-             FI_ACC32(0), FI_ACC32(32), FI_ACC32(64), FI_ACC32(96));
+struct WgmmaTf32<256> {
+  __device__ __forceinline__ static void run(float (&d)[128],
+                                             const uint32_t* a, uint64_t b) {
+    FI_WGMMA_RS("m64n256k8", FI_R0_31 ", " FI_R32_63 ", " FI_R64_127,
+                "%128, %129, %130, %131", 132, 133, FI_ACC32(0),
+                FI_ACC32(32), FI_ACC32(64), FI_ACC32(96));
   }
 };
+#undef FI_WGMMA_RS
 #undef FI_WGMMA
 #undef FI_ACC32
 #undef FI_ACC8
@@ -385,6 +431,78 @@ __device__ __forceinline__ void produce(uint32_t ring, uint32_t full,
       phase ^= 1;
     }
   }
+}
+
+// The TF32 consumers' loop: warpgroup rows [row0 - (row0 % 64), + 64) of
+// each stage's A tile by its B tile, A through registers. Thread (warp w,
+// lane l) reads rows r = row0 + l / 4 and r + 8 (row0 = 64 wg + 16 w),
+// word l % 4 of each 16-byte chunk: chunk c of row r lies at c ^ (r % 8)
+// (the 128-byte swizzle; r % 8 = l / 4), so a warp's 32 loads hit 32
+// banks. Every kGroupSteps K steps go to one of two register buffers and
+// one commit group; the group before it (the other buffer) is waited for
+// next, and only then is that buffer loaded again. A stage goes back to
+// the producer once its last group is done.
+template <int BN, int kStages, int kStageBytes, int kABytes>
+__device__ __forceinline__ void consume_tf32(float (&acc)[BN / 2],
+                                             uint32_t ring, uint32_t full,
+                                             uint32_t empty, int iters,
+                                             int row0, int lane) {
+  constexpr int kSteps = kRowBytes / kKStepBytes;  // 4 K steps a stage
+  // K steps a group: as many as leave ptxas the registers to keep the
+  // wgmmas in flight (with 2, it serializes them at BN = 128 and 256; at
+  // BN = 128 it does with 1 too, within the 96 registers that two blocks
+  // of 288 threads leave a thread).
+  constexpr int kGroupSteps = BN == 64 ? 2 : 1;
+  constexpr int kGroups = kSteps / kGroupSteps;  // even: buffer g % 2
+  uint32_t a[2][4 * kGroupSteps] = {};
+  const int r = row0 + lane / 4, swz = r % 8;
+  const uint32_t rows0 = ring + r * kRowBytes + (lane % 4) * 4;
+  int stage = 0, prev = 0;
+  uint32_t phase = 0;
+  for (int it = 0; it < iters; ++it) {
+    mbar_wait(full + 8 * stage, phase);
+    const uint32_t rows = rows0 + stage * kStageBytes;
+    const uint32_t b = ring + stage * kStageBytes + kABytes;
+#pragma unroll
+    for (int g = 0; g < kGroups; ++g) {
+      uint32_t(&cur)[4 * kGroupSteps] = a[g % 2];
+      uint32_t(&other)[4 * kGroupSteps] = a[(g + 1) % 2];
+#pragma unroll
+      for (int s = 0; s < kGroupSteps; ++s) {
+        const int c = 2 * (g * kGroupSteps + s);  // K step's first chunk
+        const uint32_t lo = rows + ((c ^ swz) << 4);
+        const uint32_t hi = rows + (((c + 1) ^ swz) << 4);
+        cur[4 * s] = load_tf32(lo);
+        cur[4 * s + 1] = load_tf32(lo + 8 * kRowBytes);
+        cur[4 * s + 2] = load_tf32(hi);
+        cur[4 * s + 3] = load_tf32(hi + 8 * kRowBytes);
+      }
+      fence_regs(cur);
+      fence_acc(acc);
+      asm volatile("wgmma.fence.sync.aligned;\n" ::: "memory");
+#pragma unroll
+      for (int s = 0; s < kGroupSteps; ++s) {
+        WgmmaTf32<BN>::run(
+            acc, cur + 4 * s,
+            smem_desc(b + (g * kGroupSteps + s) * kKStepBytes));
+      }
+      asm volatile("wgmma.commit_group.sync.aligned;\n" ::: "memory");
+      fence_acc(acc);
+      // The group before this one is done: its registers are free, and
+      // after a stage's first group, so is the previous stage.
+      asm volatile("wgmma.wait_group.sync.aligned 1;\n" ::: "memory");
+      fence_regs(other);
+      if (g == 0 && it > 0 && lane == 0) mbar_arrive(empty + 8 * prev);
+    }
+    prev = stage;
+    if (++stage == kStages) {
+      stage = 0;
+      phase ^= 1;
+    }
+  }
+  asm volatile("wgmma.wait_group.sync.aligned 0;\n" ::: "memory");
+  fence_regs(a[0]);
+  fence_regs(a[1]);
 }
 
 // Grid: x = pixel tile * n_blocks + N block (the N blocks of one pixel tile
@@ -439,29 +557,34 @@ __global__ void __launch_bounds__(kTcThreads, Ring<BN>::kMinBlocks)
   float acc[BN / 2];
 #pragma unroll
   for (int i = 0; i < BN / 2; ++i) acc[i] = 0.f;
-  int stage = 0, prev = 0;
-  uint32_t phase = 0;
-  for (int it = 0; it < iters; ++it) {
-    mbar_wait(full + 8 * stage, phase);
-    const uint32_t a = ring + stage * R::kStageBytes + wg * 64 * kRowBytes;
-    const uint32_t b = ring + stage * R::kStageBytes + R::kABytes;
-    fence_acc(acc);
-    asm volatile("wgmma.fence.sync.aligned;\n" ::: "memory");
+  if constexpr (sizeof(T) == 4) {
+    consume_tf32<BN, R::kStages, R::kStageBytes, R::kABytes>(
+        acc, ring, full, empty, iters, wg * 64 + (warp % 4) * 16, lane);
+  } else {
+    int stage = 0, prev = 0;
+    uint32_t phase = 0;
+    for (int it = 0; it < iters; ++it) {
+      mbar_wait(full + 8 * stage, phase);
+      const uint32_t a = ring + stage * R::kStageBytes + wg * 64 * kRowBytes;
+      const uint32_t b = ring + stage * R::kStageBytes + R::kABytes;
+      fence_acc(acc);
+      asm volatile("wgmma.fence.sync.aligned;\n" ::: "memory");
 #pragma unroll
-    for (int k = 0; k < kRowBytes / kKStepBytes; ++k) {
-      Wgmma<T, BN>::run(acc, smem_desc(a + k * kKStepBytes),
-                        smem_desc(b + k * kKStepBytes));
-    }
-    asm volatile("wgmma.commit_group.sync.aligned;\n" ::: "memory");
-    fence_acc(acc);
-    // Keep this step's group in flight; the previous one is done, so its
-    // stage goes back to the producer.
-    asm volatile("wgmma.wait_group.sync.aligned 1;\n" ::: "memory");
-    if (it > 0 && lane == 0) mbar_arrive(empty + 8 * prev);
-    prev = stage;
-    if (++stage == R::kStages) {
-      stage = 0;
-      phase ^= 1;
+      for (int k = 0; k < kRowBytes / kKStepBytes; ++k) {
+        Wgmma<T, BN>::run(acc, smem_desc(a + k * kKStepBytes),
+                          smem_desc(b + k * kKStepBytes));
+      }
+      asm volatile("wgmma.commit_group.sync.aligned;\n" ::: "memory");
+      fence_acc(acc);
+      // Keep this step's group in flight; the previous one is done, so its
+      // stage goes back to the producer.
+      asm volatile("wgmma.wait_group.sync.aligned 1;\n" ::: "memory");
+      if (it > 0 && lane == 0) mbar_arrive(empty + 8 * prev);
+      prev = stage;
+      if (++stage == R::kStages) {
+        stage = 0;
+        phase ^= 1;
+      }
     }
   }
   asm volatile("wgmma.wait_group.sync.aligned 0;\n" ::: "memory");
@@ -950,7 +1073,8 @@ extern "C" int fi_conv3x3_bf16(const void* x, const void* w, const void* bias,
                                             Cin, Cout, slope, stream);
 }
 
-// f32 in and out, wgmma in TF32 with f32 accumulators.
+// f32 in and out, wgmma in TF32 with f32 accumulators; w already rounded
+// to TF32 (ties away from zero), x rounded in the kernel.
 extern "C" int fi_conv3x3_tf32(const void* x, const void* w, const void* bias,
                                void* out, void* pool, int N, int H, int W,
                                int Cin, int Cout, float slope, void* stream) {

@@ -53,11 +53,14 @@ NVCC_FLAGS = (*ARCH_FLAGS, '-std=c++17', '-O3', '-Xcompiler', '-fPIC',
 # warp_rows: the window warp on a slab of output rows, as
 # backward_warp_window_rows runs it (B1-rows); warp_slice: the window warp
 # written into a slice of channels of the fusion's input (B1-slice, which
-# the JAX package does not have: it concatenates). All other names in the
-# JAX package.
+# the JAX package does not have: it concatenates); conv3x3_tf32: the
+# launches of conv3x3_c64 and conv3x3_wide that took the TF32 route (f32
+# under torch.backends.cudnn.allow_tf32; counted in both). All other names
+# in the JAX package.
 LAUNCHES: Dict[str, int] = {'warp': 0, 'warp_planes': 0, 'splat': 0,
                             'conv3x3_c64': 0, 'conv3x3_wide': 0,
-                            'warp_rows': 0, 'warp_slice': 0}
+                            'warp_rows': 0, 'warp_slice': 0,
+                            'conv3x3_tf32': 0}
 
 # Filled by the first library() call: 'path', 'seconds' (0.0 when the
 # library was already built) and 'log' (nvcc's -Xptxas -v report).

@@ -15,7 +15,9 @@ where(y >= 0, y, 0.2 y), JAX's form, whose gradient at exactly 0 is 1.
 there is no other route. On the card, bf16 runs on the tensor cores
 (wgmma); f32 runs on them in TF32 when `torch.backends.cudnn.allow_tf32` is
 True, the flag under which cuDNN runs PyTorch's own f32 convs in TF32, and
-in exact f32 FMAs otherwise (`kernel_symbol`). The backward is plain
+in exact f32 FMAs otherwise (`kernel_symbol`). The TF32 route rounds both
+operands to nearest TF32, as cuDNN does: the weights when they are packed
+(`round_tf32`), the activations in the kernel. The backward is plain
 PyTorch on every device, as the JAX custom VJP differentiates the unfused
 composition with XLA (ops/conv_stack.py _stack_diff_bwd,
 ops/conv_stack_wide.py _wide_diff_bwd).
@@ -41,12 +43,14 @@ from . import _kernels
 # The kernel's tile width along both channel axes.
 _CHANNEL_MULTIPLE = 64
 
-# weight -> {dtype: (key, packed)}: the (Cout, 3, 3, Cin) copy the kernel
-# reads in each dtype asked for, rebuilt when the weight is written to in
-# place or moved. A copy stays while its weight is unchanged, as a captured
-# graph (utils/programs.py) reads it by address: a forward in another
-# dtype does not replace it. Shards on one device share their replica's
-# weights, from threads of their own: the lock packs each weight once.
+# weight -> {(dtype, tf32): (key, packed)}: the (Cout, 3, 3, Cin) copy the
+# kernel reads in each dtype asked for, rounded to TF32 for the TF32 route
+# (the exact f32 route reads the same dtype unrounded), rebuilt when the
+# weight is written to in place or moved. A copy stays while its weight is
+# unchanged, as a captured graph (utils/programs.py) reads it by address:
+# a forward on another route does not replace it. Shards on one device
+# share their replica's weights, from threads of their own: the lock packs
+# each weight once.
 _PACKED = WeakTensorKeyDictionary()
 _PACKED_LOCK = threading.Lock()
 
@@ -68,23 +72,40 @@ def kernel_symbol(dtype: torch.dtype, allow_tf32: bool) -> str:
   raise ValueError(f'conv3x3_leaky: the kernel takes bf16 or f32; got {dtype}')
 
 
+def round_tf32(x: torch.Tensor) -> torch.Tensor:
+  """f32 `x` rounded to the nearest TF32 value (10 mantissa bits), ties
+  away from zero, as cvt.rna.tf32.f32 and cuDNN's TF32 convs round: a new
+  f32 tensor whose 13 low mantissa bits are zero."""
+  if x.dtype != torch.float32:
+    raise ValueError(f'round_tf32 takes f32; got {x.dtype}')
+  bits = x.contiguous().view(torch.int32)
+  return ((bits + 0x1000) & -0x2000).view(torch.float32)
+
+
 def _pack(weight: torch.Tensor, dtype: torch.dtype) -> torch.Tensor:
   # K-major: row n holds the 9 * Cin weights of output channel n in the
   # kernel's K order, tap (ky, kx) major and input channel minor.
   return weight.detach().to(dtype).permute(0, 2, 3, 1).contiguous()
 
 
-def _packed_weight(weight: torch.Tensor, dtype: torch.dtype) -> torch.Tensor:
+def _packed_weight(weight: torch.Tensor, dtype: torch.dtype,
+                   tf32: bool = False) -> torch.Tensor:
+  """The kernel's copy of `weight` in `dtype`; rounded to TF32 when `tf32`
+  (the TF32 route's, f32 only)."""
+  def pack():
+    packed = _pack(weight, dtype)
+    return round_tf32(packed) if tf32 else packed
+
   if weight.is_inference():
     # Inference tensors keep no version counter: nothing to key a cache on.
-    return _pack(weight, dtype)
+    return pack()
   key = (weight._version, weight.data_ptr(), weight.device)
   with _PACKED_LOCK:
-    by_dtype = _PACKED.setdefault(weight, {})
-    cached = by_dtype.get(dtype)
+    by_route = _PACKED.setdefault(weight, {})
+    cached = by_route.get((dtype, tf32))
     if cached is None or cached[0] != key:
-      cached = (key, _pack(weight, dtype))
-      by_dtype[dtype] = cached
+      cached = (key, pack())
+      by_route[(dtype, tf32)] = cached
     return cached[1]
 
 
@@ -129,10 +150,12 @@ def conv3x3_leaky_kernel(x: torch.Tensor, weight: torch.Tensor,
   """The conv through csrc/conv3x3.cu. CUDA tensors only; raises otherwise.
 
   Cin and Cout must be multiples of 64. The OIHW weights are repacked
-  K-major to (Cout, 3, 3, Cin) in x's dtype, once per weight (the copy is
-  cached until the weight changes); an f32 bias is passed as it is. The
-  route follows `kernel_symbol`; the exact f32 route takes a workspace of
-  partial sums where the library splits K (`fi_conv3x3_f32_splits`).
+  K-major to (Cout, 3, 3, Cin) in x's dtype, once per weight and route
+  (the copy is cached until the weight changes; the TF32 route's is
+  rounded to TF32); an f32 bias is passed as it is. The route follows
+  `kernel_symbol`; the exact f32 route takes a workspace of partial sums
+  where the library splits K (`fi_conv3x3_f32_splits`). A launch of the
+  TF32 route also counts as `conv3x3_tf32`.
   """
   _check(x, weight, bias)
   symbol = kernel_symbol(x.dtype, torch.backends.cudnn.allow_tf32)
@@ -146,7 +169,8 @@ def conv3x3_leaky_kernel(x: torch.Tensor, weight: torch.Tensor,
   if cin % _CHANNEL_MULTIPLE or cout % _CHANNEL_MULTIPLE:
     raise ValueError(f'conv3x3_leaky: the kernel takes channel counts that '
                      f'are multiples of {_CHANNEL_MULTIPLE}; got {cin}->{cout}')
-  packed = _packed_weight(weight, x.dtype)
+  tf32 = symbol == 'fi_conv3x3_tf32'
+  packed = _packed_weight(weight, x.dtype, tf32)
   bias32 = bias.detach().float().contiguous()
   _kernels.require_cuda('conv3x3_leaky', packed, bias32, alignment=16)
   features = torch.empty((n, h, w, cout), dtype=x.dtype, device=x.device)
@@ -170,6 +194,8 @@ def conv3x3_leaky_kernel(x: torch.Tensor, weight: torch.Tensor,
   _kernels.check('conv3x3_leaky', code)
   wide = not (cin == _CHANNEL_MULTIPLE and cout == _CHANNEL_MULTIPLE)
   _kernels.count_launch('conv3x3_wide' if wide else 'conv3x3_c64', stream)
+  if tf32:
+    _kernels.count_launch('conv3x3_tf32', stream)
   return features, pooled
 
 

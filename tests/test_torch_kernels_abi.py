@@ -220,7 +220,8 @@ def test_conv_wrapper_passes_what_the_entry_points_declare(
   # workspace of `splits` f32 outputs (none for 1 split) and the split
   # count it asked the library for; then N, H, W, Cin, Cout, the slope and
   # the stream.
-  library = _stub_library(monkeypatch, ['conv3x3_c64', 'conv3x3_wide'])
+  library = _stub_library(monkeypatch,
+                          ['conv3x3_c64', 'conv3x3_wide', 'conv3x3_tf32'])
   library.fi_conv3x3_f32_splits.result = splits
   monkeypatch.setattr(torch.backends.cudnn, 'allow_tf32', tf32)
   x = torch.zeros(2, 6, 10, 64, dtype=dtype)
@@ -239,4 +240,6 @@ def test_conv_wrapper_passes_what_the_entry_points_declare(
     assert (args[5] is None) == (splits == 1) and args[6] == splits
     args = args[:5] + args[7:]
   assert args[5:10] == (2, 6, 10, 64, 128)
-  assert _kernels.LAUNCHES == {'conv3x3_c64': 0, 'conv3x3_wide': 1}
+  # The TF32 route's launches also count as conv3x3_tf32.
+  assert _kernels.LAUNCHES == {'conv3x3_c64': 0, 'conv3x3_wide': 1,
+                               'conv3x3_tf32': int(symbol == 'fi_conv3x3_tf32')}

@@ -8,11 +8,15 @@ nvcc (one nvcc per source, in parallel) and holds each kernel against its
 plain PyTorch version: the forward warp and the conv stacks at the shapes of
 the 1080p serving path (the conv also at the train step's shapes, in TF32
 and in exact f32), the warp's derivative planes and splat at the training
-and 1080p shapes. Each timed check gives the kernel's time, the plain
+and 1080p shapes, the fusion decoder's upsampling kernel (nearest x2,
+TF-SAME pad and the 2x2 conv in one) at the three sites of a 1080p bf16
+midpoint and the finest site of a UHD f32 pair in TF32, each also against
+the library ops it replaces. Each timed check gives the kernel's time, the plain
 version's, one PyTorch library call's where one computes the same function
 (`library_ms`: F.grid_sample for the warp, the image gradient of its
 backward for the splat, F.conv2d with bias through cuDNN for the conv,
-which leaves out the activation and the pool), and the
+which leaves out the activation and the pool, and the upsample, the pad
+and cuDNN's 2x2 conv for the upsampling kernel), and the
 least time the card could take (`bound_ms`: the larger of the FLOPs over
 the dtype's peak and the compulsory bytes over 3.35 TB/s). Then it drives
 the port's two paths:
@@ -220,7 +224,8 @@ from frame_interpolation_tpu_torch.io import (images, params_io, tf_bundle,
 from frame_interpolation_tpu_torch.losses import vgg19
 from frame_interpolation_tpu_torch.models import (create_model, init_params,
                                                   layers)
-from frame_interpolation_tpu_torch.ops import _kernels, conv_stack, warp
+from frame_interpolation_tpu_torch.ops import (_kernels, conv_stack, resize,
+                                              upconv2x2, warp)
 from frame_interpolation_tpu_torch.options import Options
 from frame_interpolation_tpu_torch.parallel import distributed
 from frame_interpolation_tpu_torch.parallel import inference as sharded
@@ -262,17 +267,21 @@ REQUESTS = 3
 # levels); per frame 7 C=64 second convs and 15 wider second convs + 9
 # rectangular first convs, and each frame is extracted separately. None of
 # the convs takes the TF32 route in bf16 (conv3x3_tf32; `under_tf32` gives
-# an f32 run's counts while TF32 is allowed).
+# an f32 run's counts while TF32 is allowed). The fusion decoder's three
+# finer upsampling steps each run as one kernel (upconv2x2; `exact_f32`
+# gives an f32 run's counts while TF32 is off, where they keep the library
+# ops).
 PAIR_LAUNCHES = {'warp': 12, 'warp_planes': 0, 'splat': 0,
                  'conv3x3_c64': 14, 'conv3x3_wide': 48, 'warp_rows': 0,
-                 'warp_slice': 20, 'conv3x3_tf32': 0}
+                 'warp_slice': 20, 'conv3x3_tf32': 0, 'upconv2x2': 3}
 # Launches per train step: the forward's, whose fusion input is the
 # concat's (12 + 10 warps), plus one planes and one splat launch per warp
 # in the backward (every warp's image and flow need a gradient); the conv
-# backward is plain PyTorch.
+# backward is plain PyTorch, and the decoder's upsampling steps are the
+# library ops (the concat route).
 STEP_LAUNCHES = {'warp': 22, 'warp_planes': 22, 'splat': 22,
                  'conv3x3_c64': 14, 'conv3x3_wide': 48, 'warp_rows': 0,
-                 'warp_slice': 0, 'conv3x3_tf32': 0}
+                 'warp_slice': 0, 'conv3x3_tf32': 0, 'upconv2x2': 0}
 TRAIN_BATCH, TRAIN_CROP = 8, 256
 TRAIN_STEPS, RESUME_STEPS, SAVE_INTERVAL = 20, 25, 10
 WARMUP_STEPS, TIMED_STEPS = 3, 10
@@ -326,7 +335,7 @@ VIDEO_OUTPUTS = (VIDEO_FRAMES - 1) * 2**VIDEO_TIMES + 1
 CACHED_TREE_LAUNCHES = {'warp': 14 * 12, 'warp_planes': 0, 'splat': 0,
                         'conv3x3_c64': 9 * 7, 'conv3x3_wide': 9 * 24,
                         'warp_rows': 0, 'warp_slice': 14 * 20,
-                        'conv3x3_tf32': 0}
+                        'conv3x3_tf32': 0, 'upconv2x2': 14 * 3}
 # The chunked tree at max_batch 3: 6 forwards (a batch of 2 at depth 1,
 # 3+3 and 3+3+3 with filler pairs at depths 2 and 3); a launch covers the
 # whole batch, so each forward launches a pair's 12/20/14/48.
@@ -336,7 +345,7 @@ CHUNKED_TREE_LAUNCHES = {k: 6 * v for k, v in PAIR_LAUNCHES.items()}
 TILED_TREE_LAUNCHES = {'warp': 4 * 12, 'warp_planes': 0, 'splat': 0,
                        'conv3x3_c64': 4 * 2 * 7, 'conv3x3_wide': 4 * 2 * 24,
                        'warp_rows': 0, 'warp_slice': 4 * 20,
-                       'conv3x3_tf32': 0}
+                       'conv3x3_tf32': 0, 'upconv2x2': 4 * 3}
 # Sharded serving on one card, the pair padded to 1088x1920. Every shard
 # runs every conv site (on its slab or the whole level), so 14n C=64 and
 # 48n wide launches. A level splits when its rows divide into even slabs:
@@ -345,14 +354,15 @@ TILED_TREE_LAUNCHES = {'warp': 4 * 12, 'warp_planes': 0, 'splat': 0,
 # in row mode: the flow estimator warps levels 0-5 and the fusion levels
 # 0-4, each in two directions, so over 4 shards 8 + 8 row-mode and 4 + 2
 # whole warps a shard, over 2 shards 10 + 10 and 2 + 0. A shard builds the
-# fusion's input by concats, so no warp into it.
+# fusion's input by concats, so no warp into it, and its decoder runs the
+# upsampling steps as library ops.
 SPATIAL_LAUNCHES = {
     4: {'warp': 4 * 6, 'warp_planes': 0, 'splat': 0, 'conv3x3_c64': 4 * 14,
         'conv3x3_wide': 4 * 48, 'warp_rows': 4 * 16, 'warp_slice': 0,
-        'conv3x3_tf32': 0},
+        'conv3x3_tf32': 0, 'upconv2x2': 0},
     2: {'warp': 2 * 2, 'warp_planes': 0, 'splat': 0, 'conv3x3_c64': 2 * 14,
         'conv3x3_wide': 2 * 48, 'warp_rows': 2 * 20, 'warp_slice': 0,
-        'conv3x3_tf32': 0},
+        'conv3x3_tf32': 0, 'upconv2x2': 0},
 }
 SHARDS = 4
 # The 2x2 patches of a pair over 4 shards: each shard's one-patch forward
@@ -439,6 +449,8 @@ REPLACES = {
     'conv3x3_wide': 'frame_interpolation_tpu/ops/conv_stack_wide.py:124',
     'warp_rows': 'frame_interpolation_tpu/ops/warp_window.py:134',
     'warp_slice': 'frame_interpolation_tpu/ops/warp_window.py:134',
+    'upconv2x2': 'none: frame_interpolation_tpu/models/fusion.py leaves the '
+                 'upsampling step to XLA',
 }
 SOURCES = {
     'warp': 'frame_interpolation_tpu_torch/csrc/warp.cu',
@@ -448,6 +460,7 @@ SOURCES = {
     'conv3x3_wide': 'frame_interpolation_tpu_torch/csrc/conv3x3.cu',
     'warp_rows': 'frame_interpolation_tpu_torch/csrc/warp.cu',
     'warp_slice': 'frame_interpolation_tpu_torch/csrc/warp.cu',
+    'upconv2x2': 'frame_interpolation_tpu_torch/csrc/upconv2x2.cu',
 }
 
 
@@ -491,6 +504,12 @@ def under_tf32(launches):
   conv launch also takes the TF32 route (`conv3x3_tf32`)."""
   return dict(launches, conv3x3_tf32=launches['conv3x3_c64'] +
               launches['conv3x3_wide'])
+
+
+def exact_f32(launches):
+  """The counts `launches` of an f32 run made while TF32 is off: the
+  decoder's upsampling steps keep the library ops (`upconv2x2`)."""
+  return dict(launches, upconv2x2=0)
 
 
 def smooth_seam_flow(h: int, w: int) -> torch.Tensor:
@@ -721,6 +740,75 @@ def check_conv(rng, h, w, cin, cout, pool, dtype, bound, batch=1,
   return result
 
 
+def check_upconv(rng, n, h, w, cin, cout, dtype, timed=True):
+  """The decoder's upsampling kernel (nearest x2, TF-SAME pad and the 2x2
+  conv of an (n, h, w, cin) level) against its plain phases and against
+  the library ops it replaces (`resize_nearest`, the layer's pad, cuDNN's
+  conv). bf16: each within one bf16 ulp of the output's scale. f32, on
+  the TF32 route: within the conv's TF32 bound of the plain phases in
+  exact f32, and on TF32-rounded operands within its per-term drift."""
+  conv = layers.Conv(cin, cout, 2, dtype).cuda()
+  with torch.no_grad():
+    conv.weight.copy_(torch.from_numpy(
+        (rng.randn(cout, cin, 2, 2) * (4.0 * cin)**-0.5).astype(np.float32)))
+    conv.bias.copy_(torch.from_numpy(
+        (rng.randn(cout) * 0.1).astype(np.float32)))
+  x = torch.from_numpy(
+      (rng.rand(n, h, w, cin) * 2 - 1).astype(np.float32)).to('cuda', dtype)
+  tf32 = dtype == torch.float32
+
+  @torch.no_grad()
+  def kernel():
+    with tf32_allowed(tf32):
+      return upconv2x2.upconv2x2_kernel(x, conv.weight, conv.bias)
+
+  @torch.no_grad()
+  def plain():
+    return upconv2x2.upconv2x2_plain(x, conv.weight, conv.bias)
+
+  @torch.no_grad()
+  def library():
+    with tf32_allowed(tf32):
+      return conv(resize.resize_nearest(x, (2 * h, 2 * w)))
+
+  got, want, lib = kernel(), plain(), library()
+  torch.cuda.synchronize()
+  scale = want.float().abs().max().item()
+  err = (got.float() - want.float()).abs().max().item()
+  lib_err = (got.float() - lib.float()).abs().max().item()
+  if tf32:
+    bound = CONV_TF32_BOUND
+    ok = err <= bound * scale
+  else:
+    # One bf16 ulp at the output's largest magnitude.
+    bound = 2.0**(np.floor(np.log2(scale)) - 7) / scale
+    ok = err <= bound * scale and lib_err <= bound * scale
+  result = {
+      'shape': f'{n}x{h}x{w} {cin}->{cout} x2',
+      'dtype': 'tf32' if tf32 else 'bfloat16',
+      'route': upconv2x2.kernel_symbol(dtype, tf32), 'max_abs_err': err,
+      'rel_err': err / scale, 'library_rel_err': lib_err / scale,
+      'bound': bound, 'ok': ok,
+  }
+  if tf32:
+    with torch.no_grad():
+      rounded = upconv2x2.upconv2x2_plain(
+          tf32_rounded(x).double(), tf32_rounded(conv.weight).double(),
+          conv.bias.double())
+    diff = got.double() - rounded
+    rms = (diff.square().sum() / rounded.square().sum()).sqrt().item()
+    rounded_bound = CONV_TF32_ROUNDED_BOUND_PER_K * 4 * cin
+    result.update(rounded_rel_rms=rms, rounded_bound=rounded_bound,
+                  ok=ok and rms <= rounded_bound)
+    del rounded, diff
+  del got, want, lib
+  if timed:
+    add_timing(result, kernel, plain, library,
+               *measure.upconv_cost(n, h, w, cin, cout, x.element_size()),
+               measure.PEAK_FLOPS[result['dtype']])
+  return result
+
+
 def training_flow(kind: str, b: int, h: int, w: int) -> torch.Tensor:
   """The flows the backward kernels are checked with.
 
@@ -843,18 +931,20 @@ def _plain_conv(x, weight, bias, pool=False, negative_slope=0.2):
 @contextlib.contextmanager
 def plain_versions():
   """Routes the model's warp and conv-stack calls to the plain versions,
-  forward and backward (the same autograd Functions, plain=True), and its
-  warps into the fusion's input to the plain warp's copy."""
+  forward and backward (the same autograd Functions, plain=True), its
+  warps into the fusion's input to the plain warp's copy, and its
+  decoder's upsampling kernel to the plain phases."""
   saved = (warp.backward_warp, warp.backward_warp_into,
-           conv_stack.conv3x3_leaky)
+           conv_stack.conv3x3_leaky, upconv2x2.upconv2x2_kernel)
   warp.backward_warp = _plain_warp
   warp.backward_warp_into = _plain_warp_into
   conv_stack.conv3x3_leaky = _plain_conv
+  upconv2x2.upconv2x2_kernel = upconv2x2.upconv2x2_plain
   try:
     yield
   finally:
-    (warp.backward_warp, warp.backward_warp_into,
-     conv_stack.conv3x3_leaky) = saved
+    (warp.backward_warp, warp.backward_warp_into, conv_stack.conv3x3_leaky,
+     upconv2x2.upconv2x2_kernel) = saved
 
 
 def square_frame(cy, cx, size=TRAIN_CROP, half=32):
@@ -2024,7 +2114,8 @@ def check_eval(card, failures):
       ok = errors[name] <= EVAL_REL_BOUND
     if not ok:
       failures.append(f'eval {name}: {got[name]} kernels, {value} plain')
-  want_launches = {k: EVAL_BATCHES * v for k, v in PAIR_LAUNCHES.items()}
+  want_launches = exact_f32({k: EVAL_BATCHES * v
+                             for k, v in PAIR_LAUNCHES.items()})
   if launches != want_launches:
     failures.append(f'eval launches {launches} != {want_launches}')
   if sum(plain_launches.values()):
@@ -3615,6 +3706,18 @@ def main() -> int:
       check_warp_into(rng, 17, 30, c, 1936, channel, torch.float32,
                       WARP_F32_BOUND, timed=False)
       for c, channel in ((960, 960), (3, 1923))]
+  # The decoder's upsampling kernel at the three sites of a 1080p bf16
+  # midpoint (timed), the finest site of a UHD f32 pair on the TF32 route
+  # (timed), and ragged edges at batch 2 in both dtypes.
+  checks['upconv2x2'] = [
+      check_upconv(rng, 1, h, w, cin, cout, torch.bfloat16)
+      for h, w, cin, cout in ((544, 960, 128, 64), (272, 480, 256, 128),
+                              (136, 240, 512, 256))]
+  checks['upconv2x2'].append(check_upconv(rng, 1, 1088, 1920, 128, 64,
+                                          torch.float32))
+  checks['upconv2x2'] += [
+      check_upconv(rng, 2, 37, 45, 128, 128, dtype, timed=False)
+      for dtype in (torch.bfloat16, torch.float32)]
   # The splat's order, bit for bit: both flows, both dtypes, a C of two
   # channel passes, and oob flow on a whole 256x256 frame, whose edge tiles
   # hold more entries than a block sorts in shared memory.

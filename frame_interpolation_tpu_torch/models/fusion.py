@@ -36,9 +36,16 @@ nearest upsample), then take their weight with its input channels
 gathered into the packed order (`packed_order`), with zero columns at the
 pad (`gathered`: made once a weight, order and dtype, and kept while the
 weight is unchanged). A zero column adds exact zeros, so the convs
-compute the same sums, in an order cuDNN may choose otherwise. The packed
-route records nothing for autograd: a warp into a buffer carries no
-gradient, and the gathered weights are detached.
+compute the same sums, in an order cuDNN may choose otherwise. On the
+card the packed route also runs each finer level's upsampling step, the
+nearest x2 and `conv_{i}_0` with its TF-SAME padding, as one kernel
+(ops/upconv2x2.py) where that kernel takes the call: bf16, or f32 while
+TF32 is allowed, and channel counts it tiles, so every level but the
+coarsest one's, whose input is the packed buffer. Elsewhere, and on the
+concat route, the upsample, the pad and the conv stay PyTorch ops. The
+packed route records nothing for autograd: a warp into a buffer carries
+no gradient, the gathered weights are detached, and the upsampling kernel
+has no backward.
 """
 from __future__ import annotations
 
@@ -50,6 +57,7 @@ from torch import nn
 from torch.utils.weak import WeakTensorKeyDictionary
 
 from ..ops import resize
+from ..ops import upconv2x2
 from ..ops import warp
 from ..options import Options
 from .layers import Conv, conv_input, leaky_relu
@@ -246,12 +254,24 @@ class Fusion(nn.Module):
     net = pyramid[-1]
     for i in reversed(range(self.levels - 1)):
       entry = pyramid[i]
-      net = resize.resize_nearest(net, (entry.shape[1], entry.shape[2]))
-      net = self._conv(f'conv_{i}_0', net, packed)  # 2x2, no activation
+      net = self._upsample_conv(f'conv_{i}_0', net,
+                                (entry.shape[1], entry.shape[2]), packed)
       net = conv_input([entry, net], self.split_convs)
       net = leaky_relu(self._conv(f'conv_{i}_1', net, packed))
       net = leaky_relu(getattr(self, f'conv_{i}_2')(net))
     return self.output_conv(net.float())
+
+  def _upsample_conv(self, name: str, x: torch.Tensor, size: Tuple[int, int],
+                     packed: bool) -> torch.Tensor:
+    # The 2x2 conv (no activation) of x's nearest upsample to `size`: on
+    # the packed route one kernel where it takes the call (CUDA, a kernel
+    # route for the dtype, channel counts it tiles; not the coarsest
+    # level's gathered weights), else the library ops.
+    conv = getattr(self, name)
+    if packed and name not in self._packed_orders and upconv2x2.engages(
+        x, conv.weight, conv.compute_dtype, size):
+      return upconv2x2.upconv2x2_kernel(x, conv.weight, conv.bias)
+    return self._conv(name, resize.resize_nearest(x, size), packed)
 
   def _conv(self, name: str, x, packed: bool) -> torch.Tensor:
     # A conv that reads a packed aligned level takes its gathered weights.

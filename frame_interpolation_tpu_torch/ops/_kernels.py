@@ -55,12 +55,14 @@ NVCC_FLAGS = (*ARCH_FLAGS, '-std=c++17', '-O3', '-Xcompiler', '-fPIC',
 # written into a slice of channels of the fusion's input (B1-slice, which
 # the JAX package does not have: it concatenates); conv3x3_tf32: the
 # launches of conv3x3_c64 and conv3x3_wide that took the TF32 route (f32
-# under torch.backends.cudnn.allow_tf32; counted in both). All other names
-# in the JAX package.
+# under torch.backends.cudnn.allow_tf32; counted in both); upconv2x2: the
+# fusion decoder's nearest x2 upsample, TF-SAME pad and 2x2 conv in one
+# kernel (ops/upconv2x2.py; the JAX package leaves the step to XLA). All
+# other names in the JAX package.
 LAUNCHES: Dict[str, int] = {'warp': 0, 'warp_planes': 0, 'splat': 0,
                             'conv3x3_c64': 0, 'conv3x3_wide': 0,
                             'warp_rows': 0, 'warp_slice': 0,
-                            'conv3x3_tf32': 0}
+                            'conv3x3_tf32': 0, 'upconv2x2': 0}
 
 # Filled by the first library() call: 'path', 'seconds' (0.0 when the
 # library was already built) and 'log' (nvcc's -Xptxas -v report).
@@ -224,6 +226,12 @@ def _declare(lib: ctypes.CDLL) -> None:
   lib.fi_conv3x3_f32.argtypes = [ptr, ptr, ptr, ptr, ptr, ptr, i32, i32, i32,
                                  i32, i32, i32, ctypes.c_float, ptr]
   lib.fi_conv3x3_f32.restype = i32
+  for name in ('fi_upconv2x2_bf16', 'fi_upconv2x2_tf32'):
+    fn = getattr(lib, name)
+    # x (N, H, W, Cin), w, bias, out (N, 2H, 2W, Cout), N, H, W, Cin, Cout,
+    # stream
+    fn.argtypes = [ptr, ptr, ptr, ptr, i32, i32, i32, i32, i32, ptr]
+    fn.restype = i32
   lib.fi_error_string.argtypes = [i32]
   lib.fi_error_string.restype = ctypes.c_char_p
 

@@ -127,6 +127,19 @@ def conv_cost(n: int, h: int, w: int, cin: int, cout: int, pool: bool,
   return flops, nbytes
 
 
+def upconv_cost(n: int, h: int, w: int, cin: int, cout: int,
+                element_size: int) -> Tuple[float, float]:
+  """FLOPs and compulsory bytes of one fusion upsampling step (nearest x2
+  of an (n, h, w, cin) level, TF-SAME pad, 2x2 conv + bias to cout): four
+  taps at each of the 4hw fine pixels; the coarse level and the weights
+  read in its dtype, the f32 bias, the fine output written."""
+  fine = n * 4 * h * w
+  flops = 2.0 * fine * 4 * cin * cout
+  nbytes = ((n * h * w * cin + fine * cout + 4 * cin * cout) * element_size +
+            cout * 4)
+  return flops, nbytes
+
+
 def bilinear_grid(flow: torch.Tensor, row_shift: int = 0,
                   source_h: int = None) -> torch.Tensor:
   """The (B, H, W, 2) grid under which `F.grid_sample` (bilinear, border

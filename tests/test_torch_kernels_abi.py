@@ -12,7 +12,8 @@ import re
 import pytest
 import torch
 
-from frame_interpolation_tpu_torch.ops import _kernels, conv_stack, warp
+from frame_interpolation_tpu_torch.ops import (_kernels, conv_stack, upconv2x2,
+                                              warp)
 
 _C_TYPES = {'const void*': ctypes.c_void_p, 'void*': ctypes.c_void_p,
             'const void* const*': ctypes.POINTER(ctypes.c_void_p),
@@ -243,3 +244,30 @@ def test_conv_wrapper_passes_what_the_entry_points_declare(
   # The TF32 route's launches also count as conv3x3_tf32.
   assert _kernels.LAUNCHES == {'conv3x3_c64': 0, 'conv3x3_wide': 1,
                                'conv3x3_tf32': int(symbol == 'fi_conv3x3_tf32')}
+
+
+@pytest.mark.parametrize('dtype,tf32,symbol', [
+    (torch.bfloat16, False, 'fi_upconv2x2_bf16'),
+    (torch.bfloat16, True, 'fi_upconv2x2_bf16'),
+    (torch.float32, True, 'fi_upconv2x2_tf32')])
+def test_upconv_wrapper_passes_what_the_entry_points_declare(
+    monkeypatch, dtype, tf32, symbol):
+  # fi_upconv2x2_*: the coarse x, the weights packed (Cout, 2, 2, Cin) in
+  # x's dtype (rounded to TF32 on that route), the bias in x's dtype's
+  # value as f32, the fine output, then N, the coarse H and W, Cin, Cout
+  # and the stream.
+  library = _stub_library(monkeypatch, ['upconv2x2'])
+  monkeypatch.setattr(torch.backends.cudnn, 'allow_tf32', tf32)
+  x = torch.zeros(2, 3, 5, 128, dtype=dtype)
+  weight = torch.nn.Parameter(torch.randn(64, 128, 2, 2))
+  bias = torch.full((64,), 1.0 + 2.0**-12)
+  out = upconv2x2.upconv2x2_kernel(x, weight, bias)
+  assert out.shape == (2, 6, 10, 64) and out.dtype == dtype
+  assert [name for name, _ in library.log] == [symbol]
+  args = library.log[0][1]
+  packed = conv_stack._packed_weight(weight, dtype, symbol.endswith('tf32'))
+  assert args[:2] == (x.data_ptr(), packed.data_ptr())
+  assert tuple(packed.shape) == (64, 2, 2, 128)
+  assert args[3] == out.data_ptr()
+  assert args[4:] == (2, 3, 5, 128, 64, 0)
+  assert _kernels.LAUNCHES == {'upconv2x2': 1}

@@ -224,8 +224,9 @@ from frame_interpolation_tpu_torch.io import (images, params_io, tf_bundle,
 from frame_interpolation_tpu_torch.losses import vgg19
 from frame_interpolation_tpu_torch.models import (create_model, init_params,
                                                   layers)
-from frame_interpolation_tpu_torch.ops import (_kernels, conv_stack, resize,
-                                              upconv2x2, warp)
+from frame_interpolation_tpu_torch.ops import (_kernels, conv_stack,
+                                              conv_weights, resize, upconv2x2,
+                                              warp)
 from frame_interpolation_tpu_torch.options import Options
 from frame_interpolation_tpu_torch.parallel import distributed
 from frame_interpolation_tpu_torch.parallel import inference as sharded
@@ -499,6 +500,12 @@ def tf32_allowed(allowed: bool):
     torch.backends.cudnn.allow_tf32 = saved
 
 
+def kernel_route(dtype: torch.dtype, tf32: bool) -> str:
+  """The conv kernels' route for `dtype` with TF32 allowed or not."""
+  with tf32_allowed(tf32):
+    return conv_weights.route(dtype)
+
+
 def under_tf32(launches):
   """The counts `launches` of an f32 run made while TF32 is allowed: every
   conv launch also takes the TF32 route (`conv3x3_tf32`)."""
@@ -705,7 +712,8 @@ def check_conv(rng, h, w, cin, cout, pool, dtype, bound, batch=1,
       '.')[-1]
   result = {
       'shape': f'{batch}x{h}x{w} {cin}->{cout}{"+pool" if pool else ""}',
-      'dtype': kind, 'route': conv_stack.kernel_symbol(dtype, tf32),
+      'dtype': kind,
+      'route': conv_stack.kernel_symbol(kernel_route(dtype, tf32)),
       'max_abs_err': err, 'rel_err': rel, 'bound': bound, 'ok': rel <= bound,
   }
   if kind == 'tf32':
@@ -786,7 +794,8 @@ def check_upconv(rng, n, h, w, cin, cout, dtype, timed=True):
   result = {
       'shape': f'{n}x{h}x{w} {cin}->{cout} x2',
       'dtype': 'tf32' if tf32 else 'bfloat16',
-      'route': upconv2x2.kernel_symbol(dtype, tf32), 'max_abs_err': err,
+      'route': upconv2x2.kernel_symbol(kernel_route(dtype, tf32)),
+      'max_abs_err': err,
       'rel_err': err / scale, 'library_rel_err': lib_err / scale,
       'bound': bound, 'ok': ok,
   }
@@ -1805,6 +1814,16 @@ def new_captures(interpolator, before):
   return {name: sizes for name, sizes in made.items() if sizes}
 
 
+def chunked_tree(interpolator, frames):
+  """The chunked tree of `frames` at VIDEO_TIMES in batches of
+  VIDEO_MAX_BATCH through `interpolator`'s pair program: the route of
+  parallel/inference.ShardedVideoInterpolator, on one device."""
+  with torch.inference_mode():
+    return interpolator_lib.expand_tree_chunked(
+        interpolator.to_device(frames), VIDEO_TIMES, VIDEO_MAX_BATCH, False,
+        interpolator.interpolate_device)
+
+
 def check_video(interpolator, eager, card, failures):
   """The frame tree of 3 1080p frames at T = 3, by both routes (through
   `interpolator`'s programs; `eager`, the same model without graphs,
@@ -1814,17 +1833,17 @@ def check_video(interpolator, eager, card, failures):
       0, 256, (VIDEO_FRAMES, VIDEO_H, VIDEO_W, 3)).astype(np.uint8)
   frames_dev = torch.from_numpy(frames).cuda()
   report, routes = {}, {
-      'cached': dict(cached=True),
-      'cached_uint8': dict(cached=True, as_uint8=True),
-      'chunked': dict(cached=False, max_batch=VIDEO_MAX_BATCH),
+      'cached': lambda: interpolator.expand_tree_device(frames_dev,
+                                                        VIDEO_TIMES),
+      'cached_uint8': lambda: interpolator.expand_tree_device(
+          frames_dev, VIDEO_TIMES, as_uint8=True),
+      'chunked': lambda: chunked_tree(interpolator, frames_dev),
   }
   outputs = {}
   pool = interpolator.programs['pair'].pool
-  for name, kwargs in routes.items():
+  for name, route in routes.items():
     before, clears = live_captures(interpolator), pool.clears
-    out, launches, peak = run_counted(
-        lambda: interpolator.expand_tree_device(frames_dev, VIDEO_TIMES,
-                                                **kwargs))
+    out, launches, peak = run_counted(route)
     captured = new_captures(interpolator, before)
     first_clears = pool.clears - clears
     outputs[name] = out.cpu().numpy()
@@ -1834,8 +1853,7 @@ def check_video(interpolator, eager, card, failures):
       failures.append(f'{name} tree launches {launches} != {want}')
     # End to end on the card: the host's lag between launches counts.
     before, clears = live_captures(interpolator), pool.clears
-    ms = measure.time_ms(lambda: interpolator.expand_tree_device(
-        frames_dev, VIDEO_TIMES, **kwargs), iters=2, queued=False)
+    ms = measure.time_ms(route, iters=2, queued=False)
     recaptured = new_captures(interpolator, before)
     if recaptured or pool.clears != clears:
       failures.append(f'{name} tree: later calls captured {recaptured}, '
@@ -1862,8 +1880,7 @@ def check_video(interpolator, eager, card, failures):
 
   with plain_versions():
     plain, plain_launches, _ = run_counted(
-        lambda: eager.expand_tree_device(frames_dev, VIDEO_TIMES,
-                                         cached=True))
+        lambda: eager.expand_tree_device(frames_dev, VIDEO_TIMES))
   plain_psnr = min_frame_psnr(cached, plain.cpu().numpy())
   if sum(plain_launches.values()):
     failures.append(f'plain tree launched {plain_launches}')
@@ -2023,9 +2040,7 @@ def check_sharded_patches_and_tree(model, options, interpolator, card,
 
   video = torch.from_numpy(np.random.RandomState(0).randint(
       0, 256, (VIDEO_FRAMES, VIDEO_H, VIDEO_W, 3)).astype(np.uint8)).cuda()
-  chunked = interpolator.expand_tree_device(
-      video, VIDEO_TIMES, cached=False, max_batch=VIDEO_MAX_BATCH)
-  chunked = chunked.cpu().numpy()
+  chunked = chunked_tree(interpolator, video).cpu().numpy()
   tree_interp = sharded.ShardedVideoInterpolator(model, options, mesh,
                                                  align=64)
   out, launches, peak = run_counted(
@@ -2177,7 +2192,7 @@ def check_split(state, frames, dt, card, failures):
     report['ms'][form].append(measure.time_ms(
         lambda: interps[form].call_device(x0, x1, dtd), iters=3,
         queued=False))
-  auto = 'on' if layers.should_split('auto', 'cuda') else 'off'
+  auto = 'on' if layers.should_split('auto') else 'off'
   means = {f: float(np.mean(v)) for f, v in report['ms'].items()}
   print(f'split convs, 1080p pair (released config, bf16 policy): split vs '
         f'concat {psnr:.2f} dB (bound {SPLIT_PSNR_DB}); ms a pair (CUDA '
@@ -2834,8 +2849,7 @@ def graph_tree(card, failures):
   report, outs = {}, {}
 
   def tree(label):
-    return interps[label].expand_tree_device(frames, VIDEO_TIMES,
-                                             cached=True)
+    return interps[label].expand_tree_device(frames, VIDEO_TIMES)
 
   for label in ('graphs', 'eager'):
     torch.cuda.synchronize()

@@ -8,8 +8,8 @@ interpolate recursively between its naturally sorted frames and write
 
 By default the frame tree of each chunk of pairs runs on the device
 (inference/recursion.interpolate_frontier_streaming, the feature-cached
-DFS unless FI_TREE_CACHED=0); --streaming runs the reference's in-order
-generator instead. Both write the same frames.
+DFS); --streaming runs the reference's in-order generator instead. Both
+write the same frames.
 
   python3 -m frame_interpolation_tpu_torch.cli.interpolate_dir \
     --pattern "photos/*" --params random --times_to_interpolate 3 \
@@ -75,8 +75,8 @@ def _parser() -> argparse.ArgumentParser:
                       help='With --streaming, extract each frame\'s '
                       'features once (the same frames).')
   parser.add_argument('--max_batch', type=int, default=8,
-                      help='Batch cap of the chunked tree '
-                      '(FI_TREE_CACHED=0).')
+                      help='The batch cap of --mesh data\'s chunked '
+                      'tree.')
   parser.add_argument('--pairs_per_chunk', type=int, default=0,
                       help='Input pairs expanded per device chunk; 0 sizes '
                       'it from --device_memory_budget_gb.')

@@ -1,7 +1,7 @@
 """The feature-cached frame tree: each frame's features extracted once.
 
 Port of frame_interpolation_tpu/inference/cached_tree.py. The chunked tree
-(Interpolator.expand_tree_device with cached=False) runs the feature
+(inference/interpolator.expand_tree_chunked) runs the feature
 extractor on both endpoints of every pair at every depth, as the
 reference's recursion does (eval/util.py:62-91). Here each pair's tree is
 a walk over a static midpoint DFS schedule with a stack of `times + 2`

@@ -7,13 +7,14 @@ and runs them as one batch. Both take and return numpy arrays;
 `call_device` takes and returns tensors on the interpolator's device.
 
 Video: `expand_tree_device` expands N frames to (N-1)*2^T+1 by recursive
-midpoints on the device, by one of two routes. The feature-cached DFS
-(inference/cached_tree.py, the default) extracts each frame's features
-once, at batch 1, and skips extraction at the final depth's leaves. The
-chunked tree runs every depth's pairs as whole forwards in batches of
-`max_batch`. `features_device` and `midpoint_from_features_device` are the
-cached route's two steps, which the host-side DFS of inference/recursion.py
-also drives.
+midpoints on the device, by the feature-cached DFS (inference/cached_tree.py):
+each frame's features are extracted once, at batch 1, and the final
+depth's leaves skip extraction. `features_device` and
+`midpoint_from_features_device` are its two steps, which the host-side
+DFS of inference/recursion.py also drives. `expand_tree_chunked`, the
+uncached tree that runs every depth's pairs as whole forwards in batches
+of `max_batch`, is the route of parallel/inference.ShardedVideoInterpolator,
+which splits each batch over a mesh.
 
 The exact uint8 rules: uint8 frames cross to the device as uint8 and become
 f32 there through a 256-entry table of the correctly rounded v / 255, equal
@@ -366,30 +367,28 @@ class Interpolator:
   # ---- the frame tree ----------------------------------------------------------
 
   def expand_tree_device(self, frames: Any, times_to_interpolate: int,
-                         max_batch: int = 8, as_uint8: bool = False,
-                         cached: Optional[bool] = None) -> torch.Tensor:
-    """Expands (N, H, W, 3) frames to ((N-1)*2^T + 1, H, W, 3) on device.
+                         max_batch: int = 8,
+                         as_uint8: bool = False) -> torch.Tensor:
+    """Expands (N, H, W, 3) frames to ((N-1)*2^T + 1, H, W, 3) on device,
+    by the feature-cached DFS.
 
     `frames`: numpy or tensor, f32 in [0, 1] or uint8 (which crosses to the
     device as uint8 and converts exactly). `as_uint8` returns the frames
     quantized with io.images.to_uint8's rule, a quarter of the fetch.
-    `cached` picks the feature-cached DFS (the default, or FI_TREE_CACHED=0
-    for the chunked tree); the two agree to float noise. With patch tiling
-    the cached tree of every patch runs in turn and the frames are
-    reassembled once at the end (the tree commutes with tiling).
+    `max_batch` is not read here: it is the batch cap of
+    ShardedVideoInterpolator's chunked tree, which the recursion drivers
+    pass on to either class. With patch tiling the cached tree of every
+    patch runs in turn and the frames are reassembled once at the end (the
+    tree commutes with tiling).
     """
+    del max_batch
     frames = self.to_device(frames)
-    if cached is None:
-      cached = os.environ.get('FI_TREE_CACHED', '1') != '0'
     with torch.inference_mode():
       if self.tiled():
         return cached_tree.expand_tree_cached_tiled(
             self, frames, times_to_interpolate, as_uint8, self._block_shape)
-      if cached:
-        return cached_tree.expand_tree_cached(self, frames,
-                                              times_to_interpolate, as_uint8)
-      return expand_tree_chunked(frames, times_to_interpolate, max_batch,
-                                 as_uint8, self.interpolate_device)
+      return cached_tree.expand_tree_cached(self, frames,
+                                            times_to_interpolate, as_uint8)
 
 
 def expand_tree_chunked(frames: torch.Tensor, times: int, max_batch: int,
@@ -397,7 +396,8 @@ def expand_tree_chunked(frames: torch.Tensor, times: int, max_batch: int,
                         batch_quantum: int = 1) -> torch.Tensor:
   """The uncached tree: each depth's pairs as whole forwards in chunks of
   min(max_batch, pairs), the ragged last chunk filled with copies of the
-  first frame, then the midpoints interleaved in time order.
+  first frame, then the midpoints interleaved in time order. `frames` are
+  f32 on the forward's device.
 
   `forward(x0, x1, dt)` runs one chunk (Interpolator.interpolate_device).
   Chunks are rounded up to a multiple of `batch_quantum`, so that a

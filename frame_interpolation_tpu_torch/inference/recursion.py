@@ -10,9 +10,9 @@ pair: (n-1) * 2^T + 1 frames.
     DFS, one batch-1 forward per midpoint.
   * `interpolate_recursively_cached`: the same order, each frame's features
     extracted once (Interpolator.features_device).
-  * `interpolate_frontier`: the whole tree as one
-    Interpolator.expand_tree_device call (the feature-cached DFS, or the
-    chunked tree with FI_TREE_CACHED=0), one fetch.
+  * `interpolate_frontier`: the whole tree as one `expand_tree_device`
+    call (the Interpolator's feature-cached DFS, or the chunked tree of
+    parallel/inference.ShardedVideoInterpolator), one fetch.
   * `interpolate_frontier_streaming`: the same over chunks of consecutive
     pairs, with device memory bounded whatever the sequence's length; the
     fetch of a chunk overlaps the compute of the next ones. Under a
@@ -32,7 +32,6 @@ import torch
 
 from ..io import images
 from ..utils import profiling
-from .cached_tree import quantize_u8
 from .interpolator import Interpolator
 
 ProgressFn = Callable[[int], None]
@@ -245,7 +244,8 @@ def interpolate_frontier_streaming(
       uint8, lazily, one chunk at a time).
     times_to_interpolate: recursion depth T.
     interpolator: the model wrapper.
-    max_batch: the chunked tree's batch cap (FI_TREE_CACHED=0).
+    max_batch: the batch cap of ShardedVideoInterpolator's chunked tree
+      (the Interpolator's cached tree runs one pair at a time).
     pairs_per_chunk: input pairs a chunk; by default sized from
       `memory_budget_bytes`.
     memory_budget_bytes: device budget for the frame trees, from which the
@@ -279,17 +279,12 @@ def interpolate_frontier_streaming(
     for frame in frames[1:]:
       yield emit(load(frame))
     return
-  # Only the legacy per-pair loop (tiling with FI_TREE_CACHED=0) has no
-  # single expansion to overlap.
-  tiled_legacy = (interpolator.tiled() and
-                  os.environ.get('FI_TREE_CACHED', '1') == '0')
   pipeline_depth = max(1, int(pipeline_depth))
   if pairs_per_chunk is None:
     # The device tree is f32 whatever the inputs' dtype.
     pairs_per_chunk = frontier_pairs_per_chunk(
         int(np.asarray(first).size) * 4, times_to_interpolate,
-        memory_budget_bytes if tiled_legacy
-        else memory_budget_bytes // (pipeline_depth + 1))
+        memory_budget_bytes // (pipeline_depth + 1))
 
   def chunks():
     boundary = first
@@ -298,14 +293,6 @@ def interpolate_frontier_streaming(
       chunk = [boundary] + [load(f) for f in frames[start + 1:stop + 1]]
       yield chunk, stop == n - 1
       boundary = chunk[-1]
-
-  if tiled_legacy:
-    for chunk, last in chunks():
-      expanded = interpolate_frontier(chunk, times_to_interpolate,
-                                      interpolator, max_batch=max_batch,
-                                      progress=progress, as_uint8=as_uint8)
-      yield from expanded[:len(expanded) if last else -1]
-    return
 
   # Chunks consume only input frames, so they are independent: the fetch
   # of chunk k runs while chunks k+1 .. k+depth compute.
@@ -351,7 +338,8 @@ def interpolate_frontier(
     frames: input frames, each (H, W, 3) float32 in [0, 1] or uint8.
     times_to_interpolate: recursion depth T; 2^T - 1 midpoints per pair.
     interpolator: the model wrapper.
-    max_batch: the chunked tree's batch cap (FI_TREE_CACHED=0).
+    max_batch: the batch cap of ShardedVideoInterpolator's chunked tree
+      (the Interpolator's cached tree runs one pair at a time).
     progress: called with the number of frames just produced.
     as_uint8: quantize on the device with io.images.to_uint8's exact rule
       before the fetch: the same written PNG/mp4 bytes at a quarter of the
@@ -363,31 +351,10 @@ def interpolate_frontier(
   if len(frames) < 2 or times_to_interpolate <= 0:
     return ([images.to_uint8(f) for f in frames] if as_uint8
             else [_host_f32(f) for f in frames])
-  tiled_legacy = (interpolator.tiled() and
-                  os.environ.get('FI_TREE_CACHED', '1') == '0')
-  if not tiled_legacy:
-    out = interpolator.expand_tree_device(
-        _stack_inputs(frames), times_to_interpolate, max_batch=max_batch,
-        as_uint8=as_uint8)
-    stacked = out.cpu().numpy()
-    if progress is not None:
-      progress(stacked.shape[0] - len(frames))
-    return [stacked[i] for i in range(stacked.shape[0])]
-
-  # The legacy tiled loop: one tiled forward per midpoint, depth by depth.
-  sequence = [interpolator.to_device(_host_f32(f)) for f in frames]
-  dt = torch.full((1,), 0.5, dtype=torch.float32, device=interpolator.device)
-  for _ in range(times_to_interpolate):
-    merged = []
-    for x0, x1 in zip(sequence[:-1], sequence[1:]):
-      merged.append(x0)
-      merged.append(interpolator.call_device(x0[None], x1[None], dt)[0])
-      if progress is not None:
-        progress(1)
-    merged.append(sequence[-1])
-    sequence = merged
-  final = torch.stack(sequence)
-  if as_uint8:
-    final = quantize_u8(final)
-  stacked = final.cpu().numpy()
+  out = interpolator.expand_tree_device(
+      _stack_inputs(frames), times_to_interpolate, max_batch=max_batch,
+      as_uint8=as_uint8)
+  stacked = out.cpu().numpy()
+  if progress is not None:
+    progress(stacked.shape[0] - len(frames))
   return [stacked[i] for i in range(stacked.shape[0])]

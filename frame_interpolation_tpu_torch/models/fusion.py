@@ -49,13 +49,12 @@ has no backward.
 """
 from __future__ import annotations
 
-import threading
 from typing import List, NamedTuple, Tuple
 
 import torch
 from torch import nn
-from torch.utils.weak import WeakTensorKeyDictionary
 
+from ..ops import conv_weights
 from ..ops import resize
 from ..ops import upconv2x2
 from ..ops import warp
@@ -63,14 +62,6 @@ from ..options import Options
 from .layers import Conv, conv_input, leaky_relu
 
 _NUMBER_OF_COLOR_CHANNELS = 3
-
-# weight -> {(order, pieces, dtype): (key, weights)}: `gathered`'s weights,
-# rebuilt when the weight is written to in place or moved. They stay while
-# the weight is unchanged, as a captured graph (utils/programs.py) reads
-# them by address. Shards on one device share their replica's weights from
-# threads of their own: the lock gathers each once.
-_GATHERED = WeakTensorKeyDictionary()
-_GATHERED_LOCK = threading.Lock()
 
 
 def aligned_channels(feature_channels: int) -> int:
@@ -123,23 +114,14 @@ def gathered(conv: Conv, order: Tuple[int, ...],
   column), in the compute dtype, cut into contiguous weights of `pieces`
   input channels each, one a piece of the input (`Conv.conv`'s
   `weights`). Made once a weight, order, cut and dtype, and again after
-  the weight is written to in place or moved; not differentiable."""
+  the weight is written to in place or moved (ops/conv_weights.derived);
+  not differentiable."""
   if sum(pieces) != len(order):
     raise ValueError(f'pieces of {sum(pieces)} channels for an order of '
                      f'{len(order)}')
-  weight = conv.weight
-  if weight.is_inference():
-    # Inference tensors keep no version counter: nothing to key on.
-    return _gather(conv, order, pieces)
-  key = (weight._version, weight.data_ptr(), weight.device)
-  use = (order, pieces, conv.compute_dtype)
-  with _GATHERED_LOCK:
-    by_use = _GATHERED.setdefault(weight, {})
-    cached = by_use.get(use)
-    if cached is None or cached[0] != key:
-      cached = (key, _gather(conv, order, pieces))
-      by_use[use] = cached
-    return cached[1]
+  return conv_weights.derived(
+      conv.weight, ('gathered', order, pieces, conv.compute_dtype),
+      lambda: _gather(conv, order, pieces))
 
 
 def _gather(conv: Conv, order: Tuple[int, ...],

@@ -54,28 +54,23 @@ def leaky_relu(x: torch.Tensor) -> torch.Tensor:
   return _LeakyRelu.apply(x)
 
 
-# Options.split_convs='auto' by device type: the JAX package's split form
-# on the CPU; on CUDA the form the H100 ran faster (tools/split_convs.py,
-# NVIDIA H100 80GB HBM3 at 700 W): the split form, at 54.9 ms a 1080p bf16
-# pair against 58.8 for the concat (torch.cat 10.6 ms against 15.0), with
-# the film_net-L1 step within noise (7.80 against 7.91 steps/s, runs
-# spread 6.2-8.8). A device type not listed splits, as JAX does.
-AUTO_SPLIT = {'cpu': True, 'cuda': True}
-
 Pieces = Union[torch.Tensor, Sequence[torch.Tensor]]
 
 
-def should_split(mode: str, device: torch.device) -> bool:
-  """Whether a concat conv on `device` runs split (Options.split_convs)."""
-  if mode == 'auto':
-    return AUTO_SPLIT.get(torch.device(device).type, True)
-  return mode == 'on'
+def should_split(mode: str) -> bool:
+  """Whether a concat conv runs split (Options.split_convs): unless the
+  mode is 'off'. 'auto' splits on every device: the JAX package's default,
+  and the form the H100 ran faster (tools/split_convs.py, NVIDIA H100 80GB
+  HBM3 at 700 W), at 54.9 ms a 1080p bf16 pair against 58.8 for the
+  concat (torch.cat 10.6 ms against 15.0), with the film_net-L1 step
+  within noise (7.80 against 7.91 steps/s, runs spread 6.2-8.8)."""
+  return mode != 'off'
 
 
 def conv_input(pieces: List[torch.Tensor], mode: str) -> Pieces:
   """The input of a conv on the channel concat of NHWC `pieces`: the list
   itself in the split form, else the concat."""
-  if should_split(mode, pieces[0].device):
+  if should_split(mode):
     return pieces
   return torch.cat(pieces, dim=-1)
 

@@ -13,14 +13,14 @@ where(y >= 0, y, 0.2 y), JAX's form, whose gradient at exactly 0 is 1.
 `conv3x3_leaky` runs the forward through `Conv3x3Leaky`: a CPU tensor takes
 `conv3x3_leaky_plain` and a CUDA tensor the kernel in csrc/conv3x3.cu, and
 there is no other route. On the card, bf16 runs on the tensor cores
-(wgmma); f32 runs on them in TF32 when `torch.backends.cudnn.allow_tf32` is
-True, the flag under which cuDNN runs PyTorch's own f32 convs in TF32, and
-in exact f32 FMAs otherwise (`kernel_symbol`). The TF32 route rounds both
-operands to nearest TF32, as cuDNN does: the weights when they are packed
-(`round_tf32`), the activations in the kernel. The backward is plain
-PyTorch on every device, as the JAX custom VJP differentiates the unfused
-composition with XLA (ops/conv_stack.py _stack_diff_bwd,
-ops/conv_stack_wide.py _wide_diff_bwd).
+(wgmma); f32 runs on them in TF32 under the flag that has cuDNN's own f32
+convs run in TF32, and in exact f32 FMAs otherwise (ops/conv_weights.route,
+`kernel_symbol`). The TF32 route rounds both operands to nearest TF32, as
+cuDNN does: the weights when they are packed (ops/conv_weights.packed),
+the activations in the kernel. The backward is plain PyTorch on every
+device, as the JAX custom VJP differentiates the unfused composition with
+XLA (ops/conv_stack.py _stack_diff_bwd, ops/conv_stack_wide.py
+_wide_diff_bwd).
 
 Tensors are NHWC, as in the JAX package; weights are PyTorch's OIHW
 parameters in f32, cast to the input dtype as flax's promote_dtype does.
@@ -31,82 +31,26 @@ its fused stacks on each device's slab.
 """
 from __future__ import annotations
 
-import threading
 from typing import Callable, Optional, Tuple
 
 import torch
 import torch.nn.functional as F
-from torch.utils.weak import WeakTensorKeyDictionary
 
-from . import _kernels
+from . import _kernels, conv_weights
 
 # The kernel's tile width along both channel axes.
 _CHANNEL_MULTIPLE = 64
-
-# weight -> {(dtype, tf32): (key, packed)}: the (Cout, 3, 3, Cin) copy the
-# kernel reads in each dtype asked for, rounded to TF32 for the TF32 route
-# (the exact f32 route reads the same dtype unrounded), rebuilt when the
-# weight is written to in place or moved. A copy stays while its weight is
-# unchanged, as a captured graph (utils/programs.py) reads it by address:
-# a forward on another route does not replace it. Shards on one device
-# share their replica's weights, from threads of their own: the lock packs
-# each weight once.
-_PACKED = WeakTensorKeyDictionary()
-_PACKED_LOCK = threading.Lock()
 
 # Rows each side of a slab for the extractor's two 3x3 convs: one for
 # each, and even, so that the fused pool's row pairs stay the frame's.
 HALO_ROWS = 2
 
 
-def kernel_symbol(dtype: torch.dtype, allow_tf32: bool) -> str:
-  """The C entry point of csrc/conv3x3.cu that takes x of `dtype`.
-
-  bf16: wgmma on bf16. f32: wgmma in TF32 when `allow_tf32` (the caller
-  passes `torch.backends.cudnn.allow_tf32`), else exact f32 FMAs.
-  """
-  if dtype == torch.bfloat16:
-    return 'fi_conv3x3_bf16'
-  if dtype == torch.float32:
-    return 'fi_conv3x3_tf32' if allow_tf32 else 'fi_conv3x3_f32'
-  raise ValueError(f'conv3x3_leaky: the kernel takes bf16 or f32; got {dtype}')
-
-
-def round_tf32(x: torch.Tensor) -> torch.Tensor:
-  """f32 `x` rounded to the nearest TF32 value (10 mantissa bits), ties
-  away from zero, as cvt.rna.tf32.f32 and cuDNN's TF32 convs round: a new
-  f32 tensor whose 13 low mantissa bits are zero."""
-  if x.dtype != torch.float32:
-    raise ValueError(f'round_tf32 takes f32; got {x.dtype}')
-  bits = x.contiguous().view(torch.int32)
-  return ((bits + 0x1000) & -0x2000).view(torch.float32)
-
-
-def _pack(weight: torch.Tensor, dtype: torch.dtype) -> torch.Tensor:
-  # K-major: row n holds the 9 * Cin weights of output channel n in the
-  # kernel's K order, tap (ky, kx) major and input channel minor.
-  return weight.detach().to(dtype).permute(0, 2, 3, 1).contiguous()
-
-
-def _packed_weight(weight: torch.Tensor, dtype: torch.dtype,
-                   tf32: bool = False) -> torch.Tensor:
-  """The kernel's copy of `weight` in `dtype`; rounded to TF32 when `tf32`
-  (the TF32 route's, f32 only)."""
-  def pack():
-    packed = _pack(weight, dtype)
-    return round_tf32(packed) if tf32 else packed
-
-  if weight.is_inference():
-    # Inference tensors keep no version counter: nothing to key a cache on.
-    return pack()
-  key = (weight._version, weight.data_ptr(), weight.device)
-  with _PACKED_LOCK:
-    by_route = _PACKED.setdefault(weight, {})
-    cached = by_route.get((dtype, tf32))
-    if cached is None or cached[0] != key:
-      cached = (key, pack())
-      by_route[(dtype, tf32)] = cached
-    return cached[1]
+def kernel_symbol(route: str) -> str:
+  """The C entry point of csrc/conv3x3.cu for a route of
+  ops/conv_weights.route: wgmma on bf16 ('bf16'), wgmma in TF32 ('tf32')
+  or exact f32 FMAs ('f32')."""
+  return f'fi_conv3x3_{route}'
 
 
 def _check(x: torch.Tensor, weight: torch.Tensor, bias: torch.Tensor) -> None:
@@ -151,14 +95,15 @@ def conv3x3_leaky_kernel(x: torch.Tensor, weight: torch.Tensor,
 
   Cin and Cout must be multiples of 64. The OIHW weights are repacked
   K-major to (Cout, 3, 3, Cin) in x's dtype, once per weight and route
-  (the copy is cached until the weight changes; the TF32 route's is
-  rounded to TF32); an f32 bias is passed as it is. The route follows
-  `kernel_symbol`; the exact f32 route takes a workspace of partial sums
-  where the library splits K (`fi_conv3x3_f32_splits`). A launch of the
-  TF32 route also counts as `conv3x3_tf32`.
+  (ops/conv_weights.packed: kept until the weight changes; the TF32
+  route's rounded to TF32); an f32 bias is passed as it is. The route is
+  ops/conv_weights.route's; the exact f32 route takes a workspace of
+  partial sums where the library splits K (`fi_conv3x3_f32_splits`). A
+  launch of the TF32 route also counts as `conv3x3_tf32`.
   """
   _check(x, weight, bias)
-  symbol = kernel_symbol(x.dtype, torch.backends.cudnn.allow_tf32)
+  route = conv_weights.route(x.dtype)
+  symbol = kernel_symbol(route)
   # TMA reads x and the weights in 16-byte aligned rows; the epilogue reads
   # the bias 16 bytes at a time.
   _kernels.require_cuda('conv3x3_leaky', x, alignment=16)
@@ -169,8 +114,7 @@ def conv3x3_leaky_kernel(x: torch.Tensor, weight: torch.Tensor,
   if cin % _CHANNEL_MULTIPLE or cout % _CHANNEL_MULTIPLE:
     raise ValueError(f'conv3x3_leaky: the kernel takes channel counts that '
                      f'are multiples of {_CHANNEL_MULTIPLE}; got {cin}->{cout}')
-  tf32 = symbol == 'fi_conv3x3_tf32'
-  packed = _packed_weight(weight, x.dtype, tf32)
+  packed = conv_weights.packed(weight, x.dtype, route)
   bias32 = bias.detach().float().contiguous()
   _kernels.require_cuda('conv3x3_leaky', packed, bias32, alignment=16)
   features = torch.empty((n, h, w, cout), dtype=x.dtype, device=x.device)
@@ -182,7 +126,7 @@ def conv3x3_leaky_kernel(x: torch.Tensor, weight: torch.Tensor,
   stream = _kernels.stream_of(x)
   args = (x.data_ptr(), packed.data_ptr(), bias32.data_ptr(),
           features.data_ptr(), pooled.data_ptr() if pool else None)
-  if symbol == 'fi_conv3x3_f32':
+  if route == 'f32':
     # The exact route splits K at the coarse levels into parts summed by a
     # second pass, in a workspace of one f32 output a part.
     splits = lib.fi_conv3x3_f32_splits(n, h, w, cin, cout)
@@ -194,7 +138,7 @@ def conv3x3_leaky_kernel(x: torch.Tensor, weight: torch.Tensor,
   _kernels.check('conv3x3_leaky', code)
   wide = not (cin == _CHANNEL_MULTIPLE and cout == _CHANNEL_MULTIPLE)
   _kernels.count_launch('conv3x3_wide' if wide else 'conv3x3_c64', stream)
-  if tf32:
+  if route == 'tf32':
     _kernels.count_launch('conv3x3_tf32', stream)
   return features, pooled
 

@@ -22,9 +22,9 @@ summed in f32 (no weights folded by phase, which would round other values
 in bf16), the bias is added in the layer's dtype's value, and y rounds
 once to x's dtype. `upconv2x2_plain` is that arithmetic in plain PyTorch,
 the kernel's reference. On the card bf16 runs on the tensor cores, and f32
-in TF32 where `torch.backends.cudnn.allow_tf32` lets cuDNN's convs do so,
-with both operands rounded to nearest TF32 as ops/conv_stack.py's TF32
-route rounds them. Exact f32 has no route here: its decoder keeps the
+in TF32 where ops/conv_weights.route says so (where cuDNN's convs may run
+in TF32), with both operands rounded to nearest TF32 as ops/conv_stack.py's
+TF32 route rounds them. Exact f32 has no route here: its decoder keeps the
 library ops. There is no backward: the decoder takes the kernel only on
 its packed route, which records nothing for autograd.
 """
@@ -35,20 +35,16 @@ from typing import Optional, Sequence
 import torch
 import torch.nn.functional as F
 
-from . import _kernels, conv_stack
+from . import _kernels, conv_weights
 
 # The kernel's K step and N tile along both channel axes.
 _CHANNEL_MULTIPLE = 64
 
 
-def kernel_symbol(dtype: torch.dtype, allow_tf32: bool) -> Optional[str]:
-  """The C entry point of csrc/upconv2x2.cu that takes x of `dtype`, or
-  None where there is none (exact f32: `allow_tf32` False)."""
-  if dtype == torch.bfloat16:
-    return 'fi_upconv2x2_bf16'
-  if dtype == torch.float32 and allow_tf32:
-    return 'fi_upconv2x2_tf32'
-  return None
+def kernel_symbol(route: str) -> Optional[str]:
+  """The C entry point of csrc/upconv2x2.cu for a route of
+  ops/conv_weights.route, or None where there is none (exact f32)."""
+  return {'bf16': 'fi_upconv2x2_bf16', 'tf32': 'fi_upconv2x2_tf32'}.get(route)
 
 
 def supported(x: torch.Tensor, weight: torch.Tensor, dtype: torch.dtype,
@@ -59,8 +55,9 @@ def supported(x: torch.Tensor, weight: torch.Tensor, dtype: torch.dtype,
   multiples of its K step and N tile. The device is not asked."""
   n, h, w, cin = x.shape
   return (tuple(int(s) for s in size) == (2 * h, 2 * w)
+          and dtype in (torch.bfloat16, torch.float32)
           and x.dtype == dtype
-          and kernel_symbol(dtype, torch.backends.cudnn.allow_tf32) is not None
+          and kernel_symbol(conv_weights.route(dtype)) is not None
           and tuple(weight.shape[1:]) == (cin, 2, 2)
           and cin % _CHANNEL_MULTIPLE == 0
           and weight.shape[0] % _CHANNEL_MULTIPLE == 0)
@@ -120,11 +117,12 @@ def upconv2x2_kernel(x: torch.Tensor, weight: torch.Tensor,
 
   Cin and Cout must be multiples of 64. The OIHW weights are repacked
   K-major to (Cout, 2, 2, Cin) in x's dtype, once per weight and route
-  (ops/conv_stack.py's cache; the TF32 route's rounded to TF32); the bias
+  (ops/conv_weights.packed; the TF32 route's rounded to TF32); the bias
   goes in x's dtype's value, as f32. Counts `upconv2x2`.
   """
   _check(x, weight, bias)
-  symbol = kernel_symbol(x.dtype, torch.backends.cudnn.allow_tf32)
+  route = conv_weights.route(x.dtype)
+  symbol = kernel_symbol(route)
   if symbol is None:
     raise ValueError(f'upconv2x2: the kernel takes bf16, or f32 while TF32 '
                      f'is allowed; got {x.dtype}')
@@ -138,8 +136,7 @@ def upconv2x2_kernel(x: torch.Tensor, weight: torch.Tensor,
   if cin % _CHANNEL_MULTIPLE or cout % _CHANNEL_MULTIPLE:
     raise ValueError(f'upconv2x2: the kernel takes channel counts that are '
                      f'multiples of {_CHANNEL_MULTIPLE}; got {cin}->{cout}')
-  packed = conv_stack._packed_weight(weight, x.dtype,
-                                     symbol == 'fi_upconv2x2_tf32')
+  packed = conv_weights.packed(weight, x.dtype, route)
   bias32 = bias.detach().to(x.dtype).float().contiguous()
   _kernels.require_cuda('upconv2x2', packed, bias32, alignment=16)
   out = torch.empty((n, 2 * h, 2 * w, cout), dtype=x.dtype, device=x.device)

@@ -44,12 +44,11 @@ class Options:
       weight's slice of input channels, the partial outputs summed in the
       compute dtype and the bias added once, so the concat is never
       written (the JAX package's split form). 'off': the conv of the
-      concat. 'auto': the split form on the CPU, as the JAX package's
-      default; on CUDA the form that the H100 ran faster at the 1080p
-      bf16 pair and the train step (models/layers.AUTO_SPLIT, with the
-      numbers in PERF.md). The two forms compute the same function up to
-      accumulation order (and, under bf16, one more rounding of each
-      partial output).
+      concat. 'auto', the default: the split form on every device, as
+      the JAX package's default, and the form that the H100 ran faster at
+      the 1080p bf16 pair (models/layers.should_split). The two forms
+      compute the same function up to accumulation order (and, under
+      bf16, one more rounding of each partial output).
   """
   pyramid_levels: int = 5
   fusion_pyramid_levels: int = 5

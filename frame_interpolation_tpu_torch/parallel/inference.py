@@ -151,10 +151,10 @@ class ShardedVideoInterpolator(_Sharded):
 
   A tree depth's pairs are independent, so each forward chunk (a multiple
   of the mesh, one node a shard by default) splits over the shards with
-  no exchange between them. Exposes the
-  Interpolator's `expand_tree_device` contract (and `device`, `tiled`,
-  `to_device`) for the frontier drivers of inference/recursion.py, with
-  the chunked tree's outputs.
+  no exchange between them. Exposes the Interpolator's
+  `expand_tree_device` contract (and `device`, `to_device`) for the
+  frontier drivers of inference/recursion.py, with the chunked tree's
+  outputs.
   """
 
   def __init__(self, params_or_model: Any, options: Options,
@@ -162,14 +162,13 @@ class ShardedVideoInterpolator(_Sharded):
                graphs: Optional[bool] = None):
     super().__init__(params_or_model, options, mesh, align, graphs)
 
-  def tiled(self) -> bool:
-    return False
-
   def expand_tree_device(self, frames: Any, times_to_interpolate: int,
                          max_batch: Optional[int] = None,
                          as_uint8: bool = False) -> torch.Tensor:
     """(N, H, W, 3) frames, numpy or tensor, f32 or uint8, to
-    ((N-1)*2^T + 1, H, W, 3) on `device`; see Interpolator."""
+    ((N-1)*2^T + 1, H, W, 3) on `device`; see Interpolator. Each depth's
+    pairs run in batches of `max_batch` (default: one a shard), rounded
+    up to a multiple of the mesh."""
     frames = self.to_device(frames)
     n = self.num_devices
     max_batch = -(-(max_batch or n) // n) * n

@@ -28,7 +28,7 @@ import torch
 import torch.nn.functional as F
 
 from film_bench.reference.tf32 import round_tf32 as plain_round_tf32
-from frame_interpolation_tpu_torch.ops import _kernels, conv_stack
+from frame_interpolation_tpu_torch.ops import _kernels, conv_stack, conv_weights
 
 # Relative RMS gap to f64 on the raw operands: rounding each operand to
 # 11 significant bits leaves about 2.9e-4 over these sums; truncating
@@ -75,7 +75,7 @@ def test_round_tf32_takes_the_nearer_neighbour_ties_away():
   gap_up = np.abs(up.astype(np.float64) - exact)
   # The nearer neighbour in magnitude; at a tie the one away from zero.
   want = np.where(gap_up <= gap_down, up, down)
-  for rounded in (conv_stack.round_tf32(x), plain_round_tf32(x)):
+  for rounded in (conv_weights.round_tf32(x), plain_round_tf32(x)):
     assert np.array_equal(rounded.numpy().view(np.uint32),
                           want.view(np.uint32))
     assert not (rounded.numpy().view(np.uint32) & 0x1FFF).any()
@@ -86,7 +86,7 @@ def test_tf32_pack_is_round_tf32_bit_for_bit():
   weight = torch.nn.Parameter(torch.randn(64, 32, 3, 3, generator=g) * 0.05)
   with torch.no_grad():
     weight.view(-1)[:_special_values().numel()] = _special_values()
-  packed = conv_stack._packed_weight(weight, torch.float32, tf32=True)
+  packed = conv_weights.packed(weight, torch.float32, 'tf32')
   exact = weight.detach().permute(0, 2, 3, 1).contiguous()
   assert packed.dtype == torch.float32 and packed.is_contiguous()
   assert torch.equal(_int_bits(packed), _int_bits(plain_round_tf32(exact)))
@@ -95,7 +95,7 @@ def test_tf32_pack_is_round_tf32_bit_for_bit():
 def test_exact_f32_pack_stays_unrounded():
   g = torch.Generator().manual_seed(2)
   weight = torch.nn.Parameter(torch.randn(64, 64, 3, 3, generator=g))
-  exact = conv_stack._packed_weight(weight, torch.float32)
+  exact = conv_weights.packed(weight, torch.float32, 'f32')
   want = weight.detach().permute(0, 2, 3, 1).contiguous()
   assert torch.equal(_int_bits(exact), _int_bits(want))
   assert (_int_bits(exact) & 0x1FFF).any()
@@ -105,21 +105,22 @@ def test_exact_f32_pack_stays_unrounded():
 
 def test_pack_cache_keeps_the_routes_apart():
   weight = torch.nn.Parameter(torch.randn(64, 64, 3, 3))
-  exact = conv_stack._packed_weight(weight, torch.float32)
-  rounded = conv_stack._packed_weight(weight, torch.float32, tf32=True)
-  bf16 = conv_stack._packed_weight(weight, torch.bfloat16)
+  exact = conv_weights.packed(weight, torch.float32, 'f32')
+  rounded = conv_weights.packed(weight, torch.float32, 'tf32')
+  bf16 = conv_weights.packed(weight, torch.bfloat16, 'bf16')
   assert len({exact.data_ptr(), rounded.data_ptr(), bf16.data_ptr()}) == 3
   assert not torch.equal(exact, rounded)
   # Each route gets its own copy back, whichever was packed last.
-  assert conv_stack._packed_weight(weight, torch.float32) is exact
-  assert conv_stack._packed_weight(weight, torch.float32, True) is rounded
-  assert conv_stack._packed_weight(weight, torch.bfloat16) is bf16
+  assert conv_weights.packed(weight, torch.float32, 'f32') is exact
+  assert conv_weights.packed(weight, torch.float32, 'tf32') is rounded
+  assert conv_weights.packed(weight, torch.bfloat16, 'bf16') is bf16
   with torch.no_grad():
     weight.mul_(3.0)
   for tf32 in (False, True):
-    repacked = conv_stack._packed_weight(weight, torch.float32, tf32)
+    repacked = conv_weights.packed(weight, torch.float32,
+                                   'tf32' if tf32 else 'f32')
     want = weight.detach().permute(0, 2, 3, 1).contiguous()
-    want = conv_stack.round_tf32(want) if tf32 else want
+    want = conv_weights.round_tf32(want) if tf32 else want
     assert torch.equal(_int_bits(repacked), _int_bits(want))
 
 
@@ -150,7 +151,7 @@ def test_only_the_tf32_route_reads_rounded_weights_and_counts(
   x = torch.zeros(1, 4, 6, 64, dtype=dtype)
   conv_stack.conv3x3_leaky_kernel(x, weight, torch.zeros(128))
   on_tf32 = symbol == 'fi_conv3x3_tf32'
-  packed = conv_stack._packed_weight(weight, dtype, on_tf32)
+  packed = conv_weights.packed(weight, dtype, symbol[len('fi_conv3x3_'):])
   assert calls[symbol][1] == packed.data_ptr()
   assert _kernels.LAUNCHES == dict.fromkeys(_kernels.LAUNCHES, 0) | {
       'conv3x3_wide': 1, 'conv3x3_tf32': int(on_tf32)}

@@ -12,8 +12,8 @@ import re
 import pytest
 import torch
 
-from frame_interpolation_tpu_torch.ops import (_kernels, conv_stack, upconv2x2,
-                                              warp)
+from frame_interpolation_tpu_torch.ops import (_kernels, conv_stack,
+                                              conv_weights, upconv2x2, warp)
 
 _C_TYPES = {'const void*': ctypes.c_void_p, 'void*': ctypes.c_void_p,
             'const void* const*': ctypes.POINTER(ctypes.c_void_p),
@@ -265,7 +265,7 @@ def test_upconv_wrapper_passes_what_the_entry_points_declare(
   assert out.shape == (2, 6, 10, 64) and out.dtype == dtype
   assert [name for name, _ in library.log] == [symbol]
   args = library.log[0][1]
-  packed = conv_stack._packed_weight(weight, dtype, symbol.endswith('tf32'))
+  packed = conv_weights.packed(weight, dtype, symbol[len('fi_upconv2x2_'):])
   assert args[:2] == (x.data_ptr(), packed.data_ptr())
   assert tuple(packed.shape) == (64, 2, 2, 128)
   assert args[3] == out.data_ptr()

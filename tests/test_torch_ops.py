@@ -29,6 +29,7 @@ from frame_interpolation_tpu.ops import warp as jax_warp
 from frame_interpolation_tpu.ops import warp_window as jax_warp_window
 from frame_interpolation_tpu_torch import options as torch_options
 from frame_interpolation_tpu_torch.ops import _kernels, conv_stack, pyramid
+from frame_interpolation_tpu_torch.ops import conv_weights
 from frame_interpolation_tpu_torch.ops import resize, tiling, warp
 
 torch.set_num_threads(2)
@@ -252,22 +253,22 @@ def test_conv_weight_pack_is_cached_until_the_weight_changes():
   # (one packing for every route); the wrapper packs each weight once and
   # repacks only after it changes.
   weight = torch.nn.Parameter(torch.randn(64, 32, 3, 3))
-  packed = conv_stack._packed_weight(weight, torch.bfloat16)
+  packed = conv_weights.packed(weight, torch.bfloat16, 'bf16')
   assert packed.dtype == torch.bfloat16 and packed.is_contiguous()
   assert tuple(packed.shape) == (64, 3, 3, 32)
   assert torch.equal(packed,
                      weight.detach().permute(0, 2, 3, 1).to(torch.bfloat16))
-  assert conv_stack._packed_weight(weight, torch.bfloat16) is packed
-  packed32 = conv_stack._packed_weight(weight, torch.float32)
+  assert conv_weights.packed(weight, torch.bfloat16, 'bf16') is packed
+  packed32 = conv_weights.packed(weight, torch.float32, 'f32')
   assert torch.equal(packed32, weight.detach().permute(0, 2, 3, 1))
   with torch.no_grad():
     weight.add_(1.0)
-  repacked = conv_stack._packed_weight(weight, torch.float32)
+  repacked = conv_weights.packed(weight, torch.float32, 'f32')
   assert repacked is not packed32
   assert torch.equal(repacked, weight.detach().permute(0, 2, 3, 1))
   with torch.inference_mode():
     frozen = torch.randn(64, 64, 3, 3)
-  assert torch.equal(conv_stack._packed_weight(frozen, torch.float32),
+  assert torch.equal(conv_weights.packed(frozen, torch.float32, 'f32'),
                      frozen.permute(0, 2, 3, 1))
 
 
@@ -283,7 +284,7 @@ def test_packed_weights_in_kernel_k_order_give_the_plain_conv(cin, cout, h,
   k, b = _conv_params(rng, cin, cout)
   weight = torch.from_numpy(k.transpose(3, 2, 0, 1).copy())
   bias = torch.from_numpy(b)
-  packed = conv_stack._packed_weight(weight, torch.float32)
+  packed = conv_weights.packed(weight, torch.float32, 'f32')
   cols = torch.nn.functional.unfold(x.permute(0, 3, 1, 2), 3, padding=1)
   # unfold orders K channel-major, (Cin, 9); the kernel walks (9, Cin).
   cols = cols.reshape(2, cin, 9, h * w).permute(0, 3, 2, 1)
@@ -298,12 +299,16 @@ def test_packed_weights_in_kernel_k_order_give_the_plain_conv(cin, cout, h,
 def test_conv_route_follows_the_cudnn_tf32_flag(monkeypatch):
   # bf16 takes the wgmma entry point; f32 takes TF32 wgmma exactly when
   # torch.backends.cudnn.allow_tf32 is True, else the exact FMA kernel.
-  assert conv_stack.kernel_symbol(torch.bfloat16, False) == 'fi_conv3x3_bf16'
-  assert conv_stack.kernel_symbol(torch.bfloat16, True) == 'fi_conv3x3_bf16'
-  assert conv_stack.kernel_symbol(torch.float32, True) == 'fi_conv3x3_tf32'
-  assert conv_stack.kernel_symbol(torch.float32, False) == 'fi_conv3x3_f32'
+  def symbol(dtype, allowed):
+    monkeypatch.setattr(torch.backends.cudnn, 'allow_tf32', allowed)
+    return conv_stack.kernel_symbol(conv_weights.route(dtype))
+
+  assert symbol(torch.bfloat16, False) == 'fi_conv3x3_bf16'
+  assert symbol(torch.bfloat16, True) == 'fi_conv3x3_bf16'
+  assert symbol(torch.float32, True) == 'fi_conv3x3_tf32'
+  assert symbol(torch.float32, False) == 'fi_conv3x3_f32'
   with pytest.raises(ValueError, match='bf16 or f32'):
-    conv_stack.kernel_symbol(torch.float16, True)
+    symbol(torch.float16, True)
   # The wrapper reads the flag at each call. Stand-ins for the library and
   # the device check record which entry point it would launch.
   called = []

@@ -22,9 +22,11 @@ from frame_interpolation_tpu.options import Options as JaxOptions
 from frame_interpolation_tpu_torch import parallel
 from frame_interpolation_tpu_torch.cli import interpolate_dir, interpolate_pair
 from frame_interpolation_tpu_torch.inference import Interpolator, recursion
+from frame_interpolation_tpu_torch.inference import interpolator
 from frame_interpolation_tpu_torch.io import images, params_io
-from frame_interpolation_tpu_torch.models import film_net
-from frame_interpolation_tpu_torch.ops import _kernels, conv_stack, rows
+from frame_interpolation_tpu_torch.models import film_net, fusion
+from frame_interpolation_tpu_torch.ops import _kernels, conv_stack, conv_weights
+from frame_interpolation_tpu_torch.ops import rows
 from frame_interpolation_tpu_torch.options import Options
 from frame_interpolation_tpu_torch.parallel import mesh as mesh_lib
 from frame_interpolation_tpu_torch.parallel import shard_map
@@ -203,8 +205,9 @@ def test_sharded_video_matches_the_chunked_tree(tiny_state, n, frames, times,
   rng = np.random.RandomState(5)
   video = (rng.rand(frames, 24, 40, 3) * 255).astype(np.uint8)
   single = Interpolator(tiny_state, Options.tiny(), align=8, device='cpu')
-  want = single.expand_tree_device(video, times, cached=False,
-                                   max_batch=3).numpy()
+  want = interpolator.expand_tree_chunked(
+      single.to_device(video), times, 3, False,
+      single.interpolate_device).numpy()
   sharded = parallel.ShardedVideoInterpolator(tiny_state, Options.tiny(),
                                               _mesh(n), align=8)
   got = sharded.expand_tree_device(video, times, max_batch=max_batch)
@@ -413,19 +416,35 @@ def test_library_builds_once_across_threads(monkeypatch, fast_switching):
   assert len(builds) == 1 and loaded == [('loaded', 'libfake.so')] * 8
 
 
-def test_packed_weights_pack_once_across_threads(monkeypatch,
-                                                 fast_switching):
-  packs = []
-  pack = conv_stack._pack
+def _packed_copy():
+  # The kernels' packed copy of a conv weight.
+  weight = torch.randn(8, 4, 3, 3)
+  return conv_weights, '_pack', lambda: conv_weights.packed(
+      weight, torch.float32, 'f32')
 
-  def counted(weight, dtype):
+
+def _gathered_copy():
+  # The fusion's gathered copy of conv_0_1's weight.
+  model = film_net.create_model(Options.tiny())
+  order = model.fusion._packed_orders['conv_0_1']
+  return fusion, '_gather', lambda: fusion.gathered(
+      model.fusion.conv_0_1, order, (len(order),))
+
+
+@pytest.mark.parametrize('copy', [_packed_copy, _gathered_copy],
+                         ids=['packed', 'gathered'])
+def test_packed_weights_pack_once_across_threads(monkeypatch, fast_switching,
+                                                 copy):
+  module, maker, take = copy()
+  packs = []
+  make = getattr(module, maker)
+
+  def counted(*args):
     packs.append(1)
     time.sleep(0.01)
-    return pack(weight, dtype)
+    return make(*args)
 
-  monkeypatch.setattr(conv_stack, '_pack', counted)
-  weight = torch.randn(8, 4, 3, 3)
+  monkeypatch.setattr(module, maker, counted)
   got = []
-  _in_threads(lambda: got.append(
-      conv_stack._packed_weight(weight, torch.float32)))
+  _in_threads(lambda: got.append(take()))
   assert len(packs) == 1 and all(g is got[0] for g in got)

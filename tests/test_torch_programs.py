@@ -553,7 +553,7 @@ def test_tree_pair_body_matches_jax_and_the_dfs(tiny_state):
   interp = Interpolator(tiny_state, Options.tiny(), align=ALIGN,
                         device='cpu')
   frames = _frames()
-  got = interp.expand_tree_device(frames, 2, cached=True).numpy()
+  got = interp.expand_tree_device(frames, 2).numpy()
   assert got.shape == (9, 30, 44, 3)
   np.testing.assert_array_equal(got, _dfs_tree(interp, frames, 2))
   # The body alone, from the first frame's features: the pair's three

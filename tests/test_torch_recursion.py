@@ -8,9 +8,10 @@ fanout.shard), the reference-order recursion and the feature-cached tree
 (per frame max-abs 1e-4 and PSNR 50 dB, the bounds of the pair forward in
 test_torch_interpolator.py). Port-only: the cached DFS equals the uncached
 DFS bit for bit (the same batch-1 forwards, only re-used); the cached tree
-and the chunked tree, and the tiled tree and the legacy tiled loop, agree
-to 1e-6 (other batch sizes, so float noise); the streaming driver equals
-the frontier; paths, mixed dtypes and degenerate inputs.
+and the chunked tree (interpolator.expand_tree_chunked), and the tiled
+tree and the reference's DFS through the tiled pair, agree to 1e-6 (other
+batch sizes, so float noise); the streaming driver equals the frontier;
+paths, mixed dtypes and degenerate inputs.
 """
 import numpy as np
 import pytest
@@ -73,6 +74,14 @@ def jax_interpolator(tiny_state):
 def _frames(n, h=H, w=W, seed=0):
   rng = np.random.RandomState(seed)
   return [rng.rand(h, w, 3).astype(np.float32) for _ in range(n)]
+
+
+def _chunked(interp, frames, times, max_batch=8, as_uint8=False):
+  """The chunked tree of `frames` through `interp`'s pair forward."""
+  with torch.inference_mode():
+    return interpolator.expand_tree_chunked(
+        interp.to_device(frames), times, max_batch, as_uint8,
+        interp.interpolate_device)
 
 
 def _max_abs(a, b):
@@ -142,8 +151,7 @@ def test_recursion_and_cached_tree_match_jax(interp, jax_interpolator):
   want_tree = np.asarray(jax_interpolator.expand_tree_device(
       np.stack(frames), 2, cached=True))
   got = list(recursion.interpolate_recursively(frames, 2, interp))
-  got_tree = interp.expand_tree_device(np.stack(frames), 2,
-                                       cached=True).numpy()
+  got_tree = interp.expand_tree_device(np.stack(frames), 2).numpy()
   assert len(got) == len(want) == recursion.num_output_frames(3, 2) == 9
   assert got_tree.shape == want_tree.shape == (9, H, W, 3)
   for i in range(9):
@@ -160,7 +168,7 @@ def test_cached_dfs_equals_uncached_dfs_exactly(interp):
   frames = _frames(3, seed=1)
   uncached = list(recursion.interpolate_recursively(frames, 3, interp))
   cached = list(recursion.interpolate_recursively_cached(frames, 3, interp))
-  tree = interp.expand_tree_device(np.stack(frames), 3, cached=True).numpy()
+  tree = interp.expand_tree_device(np.stack(frames), 3).numpy()
   assert len(uncached) == len(cached) == tree.shape[0] == 17
   for i, (a, b) in enumerate(zip(uncached, cached)):
     np.testing.assert_array_equal(a, b, err_msg=f'frame {i}')
@@ -175,24 +183,22 @@ def test_cached_dfs_equals_uncached_dfs_exactly(interp):
                                                (2, 3, 2)])
 def test_cached_tree_matches_chunked_tree(interp, n, times, max_batch):
   frames = np.stack(_frames(n, seed=n))
-  cached = interp.expand_tree_device(frames, times, cached=True).numpy()
-  chunked = interp.expand_tree_device(frames, times, max_batch=max_batch,
-                                      cached=False).numpy()
+  cached = interp.expand_tree_device(frames, times).numpy()
+  chunked = _chunked(interp, frames, times, max_batch).numpy()
   assert cached.shape == chunked.shape == (
       recursion.num_output_frames(n, times), H, W, 3)
   assert float(np.abs(cached - chunked).max()) <= NOISE_BOUND
   # The chunked tree's uint8 output is its own f32 output quantized.
-  quantized = interp.expand_tree_device(frames, times, max_batch=max_batch,
-                                        as_uint8=True, cached=False).numpy()
+  quantized = _chunked(interp, frames, times, max_batch,
+                       as_uint8=True).numpy()
   np.testing.assert_array_equal(quantized, images.to_uint8(chunked))
 
 
-def test_cached_tree_launch_pattern(interp, monkeypatch):
-  """One extraction per input frame and per non-leaf midpoint, at batch 1;
-  one midpoint forward per output frame that is not an input. The first
-  frame's extraction is a step of its own and each pair's tree one body
-  (the programs a CUDA device captures), so the steps inside are
-  counted."""
+def _count_tree_steps(interp, monkeypatch):
+  """Counts the cached tree's steps: the batch of each extraction and the
+  midpoint forwards. The first frame's extraction is a step of its own
+  and each pair's tree one body (the programs a CUDA device captures), so
+  the steps inside are counted."""
   calls = {'features': [], 'midpoints': 0}
   features, midpoint = interp._features_eager, interp._midpoint_eager
 
@@ -206,29 +212,50 @@ def test_cached_tree_launch_pattern(interp, monkeypatch):
 
   monkeypatch.setattr(interp, '_features_eager', count_features)
   monkeypatch.setattr(interp, '_midpoint_eager', count_midpoints)
-  interp.expand_tree_device(np.stack(_frames(3)), 3, cached=True)
+  return calls
+
+
+def test_cached_tree_launch_pattern(interp, monkeypatch):
+  """One extraction per input frame and per non-leaf midpoint, at batch 1;
+  one midpoint forward per output frame that is not an input."""
+  calls = _count_tree_steps(interp, monkeypatch)
+  interp.expand_tree_device(np.stack(_frames(3)), 3)
   # 3 inputs + 2 pairs x 3 non-leaf midpoints; the leaves' extraction is
   # skipped inside the midpoint step.
   assert calls['features'] == [1, 1, 1]
   assert calls['midpoints'] == 14
 
 
+def test_the_retired_tree_switch_changes_nothing(interp, monkeypatch):
+  """The frame tree has one route: with the environment variable that once
+  chose the chunked tree set, the drivers still run the cached tree."""
+  monkeypatch.setenv('FI_TREE_CACHED', '0')
+  calls = _count_tree_steps(interp, monkeypatch)
+  frames = _frames(3)
+  tree = recursion.interpolate_frontier(frames, 3, interp, max_batch=2)
+  assert calls['features'] == [1, 1, 1]
+  assert calls['midpoints'] == 14
+  np.testing.assert_array_equal(
+      np.stack(tree), interp.expand_tree_device(np.stack(frames), 3).numpy())
+
+
 @pytest.mark.parametrize('block', [(2, 2), (1, 2)])
-def test_tiled_tree_matches_legacy_tiled_loop(tiny_state, monkeypatch, block):
+def test_tiled_tree_matches_legacy_tiled_loop(tiny_state, block):
+  # The legacy tiled loop, one tiled pair forward per midpoint: the
+  # reference's DFS through the tiled __call__.
   tiled = Interpolator(tiny_state, Options.tiny(), align=ALIGN,
                        block_shape=block, device='cpu')
   frames = _frames(3, 32, 48, seed=4)
   tree = recursion.interpolate_frontier(frames, 2, tiled)
   tree_u8 = tiled.expand_tree_device(np.stack(frames), 2,
                                      as_uint8=True).numpy()
-  monkeypatch.setenv('FI_TREE_CACHED', '0')
-  legacy = recursion.interpolate_frontier(frames, 2, tiled)
+  legacy = list(recursion.interpolate_recursively(frames, 2, tiled))
   assert len(tree) == len(legacy) == 9
   assert _max_abs(tree, legacy) <= NOISE_BOUND
   np.testing.assert_array_equal(tree_u8, images.to_uint8(np.stack(tree)))
   streamed = list(recursion.interpolate_frontier_streaming(
       frames, 2, tiled, pairs_per_chunk=1))
-  assert _max_abs(streamed, legacy) == 0.0
+  assert _max_abs(streamed, tree) == 0.0
 
 
 @pytest.mark.parametrize('pairs_per_chunk,depth', [(1, 1), (1, 2), (2, 3),
@@ -295,11 +322,12 @@ def test_degenerate_inputs(interp):
     assert len(same) == 2
     for a, b in zip(same, frames):
       np.testing.assert_array_equal(a, b)
-  for cached in (True, False):
-    tree = interp.expand_tree_device(np.stack(frames), 0, cached=cached)
+  for expand in (interp.expand_tree_device,
+                 lambda f, t, as_uint8=False: _chunked(interp, f, t,
+                                                       as_uint8=as_uint8)):
+    tree = expand(np.stack(frames), 0)
     np.testing.assert_array_equal(tree.numpy(), np.stack(frames))
-    single = interp.expand_tree_device(np.stack(frames[:1]), 2,
-                                       as_uint8=True, cached=cached)
+    single = expand(np.stack(frames[:1]), 2, as_uint8=True)
     np.testing.assert_array_equal(single.numpy(),
                                   images.to_uint8(frames[0])[None])
   assert recursion.frontier_pairs_per_chunk(100, 2, 10_000) == 8

@@ -115,16 +115,16 @@ def test_conv_on_pieces_checks_the_channels():
 
 
 def test_should_split_by_mode_and_device():
-  for device in ('cpu', 'cuda', torch.device('cuda', 1)):
-    assert layers.should_split('on', device)
-    assert not layers.should_split('off', device)
-  assert layers.should_split('auto', 'cpu')
-  assert (layers.should_split('auto', 'cuda') ==
-          layers.AUTO_SPLIT['cuda'])
-  pieces = [torch.zeros(1, 2, 2, 3), torch.zeros(1, 2, 2, 1)]
-  assert layers.conv_input(pieces, 'on') is pieces
-  assert layers.conv_input(pieces, 'auto') is pieces
-  assert layers.conv_input(pieces, 'off').shape == (1, 2, 2, 4)
+  # Every mode but 'off' splits, whatever the device.
+  assert layers.should_split('on')
+  assert layers.should_split('auto')
+  assert not layers.should_split('off')
+  for device in ('cpu', 'meta'):
+    pieces = [torch.zeros(1, 2, 2, 3, device=device),
+              torch.zeros(1, 2, 2, 1, device=device)]
+    assert layers.conv_input(pieces, 'on') is pieces
+    assert layers.conv_input(pieces, 'auto') is pieces
+    assert layers.conv_input(pieces, 'off').shape == (1, 2, 2, 4)
 
 
 # ---- the model -------------------------------------------------------------------

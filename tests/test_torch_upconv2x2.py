@@ -33,7 +33,7 @@ import torch
 from frame_interpolation_tpu_torch import parallel
 from frame_interpolation_tpu_torch.inference import Interpolator
 from frame_interpolation_tpu_torch.models import film_net, fusion, layers
-from frame_interpolation_tpu_torch.ops import _kernels, conv_stack, resize
+from frame_interpolation_tpu_torch.ops import _kernels, conv_weights, resize
 from frame_interpolation_tpu_torch.ops import upconv2x2
 from frame_interpolation_tpu_torch.options import Options
 
@@ -304,8 +304,8 @@ def test_tf32_kernel_rounds_its_operands(card, site):
   bias = conv.bias.detach().double()
   raw = upconv2x2.upconv2x2_plain(x.double(), conv.weight.double(), bias)
   rounded = upconv2x2.upconv2x2_plain(
-      conv_stack.round_tf32(x).double(),
-      conv_stack.round_tf32(conv.weight.detach()).double(), bias)
+      conv_weights.round_tf32(x).double(),
+      conv_weights.round_tf32(conv.weight.detach()).double(), bias)
   scale = float((got.double() * raw).sum() / raw.square().sum())
   assert _rel_rms(got, raw) <= RAW_RMS_BOUND
   assert abs(scale - 1.0) <= SCALE_BOUND

@@ -46,6 +46,7 @@ import torch
 sys.path.insert(0, str(Path(__file__).resolve().parent.parent))
 
 from frame_interpolation_tpu_torch.inference import Interpolator  # noqa: E402
+from frame_interpolation_tpu_torch.inference import interpolator as interpolator_lib  # noqa: E402
 from frame_interpolation_tpu_torch.models import create_model, init_params  # noqa: E402
 from frame_interpolation_tpu_torch.options import Options  # noqa: E402
 from frame_interpolation_tpu_torch.utils import programs  # noqa: E402
@@ -229,21 +230,26 @@ def phase_tree(card):
   calls = [pair_call(interpolator, (1080, 1920, 1)) for _ in range(3)]
   frames = torch.from_numpy(np.random.RandomState(0).randint(
       0, 256, (TREE_FRAMES, 1080, 1920, 3)).astype(np.uint8)).cuda()
+
+  def cached():
+    return interpolator.expand_tree_device(frames, TREE_TIMES)
+
+  def chunked():
+    with torch.inference_mode():
+      return interpolator_lib.expand_tree_chunked(
+          interpolator.to_device(frames), TREE_TIMES, TREE_MAX_BATCH, False,
+          interpolator.interpolate_device)
+
   rows = []
-  for label, kwargs in (('cached', dict(cached=True)),
-                        ('cached', dict(cached=True)),
-                        ('chunked', dict(cached=False,
-                                         max_batch=TREE_MAX_BATCH)),
-                        ('chunked', dict(cached=False,
-                                         max_batch=TREE_MAX_BATCH)),
-                        ('chunked', dict(cached=False,
-                                         max_batch=TREE_MAX_BATCH))):
+  for label, tree in (('cached', cached), ('cached', cached),
+                      ('chunked', chunked), ('chunked', chunked),
+                      ('chunked', chunked)):
     before = {name: list(p.captures.values())
               for name, p in interpolator.programs.items()}
     clears = program.pool.clears
     torch.cuda.synchronize()
     start = time.perf_counter()
-    out = interpolator.expand_tree_device(frames, TREE_TIMES, **kwargs)
+    out = tree()
     torch.cuda.synchronize()
     ms = 1e3 * (time.perf_counter() - start)
     captured = {name: [gib(c.pool_bytes) for c in p.captures.values()

@@ -10,13 +10,22 @@ the 1080p serving path (the conv also at the train step's shapes, in TF32
 and in exact f32), the warp's derivative planes and splat at the training
 and 1080p shapes, the fusion decoder's upsampling kernel (nearest x2,
 TF-SAME pad and the 2x2 conv in one) at the three sites of a 1080p bf16
-midpoint and the finest site of a UHD f32 pair in TF32, each also against
-the library ops it replaces. Each timed check gives the kernel's time, the plain
+midpoint and the finest site of a UHD f32 pair in TF32, and the flow
+estimators' and the decoder's 3x3 conv kernel (the input's pieces, bias
+and leaky relu in one) at every distinct site of a 1080p bf16 midpoint
+and of a UHD midpoint in TF32, each also against the library ops it
+replaces, and on UHD slices in TF32 against f64 on rounded operands, one
+for each tile plan the UHD sites take; an eager 1080p midpoint under the
+profiler must run that kernel at all 50 of its sites and no cuDNN conv
+inside one. Each timed check gives the
+kernel's time, the plain
 version's, one PyTorch library call's where one computes the same function
 (`library_ms`: F.grid_sample for the warp, the image gradient of its
 backward for the splat, F.conv2d with bias through cuDNN for the conv,
-which leaves out the activation and the pool, and the upsample, the pad
-and cuDNN's 2x2 conv for the upsampling kernel), and the
+which leaves out the activation and the pool, the upsample, the pad
+and cuDNN's 2x2 conv for the upsampling kernel, and cuDNN's conv a piece
+with the bias, the partial outputs' sum and the leaky relu for the 3x3
+pieces kernel), and the
 least time the card could take (`bound_ms`: the larger of the FLOPs over
 the dtype's peak and the compulsory bytes over 3.35 TB/s). Then it drives
 the port's two paths:
@@ -92,7 +101,8 @@ Then the slice that completes the port:
   * the split-concat convs (Options.split_convs): the 1080p bf16 pair split
     against concat (>= 50 dB, 12/20/14/48 launches in both forms, ms a pair
     of each in turns, the form 'auto' picks on CUDA), the pair in f32 at
-    544x960 (1e-4), one film_net-L1 step in each form under the
+    544x960 (1e-4) and under TF32 against the plain versions (60 dB), one
+    film_net-L1 step in each form under the
     step-parity bounds, the row-sharded pair with split convs on
     [cuda:0] * 2 against one device;
   * the native CRC (native/, built with cc on this host): crc32c, its
@@ -184,6 +194,7 @@ and prints no result. It imports nothing of JAX.
 from __future__ import annotations
 
 import argparse
+import collections
 import contextlib
 import copy
 import dataclasses
@@ -224,9 +235,9 @@ from frame_interpolation_tpu_torch.io import (images, params_io, tf_bundle,
 from frame_interpolation_tpu_torch.losses import vgg19
 from frame_interpolation_tpu_torch.models import (create_model, init_params,
                                                   layers)
-from frame_interpolation_tpu_torch.ops import (_kernels, conv_stack,
-                                              conv_weights, resize, upconv2x2,
-                                              warp)
+from frame_interpolation_tpu_torch.ops import (_kernels, conv3x3_pieces,
+                                              conv_stack, conv_weights,
+                                              resize, upconv2x2, warp)
 from frame_interpolation_tpu_torch.options import Options
 from frame_interpolation_tpu_torch.parallel import distributed
 from frame_interpolation_tpu_torch.parallel import inference as sharded
@@ -269,20 +280,25 @@ REQUESTS = 3
 # rectangular first convs, and each frame is extracted separately. None of
 # the convs takes the TF32 route in bf16 (conv3x3_tf32; `under_tf32` gives
 # an f32 run's counts while TF32 is allowed). The fusion decoder's three
-# finer upsampling steps each run as one kernel (upconv2x2; `exact_f32`
-# gives an f32 run's counts while TF32 is off, where they keep the library
-# ops).
+# finer upsampling steps each run as one kernel (upconv2x2), and the 50
+# 3x3 convs of the flow estimators (2 directions x 7 levels x 3) and the
+# fusion (4 levels x 2) each as one kernel with its bias and leaky relu
+# (conv3x3_pieces); `exact_f32` gives an f32 run's counts while TF32 is
+# off, where both keep the library ops.
 PAIR_LAUNCHES = {'warp': 12, 'warp_planes': 0, 'splat': 0,
                  'conv3x3_c64': 14, 'conv3x3_wide': 48, 'warp_rows': 0,
-                 'warp_slice': 20, 'conv3x3_tf32': 0, 'upconv2x2': 3}
+                 'warp_slice': 20, 'conv3x3_tf32': 0, 'upconv2x2': 3,
+                 'conv3x3_pieces': 50}
 # Launches per train step: the forward's, whose fusion input is the
 # concat's (12 + 10 warps), plus one planes and one splat launch per warp
 # in the backward (every warp's image and flow need a gradient); the conv
-# backward is plain PyTorch, and the decoder's upsampling steps are the
-# library ops (the concat route).
+# backward is plain PyTorch, and the decoder's upsampling steps and the
+# flow estimators' and the decoder's 3x3 convs are the library ops (no
+# kernel there has a backward).
 STEP_LAUNCHES = {'warp': 22, 'warp_planes': 22, 'splat': 22,
                  'conv3x3_c64': 14, 'conv3x3_wide': 48, 'warp_rows': 0,
-                 'warp_slice': 0, 'conv3x3_tf32': 0, 'upconv2x2': 0}
+                 'warp_slice': 0, 'conv3x3_tf32': 0, 'upconv2x2': 0,
+                 'conv3x3_pieces': 0}
 TRAIN_BATCH, TRAIN_CROP = 8, 256
 TRAIN_STEPS, RESUME_STEPS, SAVE_INTERVAL = 20, 25, 10
 WARMUP_STEPS, TIMED_STEPS = 3, 10
@@ -336,7 +352,8 @@ VIDEO_OUTPUTS = (VIDEO_FRAMES - 1) * 2**VIDEO_TIMES + 1
 CACHED_TREE_LAUNCHES = {'warp': 14 * 12, 'warp_planes': 0, 'splat': 0,
                         'conv3x3_c64': 9 * 7, 'conv3x3_wide': 9 * 24,
                         'warp_rows': 0, 'warp_slice': 14 * 20,
-                        'conv3x3_tf32': 0, 'upconv2x2': 14 * 3}
+                        'conv3x3_tf32': 0, 'upconv2x2': 14 * 3,
+                        'conv3x3_pieces': 14 * 50}
 # The chunked tree at max_batch 3: 6 forwards (a batch of 2 at depth 1,
 # 3+3 and 3+3+3 with filler pairs at depths 2 and 3); a launch covers the
 # whole batch, so each forward launches a pair's 12/20/14/48.
@@ -346,7 +363,8 @@ CHUNKED_TREE_LAUNCHES = {k: 6 * v for k, v in PAIR_LAUNCHES.items()}
 TILED_TREE_LAUNCHES = {'warp': 4 * 12, 'warp_planes': 0, 'splat': 0,
                        'conv3x3_c64': 4 * 2 * 7, 'conv3x3_wide': 4 * 2 * 24,
                        'warp_rows': 0, 'warp_slice': 4 * 20,
-                       'conv3x3_tf32': 0, 'upconv2x2': 4 * 3}
+                       'conv3x3_tf32': 0, 'upconv2x2': 4 * 3,
+                       'conv3x3_pieces': 4 * 50}
 # Sharded serving on one card, the pair padded to 1088x1920. Every shard
 # runs every conv site (on its slab or the whole level), so 14n C=64 and
 # 48n wide launches. A level splits when its rows divide into even slabs:
@@ -356,14 +374,15 @@ TILED_TREE_LAUNCHES = {'warp': 4 * 12, 'warp_planes': 0, 'splat': 0,
 # 0-4, each in two directions, so over 4 shards 8 + 8 row-mode and 4 + 2
 # whole warps a shard, over 2 shards 10 + 10 and 2 + 0. A shard builds the
 # fusion's input by concats, so no warp into it, and its decoder runs the
-# upsampling steps as library ops.
+# upsampling steps, and its flow estimators and decoder their 3x3 convs,
+# as library ops.
 SPATIAL_LAUNCHES = {
     4: {'warp': 4 * 6, 'warp_planes': 0, 'splat': 0, 'conv3x3_c64': 4 * 14,
         'conv3x3_wide': 4 * 48, 'warp_rows': 4 * 16, 'warp_slice': 0,
-        'conv3x3_tf32': 0, 'upconv2x2': 0},
+        'conv3x3_tf32': 0, 'upconv2x2': 0, 'conv3x3_pieces': 0},
     2: {'warp': 2 * 2, 'warp_planes': 0, 'splat': 0, 'conv3x3_c64': 2 * 14,
         'conv3x3_wide': 2 * 48, 'warp_rows': 2 * 20, 'warp_slice': 0,
-        'conv3x3_tf32': 0, 'upconv2x2': 0},
+        'conv3x3_tf32': 0, 'upconv2x2': 0, 'conv3x3_pieces': 0},
 }
 SHARDS = 4
 # The 2x2 patches of a pair over 4 shards: each shard's one-patch forward
@@ -442,6 +461,42 @@ MIXED_SLACK_BYTES = 2**30
 GRAPH_TRACK_REL_BOUND = 1e-3
 GRAPH_LOOP_STEPS, GRAPH_LOG_INTERVAL = 10, 5
 GRAPH_PAIR_ITERS, GRAPH_IDLE_PAIRS, GRAPH_IDLE_STEPS = 10, 5, 5
+# The flow estimators' and the decoder's 3x3 sites of a 1080p midpoint
+# (the frame padded to 1088x1920), each distinct shape once: (H, W, the
+# pieces' channels, Cout). The flow's levels 0-6 (both directions), then
+# the fusion's conv_{i}_1 and conv_{i}_2 at levels 0-3.
+PIECES_SITES = (
+    (1088, 1920, (64, 64), 32), (1088, 1920, (32,), 32),
+    (544, 960, (192, 192), 64), (544, 960, (64,), 64),
+    (272, 480, (448, 448), 128), (272, 480, (128,), 128),
+    (136, 240, (960, 960), 256), (136, 240, (256,), 256),
+    (68, 120, (960, 960), 256), (68, 120, (256,), 256),
+    (34, 60, (960, 960), 256), (34, 60, (256,), 256),
+    (17, 30, (960, 960), 256), (17, 30, (256,), 256),
+    (1088, 1920, (144, 64), 64), (1088, 1920, (64,), 64),
+    (544, 960, (400, 128), 128), (544, 960, (128,), 128),
+    (272, 480, (912, 256), 256), (272, 480, (256,), 256),
+    (136, 240, (1936, 512), 512), (136, 240, (512,), 512))
+# The same of a UHD midpoint (2160x3840 padded to 2176x3840), as
+# pair-4k-f32 runs them in TF32: every level twice as tall and wide.
+PIECES_SITES_UHD = tuple((2 * h, 2 * w, channels, cout)
+                         for h, w, channels, cout in PIECES_SITES)
+# UHD slices in TF32 whose f64 references on rounded operands take
+# seconds: each picks a tile plan that the UHD sites take (the finest
+# sites' 8 rows of N = 32 and 64; 4 rows of 128; 2 rows of 256, of 128 and
+# of 64), with 16- and 48-channel tails (H, W, the pieces' channels, Cout).
+PIECES_SLICES_TF32 = (
+    (256, 512, (64, 64), 32), (256, 512, (32,), 32),
+    (256, 512, (144, 64), 64), (64, 512, (448, 448), 128),
+    (64, 512, (400, 128), 128), (32, 512, (960, 960), 256),
+    (32, 512, (912, 256), 256), (16, 512, (1936, 512), 512),
+    (68, 120, (960, 960), 256), (34, 60, (960, 960), 256),
+    (34, 60, (1936, 512), 512))
+# Kernels against plain versions, the f32 pair under TF32 (both sides'
+# convs in TF32: the kernels' rounded operands against cuDNN's). It read
+# 80.65 dB on the H100; a tile plan with wrong sums at one site reads far
+# below.
+TF32_PAIR_PSNR_DB = 60.0
 REPLACES = {
     'warp': 'frame_interpolation_tpu/ops/warp_window.py:134',
     'warp_planes': 'frame_interpolation_tpu/ops/warp_window.py:134',
@@ -452,6 +507,8 @@ REPLACES = {
     'warp_slice': 'frame_interpolation_tpu/ops/warp_window.py:134',
     'upconv2x2': 'none: frame_interpolation_tpu/models/fusion.py leaves the '
                  'upsampling step to XLA',
+    'conv3x3_pieces': 'none: frame_interpolation_tpu/models/flow_estimator.py '
+                      'and fusion.py leave these convs to XLA',
 }
 SOURCES = {
     'warp': 'frame_interpolation_tpu_torch/csrc/warp.cu',
@@ -462,6 +519,7 @@ SOURCES = {
     'warp_rows': 'frame_interpolation_tpu_torch/csrc/warp.cu',
     'warp_slice': 'frame_interpolation_tpu_torch/csrc/warp.cu',
     'upconv2x2': 'frame_interpolation_tpu_torch/csrc/upconv2x2.cu',
+    'conv3x3_pieces': 'frame_interpolation_tpu_torch/csrc/conv3x3_pieces.cu',
 }
 
 
@@ -515,8 +573,9 @@ def under_tf32(launches):
 
 def exact_f32(launches):
   """The counts `launches` of an f32 run made while TF32 is off: the
-  decoder's upsampling steps keep the library ops (`upconv2x2`)."""
-  return dict(launches, upconv2x2=0)
+  decoder's upsampling steps and the flow estimators' and the decoder's 3x3
+  convs keep the library ops (`upconv2x2`, `conv3x3_pieces`)."""
+  return dict(launches, upconv2x2=0, conv3x3_pieces=0)
 
 
 def smooth_seam_flow(h: int, w: int) -> torch.Tensor:
@@ -818,6 +877,175 @@ def check_upconv(rng, n, h, w, cin, cout, dtype, timed=True):
   return result
 
 
+def check_pieces(rng, n, h, w, channels, cout, dtype, timed=True,
+                 rounded=True):
+  """The flow estimators' and the decoder's 3x3 conv kernel (the pieces of
+  `channels`, bias, leaky relu) against its plain sums and against the
+  library ops it replaces (cuDNN's conv a piece with the bias, the sum of
+  the partial outputs, the leaky relu: `leaky_relu(Conv.conv(pieces))`,
+  in TF32 on that route). bf16: within one bf16 ulp of the output's scale
+  of the plain sums, and within the conv's bf16 bound of the library ops
+  (which round each partial output). f32, on the TF32 route: within the
+  conv's TF32 bound of the plain sums in exact f32, and with `rounded` on
+  TF32-rounded operands within their per-term drift (f64 sums: seconds at
+  a UHD slice, minutes at a whole UHD level). Reports the tile plan the
+  kernel took (`tile_plan`)."""
+  cin = sum(channels)
+  conv = layers.Conv(cin, cout, 3, dtype).cuda()
+  with torch.no_grad():
+    conv.weight.copy_(torch.from_numpy(
+        (rng.randn(cout, cin, 3, 3) * (9.0 * cin)**-0.5).astype(np.float32)))
+    conv.bias.copy_(torch.from_numpy(
+        (rng.randn(cout) * 0.1).astype(np.float32)))
+  pieces = [torch.from_numpy((rng.rand(n, h, w, c) * 2 - 1).astype(
+      np.float32)).to('cuda', dtype) for c in channels]
+  weights = conv.weight.detach().split(list(channels), dim=1)
+  tf32 = dtype == torch.float32
+  x = pieces if len(pieces) > 1 else pieces[0]
+
+  @torch.no_grad()
+  def kernel():
+    with tf32_allowed(tf32):
+      return conv3x3_pieces.conv3x3_pieces_kernel(pieces, conv.weight,
+                                                  conv.bias)
+
+  @torch.no_grad()
+  def plain():
+    return conv3x3_pieces.conv3x3_pieces_plain(pieces, weights, conv.bias)
+
+  @torch.no_grad()
+  def library():
+    with tf32_allowed(tf32):
+      return layers.leaky_relu(conv.conv(x))
+
+  got, want, lib = kernel(), plain(), library()
+  torch.cuda.synchronize()
+  scale = want.float().abs().max().item()
+  err = (got.float() - want.float()).abs().max().item()
+  lib_err = (got.float() - lib.float()).abs().max().item()
+  if tf32:
+    bound = CONV_TF32_BOUND
+    ok = err <= bound * scale
+  else:
+    # One bf16 ulp at the output's largest magnitude, compared as it is (a
+    # quotient by the scale and back may round it below one ulp).
+    ulp = 2.0**(np.floor(np.log2(scale)) - 7)
+    bound = ulp / scale
+    ok = err <= ulp and lib_err <= CONV_BF16_BOUND * scale
+  result = {
+      'shape': f'{n}x{h}x{w} {"+".join(map(str, channels))}->{cout}',
+      'dtype': 'tf32' if tf32 else 'bfloat16',
+      'route': conv3x3_pieces.kernel_symbol(kernel_route(dtype, tf32)),
+      'plan': conv3x3_pieces.tile_plan(n, h, w, cout),
+      'max_abs_err': err, 'rel_err': err / scale,
+      'library_rel_err': lib_err / scale, 'bound': bound, 'ok': ok,
+  }
+  if tf32 and rounded:
+    with torch.no_grad():
+      rounded = conv3x3_pieces.conv3x3_pieces_plain(
+          [tf32_rounded(p).double() for p in pieces],
+          [tf32_rounded(wt.contiguous()).double() for wt in weights],
+          conv.bias.double())
+    diff = got.double() - rounded
+    rms = (diff.square().sum() / rounded.square().sum()).sqrt().item()
+    rounded_bound = CONV_TF32_ROUNDED_BOUND_PER_K * 9 * cin
+    result.update(rounded_rel_rms=rms, rounded_bound=rounded_bound,
+                  ok=ok and rms <= rounded_bound)
+    del rounded, diff
+  del got, want, lib
+  if timed:
+    add_timing(result, kernel, plain, library,
+               *measure.conv_cost(n, h, w, cin, cout, False,
+                                  pieces[0].element_size()),
+               measure.PEAK_FLOPS[result['dtype']])
+  return result
+
+
+def pieces_midpoint_ms(results, key):
+  """`key` summed over a midpoint's 50 sites, from the results of
+  PIECES_SITES in order: of the flow's (the first 14, a level's first conv
+  then its two others' shape), each first conv twice (one a direction) and
+  the others' shape four times; the fusion's once."""
+  return sum(r[key] * (1 if i >= 14 else 2 if i % 2 == 0 else 4)
+             for i, r in enumerate(results))
+
+
+def pieces_trace(failures):
+  """One eager 1080p bf16 midpoint under the profiler: the device kernels
+  launched inside `Conv.conv_leaky` at the flow estimators' and the
+  decoder's 3x3 convs (each call marked by a profiler range). All 50 must
+  be `conv3x3_pieces_wgmma_kernel`, and no cuDNN conv kernel
+  (`sm90_xmma_fprop*`) may run inside one."""
+  options = Options.film_net_released(dtype_policy='bfloat16')
+  model = init_params(create_model(options),
+                      torch.Generator().manual_seed(0)).cuda()
+  rng = np.random.RandomState(1)
+  x0, x1 = (torch.from_numpy(rng.rand(1, 1088, 1920, 3).astype(
+      np.float32)).cuda() for _ in range(2))
+  t = torch.full((1, 1), 0.5, device='cuda')
+  real = layers.Conv.conv_leaky
+
+  def marked(self, x, weights=None):
+    if self.weight.shape[-1] != 3:
+      return real(self, x, weights)
+    with torch.profiler.record_function('smoke.conv_leaky'):
+      return real(self, x, weights)
+
+  layers.Conv.conv_leaky = marked
+  try:
+    with torch.no_grad():
+      model(x0, x1, t)
+      torch.cuda.synchronize()
+      activities = [torch.profiler.ProfilerActivity.CPU,
+                    torch.profiler.ProfilerActivity.CUDA]
+      with torch.profiler.profile(activities=activities) as prof:
+        model(x0, x1, t)
+        torch.cuda.synchronize()
+  finally:
+    layers.Conv.conv_leaky = real
+  with tempfile.TemporaryDirectory() as tmp:
+    path = os.path.join(tmp, 'trace.json')
+    prof.export_chrome_trace(path)
+    with open(path) as f:
+      events = [e for e in json.load(f)['traceEvents'] if e.get('ph') == 'X']
+  ranges = collections.defaultdict(list)
+  launches = {}
+  for e in events:
+    if e['name'] == 'smoke.conv_leaky' and (
+        e.get('cat') != 'gpu_user_annotation'):
+      ranges[e['tid']].append((e['ts'], e['ts'] + e['dur']))
+    elif e.get('cat') in ('cuda_runtime', 'cuda_driver'):
+      corr = e.get('args', {}).get('correlation')
+      if corr is not None:
+        launches[corr] = (e['ts'], e['tid'])
+  inside = collections.Counter()
+  fprop_total = 0
+  for e in events:
+    if e.get('cat') != 'kernel':
+      continue
+    name = e['name']
+    fprop = 'xmma_fprop' in name
+    fprop_total += fprop
+    launch = launches.get(e.get('args', {}).get('correlation'))
+    if launch is None:
+      continue
+    ts, tid = launch
+    if any(a <= ts <= b for a, b in ranges.get(tid, ())):
+      inside['pieces' if 'conv3x3_pieces_wgmma_kernel' in name else
+             'fprop' if fprop else 'other'] += 1
+  report = {'marked_calls': sum(len(v) for v in ranges.values()),
+            'pieces_kernels': inside['pieces'],
+            'fprop_kernels_inside': inside['fprop'],
+            'other_kernels_inside': inside['other'],
+            'fprop_kernels_elsewhere': fprop_total - inside['fprop']}
+  if (report['marked_calls'] != PAIR_LAUNCHES['conv3x3_pieces'] or
+      report['pieces_kernels'] != PAIR_LAUNCHES['conv3x3_pieces'] or
+      report['fprop_kernels_inside'] or report['other_kernels_inside']):
+    failures.append(f'pieces trace {report}')
+  print(f'pieces trace, 1080p bf16 midpoint (eager): {report}')
+  return report
+
+
 def training_flow(kind: str, b: int, h: int, w: int) -> torch.Tensor:
   """The flows the backward kernels are checked with.
 
@@ -937,23 +1165,34 @@ def _plain_conv(x, weight, bias, pool=False, negative_slope=0.2):
   return out if pool else (out, None)
 
 
+def _plain_pieces(pieces, weight, bias, weights=None, negative_slope=0.2):
+  if weights is None:
+    weights = weight.split([p.shape[-1] for p in pieces], dim=1)
+  return conv3x3_pieces.conv3x3_pieces_plain(pieces, weights, bias,
+                                             negative_slope)
+
+
 @contextlib.contextmanager
 def plain_versions():
   """Routes the model's warp and conv-stack calls to the plain versions,
   forward and backward (the same autograd Functions, plain=True), its
-  warps into the fusion's input to the plain warp's copy, and its
-  decoder's upsampling kernel to the plain phases."""
+  warps into the fusion's input to the plain warp's copy, its decoder's
+  upsampling kernel to the plain phases and its flow estimators' and
+  decoder's 3x3 conv kernel to the plain sums."""
   saved = (warp.backward_warp, warp.backward_warp_into,
-           conv_stack.conv3x3_leaky, upconv2x2.upconv2x2_kernel)
+           conv_stack.conv3x3_leaky, upconv2x2.upconv2x2_kernel,
+           conv3x3_pieces.conv3x3_pieces_kernel)
   warp.backward_warp = _plain_warp
   warp.backward_warp_into = _plain_warp_into
   conv_stack.conv3x3_leaky = _plain_conv
   upconv2x2.upconv2x2_kernel = upconv2x2.upconv2x2_plain
+  conv3x3_pieces.conv3x3_pieces_kernel = _plain_pieces
   try:
     yield
   finally:
     (warp.backward_warp, warp.backward_warp_into, conv_stack.conv3x3_leaky,
-     upconv2x2.upconv2x2_kernel) = saved
+     upconv2x2.upconv2x2_kernel,
+     conv3x3_pieces.conv3x3_pieces_kernel) = saved
 
 
 def square_frame(cy, cx, size=TRAIN_CROP, half=32):
@@ -2214,12 +2453,27 @@ def check_split(state, frames, dt, card, failures):
   # The f32 pair under PyTorch's default TF32 switch, as the CLI serves a
   # release: all 62 conv sites take the TF32 route (none did above, TF32
   # off, nor in the bf16 pairs).
+  # Its output against the plain versions' (eager; their convs on cuDNN
+  # in TF32 too): the 3x3 pieces kernel takes each of its tile plans on
+  # this pair's levels.
+  options = Options.film_net_released(dtype_policy='float32',
+                                      split_convs='on')
+  model = create_model(options)
+  model.load_state_dict(state)
+  eager = Interpolator(model, options, align=64, device='cuda', graphs=False)
   with tf32_allowed(True):
-    _, tf32_launches, _ = run_counted(
+    tf32_out, tf32_launches, _ = run_counted(
         lambda: f32_interps['on'](small[0], small[1], dt))
+    with plain_versions():
+      tf32_plain, tf32_plain_launches, _ = run_counted(
+          lambda: eager(small[0], small[1], dt))
   if tf32_launches != under_tf32(PAIR_LAUNCHES):
     failures.append(f'f32 pair under TF32 launches {tf32_launches}')
-  del f32_interps
+  tf32_psnr = psnr_db(tf32_out, tf32_plain)
+  if sum(tf32_plain_launches.values()) or not tf32_psnr >= TF32_PAIR_PSNR_DB:
+    failures.append(f'f32 pair under TF32 vs plain {tf32_psnr:.2f} dB, '
+                    f'plain launches {tf32_plain_launches}')
+  del f32_interps, eager, model
 
   # One film_net-L1 step in each form, TF32 and cuDNN off (as the step
   # parity runs), held to the step-parity bounds.
@@ -2260,7 +2514,9 @@ def check_split(state, frames, dt, card, failures):
       failures.append(f'split_convs={form} step launches {launches}')
   print(f'split convs, f32: the 544x960 pair split vs concat max-abs '
         f'{f32_err:.2e} (bound {SPLIT_F32_BOUND:.0e}); under TF32 its '
-        f'launches {tf32_launches}; one film_net-L1 step '
+        f'launches {tf32_launches}, against the plain versions '
+        f'{tf32_psnr:.2f} dB (bound {TF32_PAIR_PSNR_DB}); one film_net-L1 '
+        f'step '
         f'(batch 8x256x256, TF32 and cuDNN off): loss {steps["on"][0]:.7f} '
         f'split, {steps["off"][0]:.7f} concat, rel {loss_rel:.2e} (bound '
         f'{LOSS_REL_BOUND:.0e}); worst grad rel {worst[1]:.3e} ({worst[0]}, '
@@ -3732,6 +3988,27 @@ def main() -> int:
   checks['upconv2x2'] += [
       check_upconv(rng, 2, 37, 45, 128, 128, dtype, timed=False)
       for dtype in (torch.bfloat16, torch.float32)]
+  # The flow estimators' and the decoder's 3x3 conv kernel at every
+  # distinct site of a 1080p bf16 midpoint and of a UHD one in TF32 (timed;
+  # TF32 against exact f32), on UHD slices in TF32 against f64 on rounded
+  # operands, one slice for each tile plan the UHD sites take, and at
+  # ragged edges with K tails of 48 and 16 channels in both dtypes.
+  checks['conv3x3_pieces'] = [
+      check_pieces(rng, 1, h, w, channels, cout, torch.bfloat16)
+      for h, w, channels, cout in PIECES_SITES]
+  checks['conv3x3_pieces'] += [
+      check_pieces(rng, 1, h, w, channels, cout, torch.float32,
+                   rounded=False)
+      for h, w, channels, cout in PIECES_SITES_UHD]
+  checks['conv3x3_pieces'] += [
+      check_pieces(rng, 1, h, w, channels, cout, torch.float32, timed=False)
+      for h, w, channels, cout in PIECES_SLICES_TF32]
+  checks['conv3x3_pieces'] += [
+      check_pieces(rng, n, h, w, channels, cout, dtype, timed=False)
+      for n, h, w, channels, cout in ((2, 37, 45, (112, 16), 32),
+                                      (2, 37, 45, (144, 64), 64),
+                                      (3, 9, 70, (48,), 64))
+      for dtype in (torch.bfloat16, torch.float32)]
   # The splat's order, bit for bit: both flows, both dtypes, a C of two
   # channel passes, and oob flow on a whole 256x256 frame, whose edge tiles
   # hold more entries than a block sorts in shared memory.
@@ -3770,6 +4047,27 @@ def main() -> int:
              if 'ms' in r else ''))
       if not r['ok']:
         failures.append(f'{name} {r["shape"]} {r["dtype"]}{flow_kind}')
+  pieces = checks['conv3x3_pieces']
+  for label, sites in (
+      ('a 1080p bf16', pieces[:len(PIECES_SITES)]),
+      ('a UHD TF32', pieces[len(PIECES_SITES):2 * len(PIECES_SITES)])):
+    print(f'kernel conv3x3_pieces, {label} midpoint\'s 50 sites: kernel '
+          f'{pieces_midpoint_ms(sites, "ms"):.3f} ms, library '
+          f'{pieces_midpoint_ms(sites, "library_ms"):.3f} ms, bound '
+          f'{pieces_midpoint_ms(sites, "bound_ms"):.3f} ms (CUDA events; '
+          f'{card})')
+  # Every tile plan of the UHD TF32 sites is also held to f64 on rounded
+  # operands at a slice.
+  uhd_plans = {r['plan'] for r in
+               pieces[len(PIECES_SITES):2 * len(PIECES_SITES)]}
+  rounded_plans = {r['plan'] for r in pieces if 'rounded_rel_rms' in r}
+  print(f'kernel conv3x3_pieces tile plans (rows, N tile): UHD TF32 sites '
+        f'{sorted(uhd_plans)}, TF32 checks on rounded operands '
+        f'{sorted(rounded_plans)}')
+  if not uhd_plans <= rounded_plans:
+    failures.append(f'conv3x3_pieces: TF32 plans unchecked on rounded '
+                    f'operands {sorted(uhd_plans - rounded_plans)}')
+  pieces_trace(failures)
   if args.kernels_only:
     if args.out:
       os.makedirs(args.out, exist_ok=True)
@@ -3897,7 +4195,7 @@ def main() -> int:
   # backward kernels' every timed shape.
   record = {'kernels': []}
   for name in ('warp', 'warp_planes', 'splat', 'conv3x3_c64', 'conv3x3_wide',
-               'warp_rows', 'warp_slice'):
+               'warp_rows', 'warp_slice', 'conv3x3_pieces'):
     backward = name in ('warp_planes', 'splat')
     main_launches = (train_launches if backward else spatial_launches
                      if name == 'warp_rows' else launches)

@@ -11,7 +11,12 @@
 //     wide_extractor_stack).
 // Both compute y = leaky(conv(x, w) + b) with f32 accumulation and take the
 // pool from the f32 values before y is rounded; so does this kernel, and
-// each output rounds once to x's dtype.
+// each output rounds once to x's dtype. The flow estimators' and the fusion
+// decoder's 3x3 convs, with the same arithmetic and epilogue but no pool,
+// inputs in two pieces, N tiles of 32 and 16-channel K tails, run on their
+// own kernel, csrc/conv3x3_pieces.cu (conv3x3_pieces_wgmma_kernel), so that
+// this one stays tuned to the extractor's sites and its time (the
+// benchmark's conv3x3_roofline readings) holds only theirs.
 //
 // What bounds it on the H100: tensor-core FLOPs at every site but one. A
 // site is 2 * H * W * 9 * Cin * Cout FLOPs; the 62 sites of a 1080p pair are
@@ -96,10 +101,6 @@ namespace {
 constexpr int kTileRows = 8;   // output rows per block (even: pools in-block)
 constexpr int kTileCols = 16;  // output columns per block (even)
 constexpr int kBM = kTileRows * kTileCols;  // output pixels per block
-
-__device__ __forceinline__ float leaky(float v, float slope) {
-  return v >= 0.f ? v : v * slope;
-}
 
 // The epilogue shared by both kernels: Cs holds the block's kBM x BN f32
 // conv sums (row m = pixel (m / 16, m % 16) of the tile, row stride
@@ -556,22 +557,6 @@ __global__ void __launch_bounds__(FmaRing<BN>::kThreads,
   epilogue<float, BN, R::kCStride>(Cs, bias, out, pool, H, W, Cout, y0, x0,
                                    n0, img, slope, threadIdx.x,
                                    R::kConsumerThreads, sync);
-}
-
-// The device's SM count, asked once for each of the first kMaxDevices
-// devices.
-cudaError_t sm_count(int device, int* sms) {
-  static std::atomic<int> counts[kMaxDevices];
-  const bool kept = device >= 0 && device < kMaxDevices;
-  if (kept && (*sms = counts[device].load(std::memory_order_relaxed)) > 0) {
-    return cudaSuccess;
-  }
-  cudaError_t err =
-      cudaDeviceGetAttribute(sms, cudaDevAttrMultiProcessorCount, device);
-  if (err == cudaSuccess && kept) {
-    counts[device].store(*sms, std::memory_order_relaxed);
-  }
-  return err;
 }
 
 // Launches one ring kernel: the wgmma kernel (kFma false) or the exact

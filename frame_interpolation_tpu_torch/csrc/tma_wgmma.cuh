@@ -1,14 +1,17 @@
-// Hopper building blocks shared by conv3x3.cu and upconv2x2.cu: mbarriers,
-// TMA loads and tensor maps (128-byte rows, 128-byte swizzle, zeros outside
-// the tensor), wgmma descriptors and instructions for bf16 and TF32 (A from
-// registers, rounded to nearest by load_tf32), and the f32 -> T stores of
-// an epilogue.
+// Hopper building blocks shared by conv3x3.cu, conv3x3_pieces.cu and
+// upconv2x2.cu: mbarriers, TMA loads and tensor maps (128-byte rows,
+// 128-byte swizzle, zeros outside the tensor), wgmma descriptors and
+// instructions for bf16 and TF32 (A from shared memory, or from registers,
+// rounded to nearest by load_tf32), the f32 -> T stores and leaky relu of
+// an epilogue, and the SM count a launch sizes its grid by.
 #pragma once
 
 #include <cuda.h>
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
+
+#include <atomic>
 
 namespace {
 
@@ -118,6 +121,15 @@ __device__ __forceinline__ uint32_t load_tf32(uint32_t addr) {
   return r;
 }
 
+// The f32 v rounded to the nearest TF32 value (ties away from zero), as
+// load_tf32 rounds a value it loads: for operands that wgmma reads from
+// shared memory.
+__device__ __forceinline__ float round_tf32(float v) {
+  uint32_t r;
+  asm("cvt.rna.tf32.f32 %0, %1;\n" : "=r"(r) : "f"(v));
+  return __uint_as_float(r & 0xFFFFE000u);
+}
+
 // Keeps the compiler from moving accumulator reads or writes across the
 // asynchronous wgmma that owns the registers.
 template <int N>
@@ -133,6 +145,8 @@ __device__ __forceinline__ void fence_regs(uint32_t (&a)[N]) {
   for (int i = 0; i < N; ++i) asm volatile("" : "+r"(a[i])::"memory");
 }
 
+#define FI_R0_15                                                         \
+  "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15"
 #define FI_R0_31                                                         \
   "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, " \
   "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, " \
@@ -150,9 +164,11 @@ __device__ __forceinline__ void fence_regs(uint32_t (&a)[N]) {
 #define FI_ACC8(i)                                                     \
   "+f"(d[i]), "+f"(d[i + 1]), "+f"(d[i + 2]), "+f"(d[i + 3]),          \
       "+f"(d[i + 4]), "+f"(d[i + 5]), "+f"(d[i + 6]), "+f"(d[i + 7])
-#define FI_ACC32(i) FI_ACC8(i), FI_ACC8(i + 8), FI_ACC8(i + 16), FI_ACC8(i + 24)
+#define FI_ACC16(i) FI_ACC8(i), FI_ACC8(i + 8)
+#define FI_ACC32(i) FI_ACC16(i), FI_ACC16(i + 16)
 // One wgmma: d (64 x N f32, N/2 registers a thread) += A x B, both operands
-// K-major in shared memory. bf16 takes the transpose immediates (0, 0).
+// K-major in shared memory. bf16 takes the transpose immediates (0, 0),
+// TF32 none.
 #define FI_WGMMA(SHAPE_TYPES, REGS, DA, DB, SCALE, TAIL, ...)              \
   asm volatile(                                                          \
       "{\n.reg .pred p;\nsetp.ne.b32 p, %" #SCALE ", 0;\n"                  \
@@ -163,6 +179,14 @@ __device__ __forceinline__ void fence_regs(uint32_t (&a)[N]) {
 
 template <typename T, int N>
 struct Wgmma;
+template <>
+struct Wgmma<__nv_bfloat16, 32> {
+  __device__ __forceinline__ static void run(float (&d)[16], uint64_t a,
+                                             uint64_t b) {
+    FI_WGMMA("m64n32k16.f32.bf16.bf16", FI_R0_15, 16, 17, 18, ", 0, 0",
+             FI_ACC16(0));
+  }
+};
 template <>
 struct Wgmma<__nv_bfloat16, 64> {
   __device__ __forceinline__ static void run(float (&d)[32], uint64_t a,
@@ -185,6 +209,40 @@ struct Wgmma<__nv_bfloat16, 256> {
                                              uint64_t b) {
     FI_WGMMA("m64n256k16.f32.bf16.bf16",
              FI_R0_31 ", " FI_R32_63 ", " FI_R64_127, 128, 129, 130, ", 0, 0",
+             FI_ACC32(0), FI_ACC32(32), FI_ACC32(64), FI_ACC32(96));
+  }
+};
+// TF32 with both operands K-major in shared memory: wgmma reads the top 19
+// bits of each f32, so operands meant to be rounded to nearest must hold
+// rounded values already (csrc/conv3x3_pieces.cu rounds A's tile in place).
+template <>
+struct Wgmma<float, 32> {
+  __device__ __forceinline__ static void run(float (&d)[16], uint64_t a,
+                                             uint64_t b) {
+    FI_WGMMA("m64n32k8.f32.tf32.tf32", FI_R0_15, 16, 17, 18, "", FI_ACC16(0));
+  }
+};
+template <>
+struct Wgmma<float, 64> {
+  __device__ __forceinline__ static void run(float (&d)[32], uint64_t a,
+                                             uint64_t b) {
+    FI_WGMMA("m64n64k8.f32.tf32.tf32", FI_R0_31, 32, 33, 34, "", FI_ACC32(0));
+  }
+};
+template <>
+struct Wgmma<float, 128> {
+  __device__ __forceinline__ static void run(float (&d)[64], uint64_t a,
+                                             uint64_t b) {
+    FI_WGMMA("m64n128k8.f32.tf32.tf32", FI_R0_31 ", " FI_R32_63, 64, 65, 66,
+             "", FI_ACC32(0), FI_ACC32(32));
+  }
+};
+template <>
+struct Wgmma<float, 256> {
+  __device__ __forceinline__ static void run(float (&d)[128], uint64_t a,
+                                             uint64_t b) {
+    FI_WGMMA("m64n256k8.f32.tf32.tf32",
+             FI_R0_31 ", " FI_R32_63 ", " FI_R64_127, 128, 129, 130, "",
              FI_ACC32(0), FI_ACC32(32), FI_ACC32(64), FI_ACC32(96));
   }
 };
@@ -230,10 +288,12 @@ struct WgmmaTf32<256> {
 #undef FI_WGMMA_RS
 #undef FI_WGMMA
 #undef FI_ACC32
+#undef FI_ACC16
 #undef FI_ACC8
 #undef FI_R64_127
 #undef FI_R32_63
 #undef FI_R0_31
+#undef FI_R0_15
 
 typedef CUresult (*EncodeTiled)(CUtensorMap*, CUtensorMapDataType, cuuint32_t,
                                 void*, const cuuint64_t*, const cuuint64_t*,
@@ -277,5 +337,26 @@ bool encode(CUtensorMap* map, const void* base, int rank,
 // Devices whose per-device facts are kept after their first launch; a
 // device beyond them asks the runtime on every launch.
 constexpr int kMaxDevices = 64;
+
+// The device's SM count, asked once for each of the first kMaxDevices
+// devices.
+inline cudaError_t sm_count(int device, int* sms) {
+  static std::atomic<int> counts[kMaxDevices];
+  const bool kept = device >= 0 && device < kMaxDevices;
+  if (kept && (*sms = counts[device].load(std::memory_order_relaxed)) > 0) {
+    return cudaSuccess;
+  }
+  cudaError_t err =
+      cudaDeviceGetAttribute(sms, cudaDevAttrMultiProcessorCount, device);
+  if (err == cudaSuccess && kept) {
+    counts[device].store(*sms, std::memory_order_relaxed);
+  }
+  return err;
+}
+
+// Leaky relu in f32: JAX's where(v >= 0, v, slope v), gradient 1 at 0.
+__device__ __forceinline__ float leaky(float v, float slope) {
+  return v >= 0.f ? v : v * slope;
+}
 
 }  // namespace

@@ -10,7 +10,9 @@ levels share one.
 Flow values and the warp's coordinate math stay f32 under the bf16 policy.
 The first conv takes (A, warped B) as two pieces or as their concat, as
 `Options.split_convs` says (models/layers.py); the folded forms of the JAX
-package are TPU layouts and are not ported.
+package are TPU layouts and are not ported. Each conv and its leaky relu
+go through `Conv.conv_leaky`: on the card the 3x3 convs run as one kernel
+each (ops/conv3x3_pieces.py), the first on both pieces at once.
 """
 from __future__ import annotations
 
@@ -22,7 +24,7 @@ from torch import nn
 from ..ops import resize
 from ..ops import warp as warp_ops
 from ..options import Options
-from .layers import Conv, conv_input, leaky_relu
+from .layers import Conv, conv_input
 
 
 class FlowEstimator(nn.Module):
@@ -49,7 +51,7 @@ class FlowEstimator(nn.Module):
               features_b: torch.Tensor) -> torch.Tensor:
     net = conv_input([features_a, features_b], self.split_convs)
     for i in range(self.num_convs + 1):
-      net = leaky_relu(getattr(self, f'conv_{i}')(net))
+      net = getattr(self, f'conv_{i}').conv_leaky(net)
     return getattr(self, f'conv_{self.num_convs + 1}')(net.float())
 
 

@@ -42,7 +42,11 @@ nearest x2 and `conv_{i}_0` with its TF-SAME padding, as one kernel
 (ops/upconv2x2.py) where that kernel takes the call: bf16, or f32 while
 TF32 is allowed, and channel counts it tiles, so every level but the
 coarsest one's, whose input is the packed buffer. Elsewhere, and on the
-concat route, the upsample, the pad and the conv stay PyTorch ops. The
+concat route, the upsample, the pad and the conv stay PyTorch ops. Each
+level's two 3x3 convs and their leaky relus go through `Conv.conv_leaky`,
+on the card one kernel a conv (ops/conv3x3_pieces.py) where no gradient
+is asked for: `conv_{i}_1` on its two pieces at once, on the packed route
+packed from its gathered weights (`gathered`). The
 packed route records nothing for autograd: a warp into a buffer carries
 no gradient, the gathered weights are detached, and the upsampling kernel
 has no backward.
@@ -59,7 +63,7 @@ from ..ops import resize
 from ..ops import upconv2x2
 from ..ops import warp
 from ..options import Options
-from .layers import Conv, conv_input, leaky_relu
+from .layers import Conv, conv_input
 
 _NUMBER_OF_COLOR_CHANNELS = 3
 
@@ -239,8 +243,8 @@ class Fusion(nn.Module):
       net = self._upsample_conv(f'conv_{i}_0', net,
                                 (entry.shape[1], entry.shape[2]), packed)
       net = conv_input([entry, net], self.split_convs)
-      net = leaky_relu(self._conv(f'conv_{i}_1', net, packed))
-      net = leaky_relu(getattr(self, f'conv_{i}_2')(net))
+      net = self._conv(f'conv_{i}_1', net, packed, leaky=True)
+      net = getattr(self, f'conv_{i}_2').conv_leaky(net)
     return self.output_conv(net.float())
 
   def _upsample_conv(self, name: str, x: torch.Tensor, size: Tuple[int, int],
@@ -255,11 +259,16 @@ class Fusion(nn.Module):
       return upconv2x2.upconv2x2_kernel(x, conv.weight, conv.bias)
     return self._conv(name, resize.resize_nearest(x, size), packed)
 
-  def _conv(self, name: str, x, packed: bool) -> torch.Tensor:
-    # A conv that reads a packed aligned level takes its gathered weights.
+  def _conv(self, name: str, x, packed: bool,
+            leaky: bool = False) -> torch.Tensor:
+    # A conv that reads a packed aligned level takes its gathered weights;
+    # with `leaky`, the conv and its leaky relu (Conv.conv_leaky).
     conv = getattr(self, name)
-    if not packed or name not in self._packed_orders:
-      return conv(x)
-    pieces = [x] if isinstance(x, torch.Tensor) else x
-    return conv.conv(x, gathered(conv, self._packed_orders[name],
-                                 tuple(p.shape[-1] for p in pieces)))
+    weights = None
+    if packed and name in self._packed_orders:
+      pieces = [x] if isinstance(x, torch.Tensor) else x
+      weights = gathered(conv, self._packed_orders[name],
+                         tuple(p.shape[-1] for p in pieces))
+    if leaky:
+      return conv.conv_leaky(x, weights)
+    return conv(x) if weights is None else conv.conv(x, weights)

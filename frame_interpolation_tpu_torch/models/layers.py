@@ -18,6 +18,16 @@ the concat is never written. `should_split` says which form a call site
 takes. `Conv.conv` may also be given a weight a piece in place of the
 slices of its own (models/fusion.py, whose inference input holds its
 channels in another order than the weight's).
+
+`Conv.conv_leaky` is a conv followed by leaky relu, the form of every
+3x3 conv of the flow estimators and the fusion decoder. Where
+ops/conv3x3_pieces.engages says so (on the card, bf16 or TF32, no
+gradient asked for, no row shard, channel counts the kernel tiles) it
+runs as one kernel that sums the pieces in one f32 accumulator, with no
+rounding of partial outputs to the compute dtype, and adds the bias and
+applies the activation in f32 before y rounds once (the concat form's
+arithmetic, done once). Everywhere else it is `leaky_relu` of the conv
+above, op for op.
 """
 from __future__ import annotations
 
@@ -28,7 +38,7 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
-from ..ops import rows
+from ..ops import conv3x3_pieces, rows
 
 
 class _LeakyRelu(torch.autograd.Function):
@@ -63,7 +73,10 @@ def should_split(mode: str) -> bool:
   and the form the H100 ran faster (tools/split_convs.py, NVIDIA H100 80GB
   HBM3 at 700 W), at 54.9 ms a 1080p bf16 pair against 58.8 for the
   concat (torch.cat 10.6 ms against 15.0), with the film_net-L1 step
-  within noise (7.80 against 7.91 steps/s, runs spread 6.2-8.8)."""
+  within noise (7.80 against 7.91 steps/s, runs spread 6.2-8.8). Where
+  `Conv.conv_leaky` takes the kernel route (ops/conv3x3_pieces.py) both
+  forms run the same arithmetic: the pieces summed in f32 in one
+  accumulator, with no bf16 rounding of partial outputs."""
   return mode != 'off'
 
 
@@ -126,6 +139,20 @@ class Conv(nn.Module):
       raise ValueError(f'pieces of {offset} channels for a conv of '
                        f'{self.weight.shape[1]} input channels')
     return y + self.bias.to(self.compute_dtype)
+
+  def conv_leaky(self, x: Pieces,
+                 weights: Optional[Sequence[torch.Tensor]] = None
+                 ) -> torch.Tensor:
+    """leaky_relu(self(x)), or of `self.conv(x, weights)` where `weights`
+    replace the slices of the layer's weight. One kernel where
+    ops/conv3x3_pieces.engages (it packs its copy from the same weights);
+    else these ops."""
+    pieces = [x] if isinstance(x, torch.Tensor) else list(x)
+    if conv3x3_pieces.engages(pieces, self.weight, self.bias,
+                              self.compute_dtype):
+      return conv3x3_pieces.conv3x3_pieces_kernel(pieces, self.weight,
+                                                  self.bias, weights)
+    return leaky_relu(self(x) if weights is None else self.conv(x, weights))
 
   def _conv(self, x: torch.Tensor, weight: torch.Tensor,
             bias: torch.Tensor = None) -> torch.Tensor:

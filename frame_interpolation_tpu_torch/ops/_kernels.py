@@ -57,12 +57,16 @@ NVCC_FLAGS = (*ARCH_FLAGS, '-std=c++17', '-O3', '-Xcompiler', '-fPIC',
 # launches of conv3x3_c64 and conv3x3_wide that took the TF32 route (f32
 # under torch.backends.cudnn.allow_tf32; counted in both); upconv2x2: the
 # fusion decoder's nearest x2 upsample, TF-SAME pad and 2x2 conv in one
-# kernel (ops/upconv2x2.py; the JAX package leaves the step to XLA). All
-# other names in the JAX package.
+# kernel (ops/upconv2x2.py; the JAX package leaves the step to XLA);
+# conv3x3_pieces: the flow estimators' and the fusion decoder's 3x3 convs
+# with bias and leaky relu, their input in pieces (ops/conv3x3_pieces.py;
+# XLA's in the JAX package; not counted as conv3x3_tf32). All other names
+# in the JAX package.
 LAUNCHES: Dict[str, int] = {'warp': 0, 'warp_planes': 0, 'splat': 0,
                             'conv3x3_c64': 0, 'conv3x3_wide': 0,
                             'warp_rows': 0, 'warp_slice': 0,
-                            'conv3x3_tf32': 0, 'upconv2x2': 0}
+                            'conv3x3_tf32': 0, 'upconv2x2': 0,
+                            'conv3x3_pieces': 0}
 
 # Filled by the first library() call: 'path', 'seconds' (0.0 when the
 # library was already built) and 'log' (nvcc's -Xptxas -v report).
@@ -232,6 +236,17 @@ def _declare(lib: ctypes.CDLL) -> None:
     # stream
     fn.argtypes = [ptr, ptr, ptr, ptr, i32, i32, i32, i32, i32, ptr]
     fn.restype = i32
+  for name in ('fi_conv3x3_pieces_bf16', 'fi_conv3x3_pieces_tf32'):
+    fn = getattr(lib, name)
+    # x0, x1 (or NULL), C0, C1 (0 for one piece), w (packed), bias, out, N,
+    # H, W, Cout, slope, stream
+    fn.argtypes = [ptr, ptr, i32, i32, ptr, ptr, ptr, i32, i32, i32, i32,
+                   ctypes.c_float, ptr]
+    fn.restype = i32
+  # N, H, W, Cout -> *rows, *bn: the tile plan of both entry points above
+  i32_out = ctypes.POINTER(ctypes.c_int)
+  lib.fi_conv3x3_pieces_plan.argtypes = [i32, i32, i32, i32, i32_out, i32_out]
+  lib.fi_conv3x3_pieces_plan.restype = i32
   lib.fi_error_string.argtypes = [i32]
   lib.fi_error_string.restype = ctypes.c_char_p
 

@@ -1,14 +1,16 @@
 """The copies of conv weights that the conv kernels read, and the route
 that picks them.
 
-The hand-written convs (csrc/conv3x3.cu, csrc/upconv2x2.cu) and the
-fusion decoder's gathered convs (models/fusion.py) read their weights not
-as the layer's OIHW parameter but as a copy derived from it: packed
-K-major, in the compute dtype, rounded to TF32 on that route, or with
-input channels gathered into another order. Each copy is made once and
-kept here (`derived`) while its weight is unchanged, because a captured
-graph (utils/programs.py) reads it by address; a copy is made again after
-the weight is written to in place or moved.
+The hand-written convs (csrc/conv3x3.cu, csrc/upconv2x2.cu,
+csrc/conv3x3_pieces.cu) and the fusion decoder's gathered convs
+(models/fusion.py) read their weights not as the layer's OIHW parameter
+but as a copy derived from it: packed K-major, in the compute dtype,
+rounded to TF32 on that route, or with input channels gathered into
+another order. Each copy is made once and kept here (`derived`) while its
+weight is unchanged, because a captured graph (utils/programs.py) reads it
+by address; a copy is made again after the weight is written to in place
+or moved. A copy may be derived from another (the 3x3 pieces kernel's
+packed copy of the fusion's gathered weights).
 
 `route` is the one place under ops/ that reads
 `torch.backends.cudnn.allow_tf32`, the flag under which cuDNN runs
@@ -18,9 +20,10 @@ f32 runs on them in TF32 while the flag is set, else in exact f32.
 from __future__ import annotations
 
 import threading
-from typing import Callable, Hashable, TypeVar
+from typing import Callable, Hashable, Optional, Sequence, TypeVar
 
 import torch
+import torch.nn.functional as F
 from torch.utils.weak import WeakTensorKeyDictionary
 
 T = TypeVar('T')
@@ -46,7 +49,9 @@ def derived(weight: torch.Tensor, use: Hashable, make: Callable[[], T]) -> T:
   """`make()`, the copy of `weight` for `use`, made once a weight and use
   and again after the weight is written to in place or moved. A copy for
   one use never replaces the copy for another. Inference tensors keep no
-  version counter, so theirs is made at every call."""
+  version counter, so theirs is made at every call; the copies made here
+  are ordinary tensors, also under torch.inference_mode, so that a copy
+  derived from a copy is kept too."""
   if weight.is_inference():
     return make()
   key = (weight._version, weight.data_ptr(), weight.device)
@@ -54,7 +59,8 @@ def derived(weight: torch.Tensor, use: Hashable, make: Callable[[], T]) -> T:
     by_use = _DERIVED.setdefault(weight, {})
     cached = by_use.get(use)
     if cached is None or cached[0] != key:
-      cached = (key, make())
+      with torch.inference_mode(False):
+        cached = (key, make())
       by_use[use] = cached
     return cached[1]
 
@@ -69,11 +75,16 @@ def round_tf32(x: torch.Tensor) -> torch.Tensor:
   return ((bits + 0x1000) & -0x2000).view(torch.float32)
 
 
-def _pack(weight: torch.Tensor, dtype: torch.dtype,
-          route: str) -> torch.Tensor:
-  # K-major: row n holds the kh * kw * Cin weights of output channel n in
-  # the kernels' K order, tap (ky, kx) major and input channel minor.
-  packed = weight.detach().to(dtype).permute(0, 2, 3, 1).contiguous()
+def _pack(weights: Sequence[torch.Tensor], dtype: torch.dtype, route: str,
+          chunk: int = 1) -> torch.Tensor:
+  # K-major: row n holds the weights of output channel n in the kernels' K
+  # order, weight after weight, each tap (ky, kx) major and input channel
+  # minor, its channels padded with zero columns to a multiple of `chunk`.
+  # One weight keeps the shape (Cout, kh, kw, Cin); several are (Cout, K).
+  taps = [F.pad(w.detach().to(dtype).permute(0, 2, 3, 1),
+                (0, -w.shape[1] % chunk)) for w in weights]
+  packed = (taps[0] if len(taps) == 1 else
+            torch.cat([t.flatten(1) for t in taps], dim=1)).contiguous()
   return round_tf32(packed) if route == 'tf32' else packed
 
 
@@ -82,4 +93,26 @@ def packed(weight: torch.Tensor, dtype: torch.dtype,
   """The kernels' copy of OIHW `weight`: (Cout, kh, kw, Cin) in `dtype`,
   rounded to TF32 on the 'tf32' route (`route`)."""
   return derived(weight, ('packed', dtype, route),
-                 lambda: _pack(weight, dtype, route))
+                 lambda: _pack([weight], dtype, route))
+
+
+def packed_pieces(weight: torch.Tensor, channels: Sequence[int],
+                  dtype: torch.dtype, route: str, chunk: int,
+                  weights: Optional[Sequence[torch.Tensor]] = None
+                  ) -> torch.Tensor:
+  """The kernels' copy of OIHW `weight` for an input in pieces of
+  `channels` input channels: the pieces' weights packed one after another
+  along K, as `packed` packs one, each piece's channels padded with zero
+  columns to a multiple of `chunk`; (Cout, K) with K = sum over pieces of
+  kh * kw * padded channels. `weights`, one a piece, replace the slices of
+  `weight`: the tensors of one derived copy (models/fusion.gathered), whose
+  first keys the packed copy."""
+  if weights is None:
+    if sum(channels) != weight.shape[1]:
+      raise ValueError(f'pieces of {sum(channels)} channels for a conv of '
+                       f'{weight.shape[1]} input channels')
+    return derived(weight, ('pieces', tuple(channels), dtype, route, chunk),
+                   lambda: _pack(weight.split(list(channels), dim=1), dtype,
+                                 route, chunk).flatten(1))
+  return derived(weights[0], ('pieces', tuple(channels), dtype, route, chunk),
+                 lambda: _pack(weights, dtype, route, chunk).flatten(1))

@@ -12,12 +12,14 @@ import re
 import pytest
 import torch
 
-from frame_interpolation_tpu_torch.ops import (_kernels, conv_stack,
-                                              conv_weights, upconv2x2, warp)
+from frame_interpolation_tpu_torch.ops import (_kernels, conv3x3_pieces,
+                                              conv_stack, conv_weights,
+                                              upconv2x2, warp)
 
 _C_TYPES = {'const void*': ctypes.c_void_p, 'void*': ctypes.c_void_p,
             'const void* const*': ctypes.POINTER(ctypes.c_void_p),
-            'int': ctypes.c_int, 'float': ctypes.c_float}
+            'int': ctypes.c_int, 'int*': ctypes.POINTER(ctypes.c_int),
+            'float': ctypes.c_float}
 _C_RETURNS = {'int': ctypes.c_int, 'const char*': ctypes.c_char_p,
               'long long': ctypes.c_longlong}
 # What the recorder returns for an entry point that reports a size.
@@ -271,3 +273,38 @@ def test_upconv_wrapper_passes_what_the_entry_points_declare(
   assert args[3] == out.data_ptr()
   assert args[4:] == (2, 3, 5, 128, 64, 0)
   assert _kernels.LAUNCHES == {'upconv2x2': 1}
+
+
+@pytest.mark.parametrize('dtype,tf32,symbol', [
+    (torch.bfloat16, False, 'fi_conv3x3_pieces_bf16'),
+    (torch.bfloat16, True, 'fi_conv3x3_pieces_bf16'),
+    (torch.float32, True, 'fi_conv3x3_pieces_tf32')])
+@pytest.mark.parametrize('channels', [(144, 64), (32,)])
+def test_pieces_wrapper_passes_what_the_entry_points_declare(
+    monkeypatch, dtype, tf32, symbol, channels):
+  # fi_conv3x3_pieces_*: each piece (the second NULL, with 0 channels,
+  # where there is one), the pieces' channels, the weights packed (Cout,
+  # K) in the pieces' dtype (rounded to TF32 on that route), the bias in
+  # that dtype's value as f32, the output, then N, H, W, Cout, the slope
+  # and the stream.
+  library = _stub_library(monkeypatch, ['conv3x3_pieces'])
+  monkeypatch.setattr(torch.backends.cudnn, 'allow_tf32', tf32)
+  pieces = [torch.zeros(2, 3, 5, c, dtype=dtype) for c in channels]
+  weight = torch.nn.Parameter(torch.randn(64, sum(channels), 3, 3))
+  bias = torch.full((64,), 1.0 + 2.0**-12)
+  out = conv3x3_pieces.conv3x3_pieces_kernel(pieces, weight, bias)
+  assert out.shape == (2, 3, 5, 64) and out.dtype == dtype
+  assert [name for name, _ in library.log] == [symbol]
+  args = library.log[0][1]
+  route = 'bf16' if dtype == torch.bfloat16 else 'tf32'
+  chunk = conv3x3_pieces.CHUNK_CHANNELS[dtype]
+  packed = conv_weights.packed_pieces(weight, channels, dtype, route, chunk)
+  assert tuple(packed.shape) == (
+      64, sum(9 * -(-c // chunk) * chunk for c in channels))
+  second = (pieces[1].data_ptr(), channels[1]) if len(channels) > 1 else (
+      None, 0)
+  assert args[:4] == (pieces[0].data_ptr(), second[0], channels[0],
+                      second[1])
+  assert args[4] == packed.data_ptr() and args[6] == out.data_ptr()
+  assert args[7:] == (2, 3, 5, 64, 0.2, 0)
+  assert _kernels.LAUNCHES == {'conv3x3_pieces': 1}

@@ -16,13 +16,15 @@ a 16-byte boundary) and the run route (C = 1 and 3, the images, at even
 and odd offsets; a vector-sized C at an offset off the 16-byte grid;
 C = 67). The run route's warp and planes at C = 1 and 3 are held against
 their plain versions too. Then the released model's in-place forward
-against its concat path on the card.
+against its concat path on the card: its warps bit for bit where both
+routes run the 3x3 convs on the library ops, its image within 1% RMS
+with the kernel too.
 """
 import pytest
 import torch
 
 from frame_interpolation_tpu_torch.models import film_net
-from frame_interpolation_tpu_torch.ops import _kernels, warp
+from frame_interpolation_tpu_torch.ops import _kernels, conv3x3_pieces, warp
 from frame_interpolation_tpu_torch.options import Options
 
 SENTINEL = -7.0  # exact in bf16, outside the warp's range of [0, 1)
@@ -110,10 +112,16 @@ def test_narrow_channels_match_the_plain_warp_and_planes(card, dtype, bound,
 
 
 @pytest.mark.card
-def test_in_place_forward_matches_the_concat_path_on_the_card(card):
+def test_in_place_forward_matches_the_concat_path_on_the_card(card,
+                                                               monkeypatch):
   # The released model under the bf16 policy at 256x448: the in-place
   # route (inference) against the concat route (a grad-recording forward)
-  # on the same weights and frames.
+  # on the same weights and frames. The inference route also runs the flow
+  # estimators' and the decoder's 3x3 convs as one kernel each
+  # (ops/conv3x3_pieces.py), whose f32 sums round otherwise than the
+  # library ops of the grad-recording route: so the flows, and the warps
+  # that read them, are the same bits only with those convs on the library
+  # ops in both. Held first that way, then with the kernel.
   options = Options.film_net_released(dtype_policy='bfloat16')
   model = film_net.init_params(film_net.create_model(options),
                                torch.Generator().manual_seed(0)).to(card)
@@ -124,13 +132,25 @@ def test_in_place_forward_matches_the_concat_path_on_the_card(card):
   _kernels.reset_launch_counts()
   want = model(x0, x1, t)
   assert _kernels.launch_counts()['warp_slice'] == 0
+  ref = want['image'].detach()
+
+  def rel_rms(image):
+    return float((image - ref).pow(2).mean().sqrt() /
+                 ref.pow(2).mean().sqrt())
+
+  with monkeypatch.context() as patch:
+    patch.setattr(conv3x3_pieces, 'engages', lambda *args: False)
+    with torch.inference_mode():
+      got = model(x0, x1, t)
+  torch.cuda.synchronize()
+  assert _kernels.launch_counts()['warp_slice'] == 20
+  assert _kernels.launch_counts()['conv3x3_pieces'] == 0
+  for key in ('x0_warped', 'x1_warped'):
+    assert torch.equal(got[key], want[key].detach()), key
+  assert rel_rms(got['image']) <= 0.01, rel_rms(got['image'])
   with torch.inference_mode():
     got = model(x0, x1, t)
   torch.cuda.synchronize()
-  assert _kernels.launch_counts()['warp_slice'] == 20
-  for key in ('x0_warped', 'x1_warped'):
-    assert torch.equal(got[key], want[key].detach()), key
-  image, ref = got['image'], want['image'].detach()
-  rel_rms = float((image - ref).pow(2).mean().sqrt() /
-                  ref.pow(2).mean().sqrt())
-  assert rel_rms <= 0.01, rel_rms
+  assert _kernels.launch_counts()['warp_slice'] == 40
+  assert _kernels.launch_counts()['conv3x3_pieces'] == 50
+  assert rel_rms(got['image']) <= 0.01, rel_rms(got['image'])

@@ -1,5 +1,6 @@
 #!/usr/bin/env python3
-"""The conv kernel (csrc/conv3x3.cu) at every site of the main paths.
+"""The conv kernels (csrc/conv3x3.cu, csrc/conv3x3_pieces.cu) at every site
+of the main paths.
 
   python3 tools/conv_sites.py
 
@@ -17,13 +18,19 @@ allowed (PyTorch's default; the kernel's TF32 route) and with it off (the
 exact f32 route). Prints the host's time per kernel call, one line per
 distinct site (with the kernel's ratio to the library call's time and its
 share of the bound) and the totals per pair and per step, each naming the
-card and its power limit. Needs a GPU.
+card and its power limit. The same for the flow estimators' and the
+decoder's 3x3 convs of the pair (ops/conv3x3_pieces.py, recorded where
+`Conv.conv_leaky` takes the kernel), timed beside the library ops they
+replace: cuDNN's conv a piece with the bias, the sum of the partial
+outputs and the leaky relu (`leaky_relu(Conv.conv(pieces))`); and those
+of a UHD pair under the f32 policy with TF32 allowed (pair-4k-f32's
+route), beside the same library ops in cuDNN's TF32. Needs a GPU.
 
 It imports the port from the checkout it sits in, so a copy placed in
 another checkout's tools/ (an unpacked parent commit, say), with a copy of
 frame_interpolation_tpu_torch/utils/measure.py in that checkout's package,
 times that checkout's kernel in the same call, with the same timer and
-bounds.
+bounds (a checkout that has ops/conv3x3_pieces.py).
 """
 from __future__ import annotations
 
@@ -32,6 +39,7 @@ import contextlib
 import sys
 import time
 from pathlib import Path
+from typing import Callable, Tuple
 
 import numpy as np
 import torch
@@ -41,7 +49,8 @@ sys.path.insert(0, str(Path(__file__).resolve().parent.parent))
 
 from frame_interpolation_tpu_torch.inference import Interpolator  # noqa: E402
 from frame_interpolation_tpu_torch.models import create_model, init_params  # noqa: E402
-from frame_interpolation_tpu_torch.ops import conv_stack  # noqa: E402
+from frame_interpolation_tpu_torch.models import layers  # noqa: E402
+from frame_interpolation_tpu_torch.ops import conv3x3_pieces, conv_stack  # noqa: E402
 from frame_interpolation_tpu_torch.options import Options  # noqa: E402
 from frame_interpolation_tpu_torch.training import configs  # noqa: E402
 from frame_interpolation_tpu_torch.utils import measure  # noqa: E402
@@ -55,6 +64,18 @@ def card_line() -> str:
     raise SystemExit('conv_sites: torch.cuda.is_available() is false; this '
                      'script needs a CUDA GPU')
   return measure.card_line()
+
+
+@contextlib.contextmanager
+def tf32(allowed: bool):
+  """Sets torch.backends.cudnn.allow_tf32 (the conv kernels' f32 route
+  follows it) while it runs."""
+  saved = torch.backends.cudnn.allow_tf32
+  torch.backends.cudnn.allow_tf32 = allowed
+  try:
+    yield
+  finally:
+    torch.backends.cudnn.allow_tf32 = saved
 
 
 @contextlib.contextmanager
@@ -75,20 +96,41 @@ def recording(sites: collections.Counter):
     conv_stack.conv3x3_leaky = original
 
 
-def pair_sites() -> collections.Counter:
-  options = Options.film_net_released(dtype_policy='bfloat16')
+@contextlib.contextmanager
+def recording_pieces(sites: collections.Counter):
+  """Counts every call of the 3x3 pieces kernel while it runs, keyed by
+  its site: (N, H, W, the pieces' channels, Cout, dtype)."""
+  original = conv3x3_pieces.conv3x3_pieces_kernel
+
+  def record(pieces, weight, bias, weights=None, negative_slope=0.2):
+    n, h, w, _ = pieces[0].shape
+    sites[(n, h, w, tuple(p.shape[-1] for p in pieces), weight.shape[0],
+           pieces[0].dtype)] += 1
+    return original(pieces, weight, bias, weights, negative_slope)
+
+  conv3x3_pieces.conv3x3_pieces_kernel = record
+  try:
+    yield
+  finally:
+    conv3x3_pieces.conv3x3_pieces_kernel = original
+
+
+def pair_sites(policy: str = 'bfloat16', height: int = 1080,
+               width: int = 1920
+               ) -> Tuple[collections.Counter, collections.Counter]:
+  options = Options.film_net_released(dtype_policy=policy)
   model = init_params(create_model(options), torch.Generator().manual_seed(0))
   # Eager: a captured program's first call runs the forward twice (its
   # warm-up, then the capture), which would count each site twice.
   interpolator = Interpolator(model, options, align=64, device='cuda',
                               graphs=False)
   frames = torch.from_numpy(np.random.RandomState(0).rand(
-      2, 1, 1080, 1920, 3).astype(np.float32)).cuda()
-  sites = collections.Counter()
-  with recording(sites):
+      2, 1, height, width, 3).astype(np.float32)).cuda()
+  sites, pieces = collections.Counter(), collections.Counter()
+  with recording(sites), recording_pieces(pieces), tf32(True):
     interpolator.call_device(frames[0], frames[1],
                              torch.full((1,), 0.5, device='cuda'))
-  return sites
+  return sites, pieces
 
 
 def train_sites() -> collections.Counter:
@@ -105,7 +147,7 @@ def train_sites() -> collections.Counter:
   return sites
 
 
-def time_site(site: tuple, tf32: bool, rng) -> dict:
+def time_site(site: tuple, allow_tf32: bool, rng) -> dict:
   n, h, w, cin, cout, pool, dtype = site
   x = torch.from_numpy((rng.rand(n, h, w, cin) * 2 - 1).astype(
       np.float32)).to('cuda', dtype)
@@ -115,34 +157,66 @@ def time_site(site: tuple, tf32: bool, rng) -> dict:
   nchw = x.permute(0, 3, 1, 2)
   w_cl = weight.to(dtype).contiguous(memory_format=torch.channels_last)
   b_lib = bias.to(dtype)
-  saved = torch.backends.cudnn.allow_tf32
-  torch.backends.cudnn.allow_tf32 = tf32
-  try:
+  with tf32(allow_tf32):
     kernel_ms = measure.time_ms(
         lambda: conv_stack.conv3x3_leaky_kernel(x, weight, bias, pool), ITERS)
     library_ms = measure.time_ms(
         lambda: F.conv2d(nchw, w_cl, b_lib, padding=1), ITERS)
-  finally:
-    torch.backends.cudnn.allow_tf32 = saved
-  kind = 'tf32' if tf32 and dtype == torch.float32 else str(dtype)[6:]
+  kind = 'tf32' if allow_tf32 and dtype == torch.float32 else str(dtype)[6:]
   bound = measure.roofline(
       *measure.conv_cost(n, h, w, cin, cout, pool, x.element_size()),
       measure.PEAK_FLOPS[kind])
   return {'kind': kind, 'ms': kernel_ms, 'library_ms': library_ms, **bound}
 
 
-def report(label: str, unit: str, sites: collections.Counter, tf32: bool,
-           card: str) -> None:
+def time_pieces_site(site: tuple, rng) -> dict:
+  n, h, w, channels, cout, dtype = site
+  cin = sum(channels)
+  conv = layers.Conv(cin, cout, 3, dtype).cuda()
+  with torch.no_grad():
+    conv.weight.copy_(torch.from_numpy(
+        (rng.randn(cout, cin, 3, 3) * (9.0 * cin)**-0.5).astype(np.float32)))
+    conv.bias.copy_(torch.from_numpy(
+        (rng.randn(cout) * 0.1).astype(np.float32)))
+  pieces = [torch.from_numpy((rng.rand(n, h, w, c) * 2 - 1).astype(
+      np.float32)).to('cuda', dtype) for c in channels]
+  x = pieces if len(pieces) > 1 else pieces[0]
+  # f32 on the TF32 route, and the library ops in cuDNN's TF32.
+  with torch.no_grad(), tf32(True):
+    kernel_ms = measure.time_ms(lambda: conv3x3_pieces.conv3x3_pieces_kernel(
+        pieces, conv.weight, conv.bias), ITERS)
+    library_ms = measure.time_ms(lambda: layers.leaky_relu(conv.conv(x)),
+                                 ITERS)
+  kind = 'tf32' if dtype == torch.float32 else str(dtype)[6:]
+  bound = measure.roofline(
+      *measure.conv_cost(n, h, w, cin, cout, False, pieces[0].element_size()),
+      measure.PEAK_FLOPS[kind])
+  return {'kind': kind, 'ms': kernel_ms, 'library_ms': library_ms, **bound}
+
+
+def conv_name(site: tuple) -> str:
+  n, h, w, cin, cout, pool, _ = site
+  return f'{n}x{h}x{w} {cin}->{cout}{"+pool" if pool else ""}'
+
+
+def pieces_name(site: tuple) -> str:
+  n, h, w, channels, cout, _ = site
+  return f'{n}x{h}x{w} {"+".join(map(str, channels))}->{cout}'
+
+
+def report(label: str, unit: str, sites: collections.Counter, card: str,
+           time: Callable[[tuple, np.random.RandomState], dict],
+           name: Callable[[tuple], str]) -> None:
+  """A line for each distinct site of `sites` (site -> count), as `time`
+  measures it, largest extent first; then the totals."""
   rng = np.random.RandomState(0)
   totals = collections.Counter()
   for site, count in sorted(sites.items(), key=lambda s: -s[0][1] * s[0][2]):
-    n, h, w, cin, cout, pool, _ = site
-    r = time_site(site, tf32, rng)
+    r = time(site, rng)
     for key in ('ms', 'library_ms', 'bound_ms'):
       totals[key] += count * r[key]
-    print(f'site {label} {n}x{h}x{w} {cin}->{cout}{"+pool" if pool else ""} '
-          f'{r["kind"]} x{count}: kernel {r["ms"]:.4f} ms, library '
-          f'{r["library_ms"]:.4f} ms (kernel/library '
+    print(f'site {label} {name(site)} {r["kind"]} x{count}: kernel '
+          f'{r["ms"]:.4f} ms, library {r["library_ms"]:.4f} ms (kernel/library '
           f'{r["ms"] / r["library_ms"]:.3f}), bound {r["bound_ms"]:.4f} ms '
           f'({r["bound_by"]}), share {r["bound_ms"] / r["ms"]:.3f}')
   print(f'total {label}: {sum(sites.values())} sites, kernel '
@@ -191,10 +265,18 @@ def host_us_per_call(card: str, calls: int = 2000, busy_calls: int = 200
 def main() -> int:
   card = card_line()
   host_us_per_call(card)
-  report('pair', 'pair', pair_sites(), False, card)
+  sites, pieces = pair_sites()
+  report('pair', 'pair', sites, card,
+         lambda site, rng: time_site(site, False, rng), conv_name)
+  report('pair-pieces', 'pair', pieces, card, time_pieces_site, pieces_name)
+  _, pieces = pair_sites('float32', 2160, 3840)
+  report('pair-4k-f32-pieces', 'pair', pieces, card, time_pieces_site,
+         pieces_name)
   sites = train_sites()
-  report('train-tf32', 'step', sites, True, card)
-  report('train-f32', 'step', sites, False, card)
+  report('train-tf32', 'step', sites, card,
+         lambda site, rng: time_site(site, True, rng), conv_name)
+  report('train-f32', 'step', sites, card,
+         lambda site, rng: time_site(site, False, rng), conv_name)
   return 0
 
 

@@ -11,7 +11,8 @@ a `program_control` (the program's own path in the precision below its
 own, as configuration overrides), that program's readings; else the
 reference one precision below the configuration's (reference/lowp.py) in
 the program's place. For a training cell also the fault of half the
-batch left out, planted in the reference. One JSON line a seed and kind.
+batch left out, planted in the reference, in every checked step and in
+the replays alone. One JSON line a seed and kind.
 A benchmark run does not run this.
 """
 import argparse
@@ -98,10 +99,11 @@ def main() -> None:
       print(json.dumps({'seed': seed, 'kind': 'control', 'readings': control}),
             flush=True)
     if s in controls and workload['entry'] == 'train_step':
-      fault = {k: v for k, v, _ in driver.check(fault='half_batch')}
-      fault.update(driver.readings)
-      print(json.dumps({'seed': seed, 'kind': 'half_batch',
-                        'readings': fault}), flush=True)
+      for kind in ('half_batch', 'half_batch_replays'):
+        fault = {k: v for k, v, _ in driver.check(fault=kind)}
+        fault.update(driver.readings)
+        print(json.dumps({'seed': seed, 'kind': kind, 'readings': fault}),
+              flush=True)
     del driver
     torch.cuda.empty_cache()
 

@@ -18,9 +18,10 @@ training/augmentation_lib.py), with no kernel, graph or shared tower:
     conv{1..5}_2; y's towers carry no gradient;
   * Adam (beta 0.9, 0.999, epsilon 1e-7, the learning rate given).
 
-Every conv and the Gram products run in float32 with TF32 off, unless a
-`quant` is given (lowp.py): it then rounds each conv's and each Gram
-product's operands first, forward and backward.
+Every conv and the Gram products run in float32 as the switches outside
+say (the caller turns TF32 off, and may hand the convs to cuDNN's TF32,
+tf32_convs.py), unless a `quant` is given (lowp.py): it then rounds each
+conv's and each Gram product's operands first, forward and backward.
 """
 from __future__ import annotations
 
@@ -173,15 +174,15 @@ class Adam:
       params[k].sub_(lr * m_hat / (v_hat.sqrt() + EPSILON))
 
 
-def step(params: Dict[str, torch.Tensor], options: dict, adam: Adam,
-         batch: Dict[str, torch.Tensor], generator: torch.Generator,
-         loss_weights: Dict[str, float], lr: float, vgg_weights,
-         quant=None, keep: Optional[int] = None
-         ) -> Tuple[Dict[str, float], Dict[str, torch.Tensor]]:
-  """One training step on NHWC f32 `batch` (on the params' device):
-  augment, forward, weighted losses, backward, Adam. Returns the losses
-  (with 'total') and the gradients. `keep` trains on the batch's first
-  `keep` examples alone (a fault for the controls)."""
+def gradient(params: Dict[str, torch.Tensor], options: dict,
+             batch: Dict[str, torch.Tensor], generator: torch.Generator,
+             loss_weights: Dict[str, float], vgg_weights, quant=None,
+             keep: Optional[int] = None
+             ) -> Tuple[Dict[str, float], Dict[str, torch.Tensor]]:
+  """One step's losses (with 'total') and gradients at `params`, on NHWC
+  f32 `batch` (on the params' device): augment, forward, weighted losses,
+  backward. `keep` trains on the batch's first `keep` examples alone (a
+  fault for the controls)."""
   nchw = {k: batch[k].permute(0, 3, 1, 2) for k in ('x0', 'x1', 'y')}
   nchw = augment(nchw, draw(generator, nchw['y'].shape[0]))
   if keep is not None:
@@ -191,10 +192,21 @@ def step(params: Dict[str, torch.Tensor], options: dict, adam: Adam,
   values = losses(pred, nchw['y'], vgg_weights, quant)
   total = sum(loss_weights[k] * values[k] for k in values)
   grads = dict(zip(leaves, torch.autograd.grad(total, list(leaves.values()))))
-  with torch.no_grad():
-    adam.update(params, grads, lr)
   out = {k: float(v.detach()) for k, v in values.items()}
   out['total'] = float(total.detach())
+  return out, grads
+
+
+def step(params: Dict[str, torch.Tensor], options: dict, adam: Adam,
+         batch: Dict[str, torch.Tensor], generator: torch.Generator,
+         loss_weights: Dict[str, float], lr: float, vgg_weights,
+         quant=None, keep: Optional[int] = None
+         ) -> Tuple[Dict[str, float], Dict[str, torch.Tensor]]:
+  """`gradient`, then Adam: the losses and the gradients."""
+  out, grads = gradient(params, options, batch, generator, loss_weights,
+                        vgg_weights, quant, keep)
+  with torch.no_grad():
+    adam.update(params, grads, lr)
   return out, grads
 
 
@@ -234,23 +246,44 @@ def norm_gap(program: Dict[str, float], reference: Dict[str, float],
 
 def run(params: Dict[str, torch.Tensor], options: dict,
         batches: List[Dict[str, torch.Tensor]], generators, loss_weights,
-        lr: float, vgg_weights, quant=None, keep: Optional[int] = None
-        ) -> dict:
+        lr: float, vgg_weights, quant=None, keep: Optional[int] = None,
+        keep_from: int = 0, states: bool = False) -> dict:
   """The first len(batches) steps from `params` (updated in place):
-  each step's losses, the first gradient's leaf norms and the leaf norms
-  of the parameters' change."""
+  each step's losses and gradient leaf norms, the first gradient, and the
+  leaf norms of the parameters' change. `keep` applies from step
+  `keep_from` on. With `states`, also the parameters before each step
+  after the first (on the host), which `follow` starts from."""
   start = {k: v.clone() for k, v in params.items()}
   adam = Adam(params)
-  step_losses, first = [], None
+  step_losses, step_grads, before = [], [], []
   for i, (batch, generator) in enumerate(zip(batches, generators)):
+    if states and i:
+      before.append({k: v.to('cpu', copy=True) for k, v in params.items()})
     values, grads = step(params, options, adam, batch, generator,
-                         loss_weights[i], lr, vgg_weights, quant, keep)
+                         loss_weights[i], lr, vgg_weights, quant,
+                         keep if i >= keep_from else None)
     step_losses.append(values)
-    if first is None:
-      first = leaf_norms(grads)
+    step_grads.append(leaf_norms(grads))
+    if i == 0:
       first_grads = {k: v.cpu() for k, v in grads.items()}
     del grads
   change = leaf_norms({k: params[k] - start[k] for k in params})
-  return {'losses': step_losses, 'grad_norms': first, 'change_norms': change,
-          'grads': first_grads,
+  return {'losses': step_losses, 'grad_norms': step_grads[0],
+          'step_grad_norms': step_grads, 'change_norms': change,
+          'grads': first_grads, 'states': before,
           'params': {k: v.cpu() for k, v in params.items()}}
+
+
+def follow(states: List[Dict[str, torch.Tensor]], options: dict,
+           batches: List[Dict[str, torch.Tensor]], generators, loss_weights,
+           vgg_weights, device) -> List[dict]:
+  """Steps 1.. each from the parameters another run held before it
+  (`states[i - 1]` before step i): its losses and gradient leaf norms."""
+  out = []
+  for i, held in enumerate(states, start=1):
+    params = {k: v.to(device) for k, v in held.items()}
+    values, grads = gradient(params, options, batches[i], generators[i],
+                             loss_weights[i], vgg_weights)
+    out.append({'losses': values, 'grad_norms': leaf_norms(grads)})
+    del params, grads
+  return out

@@ -83,3 +83,30 @@ def test_train_half_batch(monkeypatch, tiny_vgg):
 
   monkeypatch.setattr(train_lib, 'batch_to_device', half)
   assert not _correct('train-style-256', seconds=0.5)
+
+
+def test_train_half_batch_in_the_replays(monkeypatch, tiny_vgg):
+  """Half the batch left out from the second step on, where the card
+  replays the captured step: the first step's numbers cannot see it, the
+  replays' own do."""
+  from frame_interpolation_tpu_torch.training import train_lib
+  to_device = train_lib.batch_to_device
+  calls = []
+
+  def half_after_the_first(batch, device):
+    calls.append(None)
+    out = to_device(batch, device)
+    if len(calls) == 1:
+      return out
+    return {k: v[:v.shape[0] // 2] for k, v in out.items()}
+
+  monkeypatch.setattr(train_lib, 'batch_to_device', half_after_the_first)
+  ctx = helpers.context('train-style-256', seconds=0.5)
+  outcome, checks = helpers.drive(ctx)
+  checks = {name: (value, limit) for name, value, limit in checks}
+  for name in ('first_loss_gap', 'grad_norm_gap_median'):
+    assert checks[name][0] <= checks[name][1], checks
+  assert not all(v <= limit for v, limit in checks.values()), checks
+  assert (checks['replay_loss_gap'][0] > checks['replay_loss_gap'][1] or
+          checks['replay1_grad_norm_gap_median'][0] >
+          checks['replay1_grad_norm_gap_median'][1]), checks

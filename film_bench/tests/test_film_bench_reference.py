@@ -101,21 +101,24 @@ def test_a_tiny_run_is_correct(cell, tiny_vgg):
 
 
 def test_the_train_reference_follows_the_port(tiny_vgg):
-  # Float32 on the CPU, the same arithmetic: the step's losses, the first
-  # gradient and the change agree to rounding.
+  # Float32 on the CPU, the same arithmetic: the steps' losses, their
+  # gradients (the first and each later one from the program's state) and
+  # the change agree to rounding.
   ctx = helpers.context('train-style-256', seconds=0.5)
   driver = bench.load_driver('train_step').Driver(ctx)
   driver.setup()
   driver.window()
   driver.release()
   driver.check()
-  for name in ('first_loss_gap', 'later_loss_gap', 'grad_norm_gap',
-               'change_norm_gap'):
+  for name in ('first_loss_gap', 'later_loss_gap', 'replay_loss_gap',
+               'grad_norm_gap', 'replay1_grad_norm_gap_median',
+               'replay2_grad_norm_gap_median', 'change_norm_gap'):
     assert driver.readings[name] < 1e-5, (name, driver.readings)
 
 
-@pytest.mark.parametrize('cell', ['pair-1080p', 'video-1080p-t3'])
-def test_the_control_is_not_correct(cell):
+@pytest.mark.parametrize('cell', ['pair-1080p', 'video-1080p-t3',
+                                  'train-style-256'])
+def test_the_control_is_not_correct(cell, tiny_vgg):
   """The reference one precision below the configuration's, in the
   program's place, fails at least one of the cell's numbers (at a test's
   size)."""
@@ -129,18 +132,19 @@ def test_the_control_is_not_correct(cell):
 
 
 @pytest.mark.card
-def test_the_train_check_tells_exact_f32_from_tf32(card):
-  """The training check's limits, set from exact-f32 runs, pass the
-  program in exact f32 and fail it where cuDNN and the port's conv take
-  TF32 (the configuration's own switches): on the card (TF32 exists only
-  there), at the released widths and a test's batch of 2 crops of
-  128x128."""
+def test_the_train_check_holds_each_precision_to_its_reference(card):
+  """The training check holds the program to a reference of the precision
+  its configuration states: the program in exact f32 passes against the
+  exact reference, the program as configured (cuDNN and the port's conv in
+  TF32) against the reference's TF32 convs, and the program's own bf16
+  path, one precision below, fails. On the card (TF32 exists only there),
+  at the cell's own sizes."""
   from film_bench import controls
   workload = bench.load_json('workloads', 'train-style-256')
   config = bench.load_json('configs', workload['config'])
-  workload['traffic'].update(crop=128, batch=2, pool=4)
   exact = {'cudnn_allow_tf32': False, 'matmul_allow_tf32': False}
-  for overrides, fails in ((exact, False), ({}, True)):
+  for overrides, correct in ((exact, True), ({}, True),
+                             (config['program_control'], False)):
     ctx = bench.Context(workload['name'], workload,
                         controls.overridden(config, overrides), 2**31 + 41,
                         0.5, False, card, 0.0)
@@ -149,4 +153,7 @@ def test_the_train_check_tells_exact_f32_from_tf32(card):
     driver.window()
     driver.release()
     checks = driver.check()
-    assert any(v > limit for _, v, limit in checks) == fails, checks
+    assert all(v <= limit for _, v, limit in checks) == correct, (
+        overrides, checks)
+    del driver
+    torch.cuda.empty_cache()

@@ -93,7 +93,7 @@ def test_the_span_readers_are_in_the_benchmark():
   listed = {m['name']: m for m in bench.benchmark()['per_layer']}
   for name in PAIR + VIDEO:
     cell = 'pair-1080p' if name.endswith('.pair') else 'video-1080p-t3'
-    assert listed[name]['workloads'] == [cell]
+    assert cell in listed[name]['workloads']
     assert callable(bench.load_reader(name).read)
 
 
